@@ -1,0 +1,36 @@
+"""Architecture registry of the port: ``get(arch)`` / ``get_smoke(arch)``
+(counterpart of ``repro.configs``).  Only llama3-8b is ported; the other
+architectures of ``repro`` raise ``NotImplementedError``."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS = ["llama3_8b"]
+
+#: every architecture ``repro`` registers; those not in ARCHS wait for a slice
+REPRO_ARCHS = [
+    "musicgen_large", "kimi_k2_1t_a32b", "dbrx_132b", "gemma2_2b", "llama3_8b",
+    "llama3_2_3b", "granite_34b", "hymba_1_5b", "llama3_2_vision_90b", "mamba2_780m",
+]
+
+ALIASES = {"llama3-8b": "llama3_8b"}
+
+
+def _mod(arch: str):
+    arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    if arch not in ARCHS:
+        if arch in REPRO_ARCHS:
+            raise NotImplementedError(f"architecture {arch!r} is not ported yet")
+        raise KeyError(f"unknown architecture {arch!r}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get(arch: str) -> ModelConfig:
+    return _mod(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    return _mod(arch).SMOKE

@@ -1,0 +1,48 @@
+"""``repro`` parameters -> the port's (numpy in, torch out).
+
+``params_from_numpy(tree, cfg)`` takes ``repro``'s parameter tree with every
+leaf as numpy: a plain array, or a packed leaf given as
+``{"bits", "fmt", "scale"}`` (a ``QTensor``'s fields).  Bits and scale are
+kept unchanged.  The caller converts from ``repro``; this module imports
+neither JAX nor ``repro``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import wire_format
+from repro_torch.device import resolve_device
+from repro_torch.quant.qtensor import QTensor
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+
+def _leaf(x, device):
+    if isinstance(x, dict) and set(x) == {"bits", "fmt", "scale"}:
+        wf = wire_format(x["fmt"])
+        bits = _tensor(x["bits"], device)
+        if wf.name not in ("bf16", "f32") and bits.dtype != wf.storage:
+            raise TypeError(f"{wf.name} bits must be {wf.storage}, got {bits.dtype}")
+        scale = None if x["scale"] is None else _tensor(x["scale"], device).to(torch.float32)
+        return QTensor(bits, wf.name, scale)
+    if isinstance(x, dict):
+        return {k: _leaf(v, device) for k, v in x.items()}
+    return _tensor(x, device)
+
+
+def params_from_numpy(tree: dict, cfg, *, device=None) -> dict:
+    """Port-side parameter tree on ``device`` (the card unless 'cpu')."""
+    dev = resolve_device(device)
+    out = _leaf(tree, dev)
+    emb = out["embed"]
+    if tuple(emb.shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embed shape {tuple(emb.shape)} does not match {cfg.name}")
+    return out

@@ -1,0 +1,138 @@
+"""Wire-format registry of the port: the flat formats t8, t16, e4m3, e5m2,
+bf16 and f32 (counterpart of ``repro.core.formats.WIRE_FORMATS`` and
+``wire_format``).  The block-scaled mx containers come with a later slice.
+
+``encode``/``decode`` are the plain PyTorch codecs with kernel clamp
+semantics, mapping float32 <-> bit patterns.  ``encode`` returns int64 codes
+(:meth:`WireFormat.pack` turns them into :attr:`WireFormat.storage`);
+``decode`` takes codes in any integer dtype.  ``code`` is the format's id in the CUDA kernels
+(``kernels/csrc/codec.cuh``); f32 has none, since no kernel moves it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from . import ofp8, takum
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class WireFormat:
+    """A machine number format the stack moves bits in.
+
+    ``special`` names the out-of-range semantics: ``nar`` (one NaR pattern,
+    finite overflow saturates), ``nan`` (no Inf, overflow becomes NaN, E4M3)
+    or ``inf`` (IEEE Inf/NaN: E5M2, bf16, f32).
+    """
+
+    name: str
+    nbits: int
+    family: str  # takum | ofp8 | ieee
+    special: str  # nar | nan | inf
+    code: Optional[int] = None
+    encode: Callable = dataclasses.field(repr=False, default=None)
+    decode: Callable = dataclasses.field(repr=False, default=None)
+
+    @property
+    def storage(self) -> torch.dtype:
+        """Narrowest unsigned container for the packed bit patterns."""
+        return {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}[self.nbits]
+
+    @property
+    def signed_storage(self) -> torch.dtype:
+        """Signed dtype of the same width.  CUDA builds of torch implement few
+        operators for uint16/uint32, so gathers and copies of packed bits run
+        on this view."""
+        return {8: torch.uint8, 16: torch.int16, 32: torch.int32}[self.nbits]
+
+    def pack(self, codes: torch.Tensor) -> torch.Tensor:
+        """int64 codes in [0, 2**nbits) -> a :attr:`storage` tensor (built
+        through the signed view, see :attr:`signed_storage`)."""
+        if self.nbits == 8:
+            return codes.to(torch.uint8)
+        wrapped = torch.where(codes >= 1 << (self.nbits - 1), codes - (1 << self.nbits), codes)
+        return wrapped.to(self.signed_storage).view(self.storage)
+
+
+def _takum_wire(n: int, code: int) -> WireFormat:
+    return WireFormat(
+        name=f"t{n}", nbits=n, family="takum", special="nar", code=code,
+        encode=lambda x: takum.takum_encode(x, n),
+        decode=lambda b: takum.takum_decode(b, n),
+    )
+
+
+def _ofp8_wire(fmt: str, code: int) -> WireFormat:
+    return WireFormat(
+        name=fmt, nbits=8, family="ofp8", special="nan" if fmt == "e4m3" else "inf",
+        code=code,
+        encode=lambda x: ofp8.encode(x, fmt),
+        decode=lambda b: ofp8.decode(b, fmt),
+    )
+
+
+def bf16_encode(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> bf16 bit patterns (int64): RNE on the bits, subnormals kept,
+    NaN -> sign | 0x7FC0 (what XLA's convert gives)."""
+    u = takum.f32_bits(x)
+    is_nan = (u & 0x7FFFFFFF) > 0x7F800000
+    rne = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+    return torch.where(is_nan, ((u >> 16) & 0x8000) | 0x7FC0, rne)
+
+
+def bf16_decode(bits: torch.Tensor) -> torch.Tensor:
+    """bf16 bit patterns -> float32 (a shift)."""
+    return takum.f32_from_bits((takum.codes_of(bits) & 0xFFFF) << 16)
+
+
+WIRE_FORMATS: dict[str, WireFormat] = {
+    wf.name: wf
+    for wf in [
+        WireFormat(
+            name="f32", nbits=32, family="ieee", special="inf",
+            encode=takum.f32_bits,
+            decode=lambda b: takum.f32_from_bits(takum.codes_of(b) & 0xFFFFFFFF),
+        ),
+        WireFormat(
+            name="bf16", nbits=16, family="ieee", special="inf", code=4,
+            encode=bf16_encode, decode=bf16_decode,
+        ),
+        _takum_wire(8, 0),
+        _takum_wire(16, 1),
+        _ofp8_wire("e4m3", 2),
+        _ofp8_wire("e5m2", 3),
+    ]
+}
+
+#: accepted spellings -> canonical registry names (bare ints are takum widths)
+WIRE_ALIASES = {
+    8: "t8",
+    16: "t16",
+    "takum8": "t8",
+    "takum16": "t16",
+    "float32": "f32",
+    "bfloat16": "bf16",
+    "ofp8_e4m3": "e4m3",
+    "ofp8_e5m2": "e5m2",
+}
+
+
+def wire_format(spec) -> WireFormat:
+    """Resolve a WireFormat | canonical name | alias | takum width -> entry."""
+    if isinstance(spec, WireFormat):
+        return spec
+    key = WIRE_ALIASES.get(spec, spec)
+    try:
+        return WIRE_FORMATS[key]
+    except (KeyError, TypeError):
+        raise KeyError(
+            f"unknown wire format {spec!r}; registered: {sorted(WIRE_FORMATS)}"
+        ) from None
+
+
+def kernel_wire_names() -> tuple[str, ...]:
+    """Formats the CUDA kernels move (every registered format with a code)."""
+    return tuple(name for name, wf in WIRE_FORMATS.items() if wf.code is not None)

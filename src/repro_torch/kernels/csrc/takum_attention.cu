@@ -1,0 +1,157 @@
+// K6: one-token GQA decode attention over a packed KV cache.
+//
+// Replaces the Pallas kernel src/repro/kernels/takum_attention.py:56
+// _decode_attn_kernel (entry takum_decode_attention :141) for the flat
+// formats, bits codec, without the out_fmt epilogue, and adds what the model
+// computes around it in jnp (src/repro/models/transformer.py:484-498): the
+// `length` bound (key position < length, i.e. kpos <= pos) over a
+// preallocated cache, the sliding `window` and `attn_softcap`.
+//
+// One block per (kv head, batch row) serves the g = H / Hkv query rows of
+// that kv head.  The TPU kernel walks S as a sequential grid axis with
+// (max, denom, acc) in VMEM scratch; here the block loops over S in tiles of
+// kTileS keys itself and keeps that state in shared memory.  Only tiles that
+// hold a valid key are visited: the valid keys are the contiguous range
+// [lo, length), lo = max(0, length - window) with a window, else 0, so the
+// first visited tile always has a finite logit and the running max is finite
+// from then on.  Invalid keys in a tile get logit -inf (weight 0) and their V
+// rows 0.0.  K and V are read through element strides, so the model passes
+// its [B, S, Hkv, d] cache slice as a permuted [B, Hkv, S, d] view with no
+// copy (the d axis must be unit-stride).
+//
+// Bound on the H100: bytes.  Each block reads its kv head's valid keys and
+// values once (1 or 2 bytes each) and does 4 * g flops per cache byte pair;
+// at B = 4, Hkv = 8 that is 32 blocks, so the kernel is latency-bound long
+// before it reaches 3.35 TB/s.  Splitting S across blocks comes later.
+#include <cmath>
+
+#include "codec.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kTileS = 32;     // keys per tile: one per lane in the row update
+
+template <int FMT>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>::storage* __restrict__ k,
+                   const typename repro::Wire<FMT>::storage* __restrict__ v, float* __restrict__ out,
+                   int H, int Hkv, int D, long long ksb, long long ksh, long long kss, long long vsb,
+                   long long vsh, long long vss, int length, int window, float scale, float softcap) {
+  extern __shared__ float smem[];
+  const int g = H / Hkv;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int ldk = D + 1;  // padded K rows: the logit loop reads across rows
+  float* q_s = smem;                      // [g][D]
+  float* acc_s = q_s + g * D;             // [g][D]
+  float* k_s = acc_s + g * D;             // [kTileS][D + 1]
+  float* v_s = k_s + kTileS * ldk;        // [kTileS][D]
+  float* p_s = v_s + kTileS * D;          // [g][kTileS]
+  float* m_s = p_s + g * kTileS;          // [g] running max
+  float* l_s = m_s + g;                   // [g] running denominator
+  float* a_s = l_s + g;                   // [g] rescale of this tile
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const float* qb = q + (static_cast<long long>(b) * H + static_cast<long long>(h) * g) * D;
+
+  for (int i = tid; i < g * D; i += kThreads) {
+    q_s[i] = qb[i];
+    acc_s[i] = 0.0f;
+  }
+  for (int i = tid; i < g; i += kThreads) {
+    m_s[i] = -INFINITY;
+    l_s[i] = 0.0f;
+  }
+  const int lo = window > 0 ? max(0, length - window) : 0;
+  const auto* kb = k + b * ksb + h * ksh;
+  const auto* vb = v + b * vsb + h * vsh;
+  __syncthreads();
+
+  for (int s0 = (lo / kTileS) * kTileS; s0 < length; s0 += kTileS) {
+    for (int i = tid; i < kTileS * D; i += kThreads) {
+      const int s = i / D, j = i % D;
+      const int kp = s0 + s;
+      const bool valid = kp >= lo && kp < length;
+      k_s[s * ldk + j] = valid ? repro::Wire<FMT>::decode(kb[kp * kss + j]) : 0.0f;
+      v_s[s * D + j] = valid ? repro::Wire<FMT>::decode(vb[kp * vss + j]) : 0.0f;
+    }
+    __syncthreads();
+    for (int i = tid; i < g * kTileS; i += kThreads) {
+      const int r = i / kTileS, s = i % kTileS;
+      const int kp = s0 + s;
+      float logit = -INFINITY;
+      if (kp >= lo && kp < length) {
+        float dot = 0.0f;
+        for (int j = 0; j < D; ++j) dot = fmaf(q_s[r * D + j], k_s[s * ldk + j], dot);
+        logit = dot * scale;
+        if (softcap > 0.0f) logit = softcap * tanhf(logit / softcap);
+      }
+      p_s[i] = logit;
+    }
+    __syncthreads();
+    for (int r = warp; r < g; r += kThreads / 32) {
+      const float logit = p_s[r * kTileS + lane];
+      float mx = logit;
+      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, off));
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float p = logit == -INFINITY ? 0.0f : expf(logit - m_new);
+      float sum = p;
+      for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xFFFFFFFFu, sum, off);
+      p_s[r * kTileS + lane] = p;
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);  // 0 on the first tile
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < g * D; i += kThreads) {
+      const int r = i / D, j = i % D;
+      float a = acc_s[i] * a_s[r];
+      for (int s = 0; s < kTileS; ++s) a = fmaf(p_s[r * kTileS + s], v_s[s * D + j], a);
+      acc_s[i] = a;
+    }
+    __syncthreads();
+  }
+
+  float* ob = out + (static_cast<long long>(b) * H + static_cast<long long>(h) * g) * D;
+  for (int i = tid; i < g * D; i += kThreads) ob[i] = acc_s[i] / l_s[i / D];
+}
+
+template <int FMT>
+int launch_attn(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
+                int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+                long long vss, int length, int window, float scale, float softcap,
+                cudaStream_t stream) {
+  using T = typename repro::Wire<FMT>::storage;
+  const int g = H / Hkv;
+  const size_t smem =
+      sizeof(float) * (2 * g * D + kTileS * (D + 1) + kTileS * D + g * kTileS + 3 * g);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_attn_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(Hkv, B);
+  decode_attn_kernel<FMT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<float*>(out), H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss, length, window, scale,
+      softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* out, int B,
+                                      int H, int Hkv, int D, long long ksb, long long ksh,
+                                      long long kss, long long vsb, long long vsh, long long vss,
+                                      int length, int window, float scale, float softcap, int fmt,
+                                      void* stream) {
+  REPRO_WIRE_DISPATCH(fmt, launch_attn, q, k, v, out, B, H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss,
+                      length, window, scale, softcap, static_cast<cudaStream_t>(stream))
+}

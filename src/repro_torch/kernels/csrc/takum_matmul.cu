@@ -1,0 +1,123 @@
+// K3: dequantising matmul out[M, N] = x[M, K] @ decode(w_bits[K, N]), f32.
+//
+// Replaces the Pallas kernel src/repro/kernels/takum_matmul.py:56
+// _mm_kernel(dual=False) (entry takum_matmul :166) for the flat formats,
+// bits codec, without the out_fmt epilogue.  The TPU kernel carries an f32
+// accumulator tile in VMEM across a sequential K grid axis; here each block
+// owns one output tile and loops over K itself, keeping the accumulators in
+// registers.
+//
+// Per K step a block stages an x tile (f32, or bf16 widened to f32) and a
+// w-bits tile, decoded by K0 into shared memory, then every thread runs
+// TM x TN f32 FMAs per k.  Out-of-range M/N lanes are never stored; K-edge
+// lanes are zero on BOTH operands, so a NaN in padding can never meet a 0.
+// No tensor cores: decoded t16 values carry up to 11 fraction bits and TF32
+// holds 10, so TF32 would round the weights.
+//
+// Bound on the H100: at the decode step's M = 4 the weight bytes (K*N*1 or
+// 2 bytes at 3.35 TB/s); at the prefill's M = 1024 the f32 FMAs (67 TFLOP/s
+// outside the tensor cores).  Two tilings: a 64 x 64 tile for large M and an
+// 8 x 32 tile for small M, which keeps more blocks in flight over N when a
+// 64-row tile would be mostly padding.  Both add the k terms of each output
+// in the same ascending order, so every output is the same either way.
+#include "codec.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <bool XBF16>
+__device__ __forceinline__ float load_x(const void* x, long long i) {
+  if constexpr (XBF16) {
+    return repro::bf16_decode(static_cast<const uint16_t*>(x)[i]);
+  } else {
+    return static_cast<const float*>(x)[i];
+  }
+}
+
+template <int FMT, bool XBF16, int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__(kThreads)
+mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* __restrict__ w,
+          float* __restrict__ out, int M, int N, int K) {
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one thread per TM x TN sub-tile");
+  __shared__ float xs[BK][BM];  // x tile, transposed: xs[k][m]
+  __shared__ float ws[BK][BN];  // decoded weight tile
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN);
+  const int ty = tid / (BN / TN);
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += kThreads) {
+      const int mm = i / BK, kk = i % BK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      xs[kk][mm] = (gm < M && gk < K) ? load_x<XBF16>(x, static_cast<long long>(gm) * K + gk) : 0.0f;
+    }
+    for (int i = tid; i < BK * BN; i += kThreads) {
+      const int kk = i / BN, nn = i % BN;
+      const int gk = k0 + kk, gn = n0 + nn;
+      ws[kk][nn] = (gk < K && gn < N)
+                       ? repro::Wire<FMT>::decode(w[static_cast<long long>(gk) * N + gn])
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx * TN + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx * TN + j;
+      if (gn < N) out[static_cast<long long>(gm) * N + gn] = acc[i][j];
+    }
+  }
+}
+
+template <int FMT, bool XBF16, int BM, int BN, int BK, int TM, int TN>
+int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, cudaStream_t stream) {
+  using T = typename repro::Wire<FMT>::storage;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  mm_kernel<FMT, XBF16, BM, BN, BK, TM, TN><<<grid, kThreads, 0, stream>>>(
+      x, static_cast<const T*>(w), static_cast<float*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FMT>
+int launch_mm(const void* x, const void* w, void* out, int M, int N, int K, int x_bf16,
+              cudaStream_t stream) {
+  if (M <= 16) {
+    return x_bf16 ? launch_tiled<FMT, true, 8, 32, 32, 1, 1>(x, w, out, M, N, K, stream)
+                  : launch_tiled<FMT, false, 8, 32, 32, 1, 1>(x, w, out, M, N, K, stream);
+  }
+  return x_bf16 ? launch_tiled<FMT, true, 64, 64, 16, 4, 4>(x, w, out, M, N, K, stream)
+                : launch_tiled<FMT, false, 64, 64, 16, 4, 4>(x, w, out, M, N, K, stream);
+}
+
+}  // namespace
+
+extern "C" int repro_matmul(const void* x, const void* w, void* out, int M, int N, int K,
+                            int x_bf16, int fmt, void* stream) {
+  REPRO_WIRE_DISPATCH(fmt, launch_mm, x, w, out, M, N, K, x_bf16,
+                      static_cast<cudaStream_t>(stream))
+}

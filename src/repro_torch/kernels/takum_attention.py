@@ -1,0 +1,97 @@
+"""K6: one-token GQA decode attention over a packed KV cache (counterpart
+of ``repro.kernels.takum_attention.takum_decode_attention`` without the
+``out_fmt`` epilogue), extended with what ``repro``'s model computes around
+it in jnp (``models/transformer.py:484-498``): a ``length`` bound over a
+preallocated cache, a sliding ``window`` and an attention-logit ``softcap``.
+
+``takum_decode_attention`` launches ``csrc/takum_attention.cu`` for CUDA
+tensors and takes ``decode_attention_plain`` for CPU tensors;
+``.launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import wire_format
+from . import _build
+from .common import kernel_format, stream_of
+
+
+def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
+    """[S] bool: key positions a query at position ``length - 1`` attends."""
+    kpos = torch.arange(S, device=device)
+    valid = kpos < length
+    if window > 0:
+        valid &= (length - 1 - kpos) < window
+    return valid
+
+
+def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
+                           scale=None) -> torch.Tensor:
+    """Plain PyTorch K6: q [B, H, d] f32, k/v bits [B, Hkv, S, d] -> [B, H, d]."""
+    B, H, d = q.shape
+    Hkv, S = k_bits.shape[1], k_bits.shape[2]
+    g = H // Hkv
+    length = S if length is None else length
+    scale = d ** -0.5 if scale is None else scale
+    dec = wire_format(fmt).decode
+    k = dec(k_bits)
+    v = dec(v_bits)
+    qg = q.to(torch.float32).reshape(B, Hkv, g, d)
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg, k) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    valid = _valid_keys(S, length, window, q.device)
+    logits = torch.where(valid, logits, torch.full_like(logits, float("-inf")))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, H, d)
+
+
+def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
+                           scale=None) -> torch.Tensor:
+    """K6: q [B, H, d] f32 against packed k/v [B, Hkv, S, d] -> [B, H, d] f32.
+
+    Keys at positions >= ``length`` (default S) are masked, and with
+    ``window > 0`` so are keys ``window`` or more positions before
+    ``length - 1``.  k/v may be strided views (the d axis unit-stride), e.g.
+    a [B, S, Hkv, d] cache slice permuted to [B, Hkv, S, d].
+    """
+    wf = kernel_format(fmt)
+    if q.dim() != 3 or k_bits.dim() != 4 or v_bits.shape != k_bits.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k_bits.shape)}, "
+                         f"v {tuple(v_bits.shape)}")
+    B, H, d = q.shape
+    Bk, Hkv, S, dk = k_bits.shape
+    if (Bk, dk) != (B, d) or Hkv == 0 or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match kv {tuple(k_bits.shape)}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"q must be float32, got {q.dtype}")
+    if k_bits.dtype != wf.storage or v_bits.dtype != wf.storage:
+        raise TypeError(f"k/v bits must be {wf.storage} for {wf.name}")
+    length = S if length is None else int(length)
+    if not 1 <= length <= S:
+        raise ValueError(f"length must be in [1, {S}], got {length}")
+    if window < 0 or softcap < 0:
+        raise ValueError("window and softcap must be >= 0")
+    scale = d ** -0.5 if scale is None else float(scale)
+    devs = {q.device, k_bits.device, v_bits.device}
+    if devs == {torch.device("cpu")}:
+        return decode_attention_plain(q, k_bits, v_bits, wf, length, window, softcap, scale)
+    if len(devs) != 1 or q.device.type != "cuda":
+        raise ValueError(f"q, k and v must share one CUDA device, got {devs}")
+    if not q.is_contiguous() or k_bits.stride(3) != 1 or v_bits.stride(3) != 1:
+        raise ValueError("q must be contiguous and k/v unit-stride along d")
+    out = torch.empty((B, H, d), dtype=torch.float32, device=q.device)
+    fn = _build.entry("repro_decode_attention")
+    _build.check(
+        fn(q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(), out.data_ptr(), B, H, Hkv, d,
+           *k_bits.stride()[:3], *v_bits.stride()[:3], length, int(window), scale,
+           float(softcap), wf.code, stream_of(q)),
+        "takum_decode_attention",
+    )
+    takum_decode_attention.launches += 1
+    return out
+
+
+takum_decode_attention.launches = 0

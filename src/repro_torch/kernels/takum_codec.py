@@ -1,0 +1,90 @@
+"""K1 / K2: element-wise wire-format decode and encode over [R, C]
+(counterpart of ``repro.kernels.takum_codec``).
+
+``takum_decode_2d`` / ``takum_encode_2d`` launch the CUDA kernels in
+``csrc/takum_codec.cu`` for a CUDA tensor and take the plain versions
+``decode_2d_plain`` / ``encode_2d_plain`` for a CPU tensor.  Each counts its
+kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import wire_format
+from . import _build
+from .common import kernel_format, stream_of
+
+
+def _check_2d(t: torch.Tensor, dtype, what: str) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"{what} must be 2-D, got shape {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+#: elements per slice of the plain codecs: their int64 temporaries take about
+#: 100 bytes per element, so a [4096, 128256] head stays in bounded memory
+_PLAIN_CHUNK = 1 << 24
+
+
+def _by_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """Apply the element-wise ``fn`` to ``x`` in slices along dim 0."""
+    if x.numel() <= _PLAIN_CHUNK:
+        return fn(x)
+    rows = max(1, _PLAIN_CHUNK // (x.numel() // x.shape[0]))
+    return torch.cat([fn(x[r:r + rows]) for r in range(0, x.shape[0], rows)])
+
+
+def decode_2d_plain(bits: torch.Tensor, fmt) -> torch.Tensor:
+    """Plain PyTorch K1: [R, C] packed bits -> [R, C] float32."""
+    return _by_rows(wire_format(fmt).decode, bits)
+
+
+def encode_2d_plain(x: torch.Tensor, fmt) -> torch.Tensor:
+    """Plain PyTorch K2: [R, C] float32 -> [R, C] packed bits (storage dtype)."""
+    wf = wire_format(fmt)
+    packed = _by_rows(lambda c: wf.pack(wf.encode(c)).view(wf.signed_storage),
+                      x.to(torch.float32))
+    return packed.view(wf.storage)
+
+
+def takum_decode_2d(bits: torch.Tensor, fmt) -> torch.Tensor:
+    """K1: [R, C] packed wire bits -> [R, C] float32 (kernel clamp semantics)."""
+    wf = kernel_format(fmt)
+    _check_2d(bits, wf.storage, "bits")
+    if bits.device.type == "cpu":
+        return decode_2d_plain(bits, wf)
+    if bits.device.type != "cuda":
+        raise ValueError(f"unsupported device {bits.device}")
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    if bits.numel():
+        fn = _build.entry("repro_decode")
+        _build.check(fn(bits.data_ptr(), out.data_ptr(), bits.numel(), wf.code,
+                        stream_of(bits)), "takum_decode_2d")
+        takum_decode_2d.launches += 1
+    return out
+
+
+def takum_encode_2d(x: torch.Tensor, fmt) -> torch.Tensor:
+    """K2: [R, C] float32 -> [R, C] packed wire bits; RNE, DAZ, saturation
+    (takum) or overflow to NaN/Inf (OFP8, bf16)."""
+    wf = kernel_format(fmt)
+    _check_2d(x, torch.float32, "x")
+    if x.device.type == "cpu":
+        return encode_2d_plain(x, wf)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = torch.empty(x.shape, dtype=wf.storage, device=x.device)
+    if x.numel():
+        fn = _build.entry("repro_encode")
+        _build.check(fn(x.data_ptr(), out.data_ptr(), x.numel(), wf.code, stream_of(x)),
+                     "takum_encode_2d")
+        takum_encode_2d.launches += 1
+    return out
+
+
+takum_decode_2d.launches = 0
+takum_encode_2d.launches = 0

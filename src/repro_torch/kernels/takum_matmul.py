@@ -1,0 +1,55 @@
+"""K3: dequantising matmul ``x[M, K] @ decode(w_bits[K, N])`` with f32
+accumulation (counterpart of ``repro.kernels.takum_matmul.takum_matmul``
+without the ``out_fmt`` epilogue).
+
+``takum_matmul`` launches ``csrc/takum_matmul.cu`` for CUDA tensors and
+takes ``takum_matmul_plain`` for CPU tensors; ``.launches`` counts the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .common import kernel_format, stream_of
+from .takum_codec import decode_2d_plain
+
+
+def takum_matmul_plain(x: torch.Tensor, w_bits: torch.Tensor, fmt) -> torch.Tensor:
+    """Plain PyTorch K3: decode the whole weight, then one f32 matmul."""
+    return torch.matmul(x.to(torch.float32), decode_2d_plain(w_bits, fmt))
+
+
+def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt) -> torch.Tensor:
+    """K3: x [M, K] f32/bf16 @ decode(w_bits [K, N]) -> [M, N] float32."""
+    wf = kernel_format(fmt)
+    if x.dim() != 2 or w_bits.dim() != 2 or x.shape[1] != w_bits.shape[0]:
+        raise ValueError(f"bad matmul shapes {tuple(x.shape)} @ {tuple(w_bits.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w_bits.dtype != wf.storage:
+        raise TypeError(f"w_bits must be {wf.storage} for {wf.name}, got {w_bits.dtype}")
+    if x.device.type == "cpu" and w_bits.device.type == "cpu":
+        return takum_matmul_plain(x, w_bits, wf)
+    if x.device.type != "cuda" or w_bits.device != x.device:
+        raise ValueError(f"x and w_bits must share one CUDA device, got {x.device}, {w_bits.device}")
+    if not (x.is_contiguous() and w_bits.is_contiguous()):
+        raise ValueError("x and w_bits must be contiguous")
+    M, K = x.shape
+    N = w_bits.shape[1]
+    if max(M, N, K) >= 2**31:
+        raise ValueError("matmul dims must fit in int32")
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if out.numel():
+        fn = _build.entry("repro_matmul")
+        _build.check(
+            fn(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), M, N, K,
+               int(x.dtype == torch.bfloat16), wf.code, stream_of(x)),
+            "takum_matmul",
+        )
+        takum_matmul.launches += 1
+    return out
+
+
+takum_matmul.launches = 0

@@ -1,0 +1,59 @@
+"""Common model layers (counterpart of ``repro.models.layers``): RMSNorm,
+RoPE, SwiGLU and ``linear`` over packed or plain weights."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.quant.qtensor import QTensor
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., K] @ w [K, N] in x's dtype with f32 accumulation.
+
+    A packed ``QTensor`` weight goes through K3 (``ops.matmul``), whose f32
+    output takes the pow2 scale (exact) and is then cast to x's dtype; K3
+    keeps the decoded weights in f32, where ``repro`` rounds them to x's
+    dtype first.  A plain (bf16/f32) weight is one ``torch.matmul`` in x's
+    dtype, as XLA does it in ``repro``.
+    """
+    if isinstance(w, QTensor) and w.fmt not in ("bf16", "f32"):
+        y = ops.matmul(x.reshape(-1, x.shape[-1]), w.bits, w.fmt)
+        if w.scale is not None:
+            y = y * w.scale
+        return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+    if isinstance(w, QTensor):
+        w = w.bits
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    s = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True) + eps)
+    return ((xf * s) * (1.0 + gamma.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x [..., S, H, D] (D even), positions [..., S].
+
+    The frequencies are ``exp(-log(theta) * i / half)`` in f32, the formula
+    of ``repro`` (not ``theta ** x``)."""
+    D = x.shape[-1]
+    half = D // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32, device=x.device))
+    freqs = torch.exp(-log_theta * (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def swiglu(x, wi, wg, wo) -> torch.Tensor:
+    g = linear(x, wg)
+    return linear(g * torch.sigmoid(g) * linear(x, wi), wo)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap and cap > 0 else x

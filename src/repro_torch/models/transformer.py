@@ -1,0 +1,268 @@
+"""Dense decoder with packed weights and a packed KV cache (counterpart of
+the dense path of ``repro.models.transformer``).
+
+Parameters keep ``repro``'s stacked layout: ``layers.attn.wq`` is
+``[L, d, H*hd]`` and so on, each packed leaf a :class:`QTensor` with one
+per-tensor pow2 scale over all layers.  The layers run as a Python loop over
+L (``repro`` scans them).
+
+On the card the serving path goes through the port's kernels: every linear
+over a packed weight is K3, the embedding rows are decoded by K1 (as are the
+packed norm gains, once per call), every KV append is K2 and the decode
+step reads the cache through K6.  The KV cache is updated IN PLACE
+(``repro`` is functional and returns a new cache): ``prefill`` fills a fresh
+cache and ``decode_step`` writes its slot into the cache it is given.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.formats import wire_format
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.quant.qtensor import QTensor
+from .attention import flash_attention
+from .config import ModelConfig
+from .layers import linear, rms_norm, rope, softcap, swiglu
+
+
+def _act_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.quant.activations == "bf16" else torch.float32
+
+
+def _packed(w) -> bool:
+    return isinstance(w, QTensor) and w.fmt not in ("bf16", "f32")
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                dtype=torch.float32) -> dict:
+    """Random parameters in ``repro``'s layout, drawn from a seeded
+    ``torch.Generator`` on ``device`` (the card unless ``device='cpu'``).
+    The draws differ from ``repro``'s jax PRNG; tests feed ``repro``'s
+    parameters through :func:`repro_torch.convert.params_from_numpy`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, L, V, dff = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype) * scale
+
+    p = {"embed": normal((V, d), d ** -0.5)}
+    p["layers"] = {
+        "ln1": torch.zeros((L, d), dtype=dtype, device=dev),
+        "ln2": torch.zeros((L, d), dtype=dtype, device=dev),
+        "attn": {
+            "wq": normal((L, d, H * hd), d ** -0.5),
+            "wk": normal((L, d, Kv * hd), d ** -0.5),
+            "wv": normal((L, d, Kv * hd), d ** -0.5),
+            "wo": normal((L, H * hd, d), (H * hd) ** -0.5),
+        },
+        "mlp": {
+            "wi": normal((L, d, dff), d ** -0.5),
+            "wg": normal((L, d, dff), d ** -0.5),
+            "wo": normal((L, dff, d), dff ** -0.5),
+        },
+    }
+    p["final_norm"] = torch.zeros((d,), dtype=dtype, device=dev)
+    p["lm_head"] = normal((d, V), d ** -0.5)
+    return p
+
+
+def _layer(tree, l: int):
+    """Layer ``l`` of a stacked parameter tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def _gain(g) -> torch.Tensor:
+    """Norm gains as a tensor.  Packed gains decode through K1 on every
+    call; ``serve.load_params`` decodes them once when the weights load."""
+    return g.dequantize() if isinstance(g, QTensor) else g
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
+    e = params["embed"]
+    if _packed(e):
+        wf = wire_format(e.fmt)
+        rows = e.bits.view(wf.signed_storage)[tokens].view(wf.storage)  # gather the bits
+        x = ops.decode(rows, wf)  # K1 on the gathered rows only
+        if e.scale is not None:
+            x = x * e.scale
+        return x.to(adt)
+    e = e.bits if isinstance(e, QTensor) else e
+    return e[tokens].to(adt)
+
+
+def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    return softcap(linear(x, params["lm_head"]).to(torch.float32), cfg.logit_softcap)
+
+
+def _block(cfg: ModelConfig, lp, gain1, gain2, x, positions):
+    """One decoder layer over [B, S, d].  Returns (x, k, v), k/v roped
+    [B, S, Kv, hd] in the activation dtype."""
+    B, S, _ = x.shape
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    in_dtype = x.dtype
+    a = lp["attn"]
+    h = rms_norm(x, gain1, cfg.norm_eps)
+    q = rope(linear(h, a["wq"]).reshape(B, S, H, hd), positions, cfg.rope_theta)
+    k = rope(linear(h, a["wk"]).reshape(B, S, Kv, hd), positions, cfg.rope_theta)
+    v = linear(h, a["wv"]).reshape(B, S, Kv, hd)
+    out = flash_attention(q, k, v, cfg.sliding_window, True, cfg.attn_softcap)
+    x = x + linear(out.reshape(B, S, H * hd), a["wo"])
+    m = lp["mlp"]
+    h2 = rms_norm(x, gain2, cfg.norm_eps)
+    x = (x + swiglu(h2, m["wi"], m["wg"], m["wo"])).to(in_dtype)
+    return x, k, v
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool = False,
+            on_kv=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] f32 (``last_only``: [B, 1, V], the
+    head applied to the last position only).  ``on_kv(l, k, v)`` receives
+    each layer's roped K and V [B, S, Kv, hd] (the prefill's cache fill)."""
+    B, S = tokens.shape
+    adt = _act_dtype(cfg)
+    x = _embed(params, tokens, adt)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    layers = params["layers"]
+    gains1, gains2 = _gain(layers["ln1"]), _gain(layers["ln2"])
+    for l in range(cfg.num_layers):
+        x, k, v = _block(cfg, _layer(layers, l), gains1[l], gains2[l], x, positions)
+        if on_kv is not None:
+            on_kv(l, k, v)
+    if last_only:
+        x = x[:, -1:]
+    x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
+    return _head(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# serving: packed KV cache, prefill + decode
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class KVCache:
+    """k, v: [L, B, S, Kv, hd] in the cache format's storage (takum/OFP8
+    bits, bf16 as torch.bfloat16); pos: the next position to write."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int = 0
+
+
+def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    wf = wire_format(cfg.quant.kv_cache)
+    if wf.code is None:
+        raise NotImplementedError(f"no K6 kernel reads a {wf.name} KV cache in this slice")
+    return torch.bfloat16 if wf.name == "bf16" else wf.storage
+
+
+def _cache_bits(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """The cache tensor as wire bits (a bf16 cache as a 16-bit view)."""
+    return t.view(wire_format(cfg.quant.kv_cache).storage)
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> KVCache:
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = _cache_dtype(cfg)
+    alloc = torch.int16 if dt == torch.uint16 else dt  # zero-fill the 16-bit bits signed
+    k = torch.zeros(shape, dtype=alloc, device=dev).view(dt)
+    v = torch.zeros(shape, dtype=alloc, device=dev).view(dt)
+    return KVCache(k=k, v=v, pos=0)
+
+
+def _encode_cache(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """KV entries -> cache storage through K2 (encoded at the producer)."""
+    fmt = cfg.quant.kv_cache
+    bits = ops.encode(x.to(torch.float32), fmt)
+    return bits.view(torch.bfloat16) if wire_format(fmt).name == "bf16" else bits
+
+
+def _decode_cache(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """Cache storage -> f32 through K1 (the model reads the cache via K6;
+    this is for inspection)."""
+    return ops.decode(_cache_bits(cfg, t).contiguous(), cfg.quant.kv_cache)
+
+
+def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy ``src`` into the cache slice ``dst`` (16-bit bits through a
+    signed view: CUDA builds of torch copy few unsigned 16-bit tensors)."""
+    if dst.dtype == torch.uint16:
+        dst, src = dst.view(torch.int16), src.view(torch.int16)
+    dst.copy_(src)
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | None = None):
+    """Forward over the prompt, filling a fresh packed KV cache.  Returns
+    (logits [B, V] of the last position, cache).  ``cache_len`` > S leaves
+    room for decode steps."""
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, cache_len or S, tokens.device)
+
+    def on_kv(l, k, v):
+        _put(cache.k[l, :, :S], _encode_cache(cfg, k))
+        _put(cache.v[l, :, :S], _encode_cache(cfg, v))
+
+    logits = forward(cfg, params, tokens, last_only=True, on_kv=on_kv)
+    cache.pos = S
+    return logits[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
+    """One decode step: token [B] -> (logits [B, V], cache).  Appends this
+    position's K/V to ``cache`` in place (before attention reads it, as
+    ``repro`` does) and advances ``cache.pos``."""
+    B = token.shape[0]
+    S = cache.k.shape[2]
+    pos = cache.pos
+    if pos >= S:
+        raise ValueError(f"KV cache is full ({S} positions)")
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    adt = _act_dtype(cfg)
+    x = _embed(params, token, adt)
+    positions = torch.full((B, 1), pos, device=token.device)
+    layers = params["layers"]
+    gains1, gains2 = _gain(layers["ln1"]), _gain(layers["ln2"])
+    for l in range(cfg.num_layers):
+        lp = _layer(layers, l)
+        a = lp["attn"]
+        in_dtype = x.dtype
+        h = rms_norm(x, gains1[l], cfg.norm_eps)[:, None]  # [B, 1, d]
+        q = rope(linear(h, a["wq"]).reshape(B, 1, H, hd), positions, cfg.rope_theta)
+        k_new = rope(linear(h, a["wk"]).reshape(B, 1, Kv, hd), positions, cfg.rope_theta)
+        v_new = linear(h, a["wv"]).reshape(B, 1, Kv, hd)
+        _put(cache.k[l, :, pos:pos + 1], _encode_cache(cfg, k_new))
+        _put(cache.v[l, :, pos:pos + 1], _encode_cache(cfg, v_new))
+        o = ops.decode_attention(
+            q[:, 0].to(torch.float32),
+            _cache_bits(cfg, cache.k[l]).permute(0, 2, 1, 3),  # [B, Kv, S, hd] view
+            _cache_bits(cfg, cache.v[l]).permute(0, 2, 1, 3),
+            cfg.quant.kv_cache, length=pos + 1, window=cfg.sliding_window,
+            softcap=cfg.attn_softcap, scale=hd ** -0.5,
+        )
+        x = x + linear(o.reshape(B, 1, H * hd).to(h.dtype), a["wo"])[:, 0]
+        m = lp["mlp"]
+        h2 = rms_norm(x, gains2[l], cfg.norm_eps)
+        x = (x + swiglu(h2, m["wi"], m["wg"], m["wo"])).to(in_dtype)
+    cache.pos = pos + 1
+    x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
+    return _head(cfg, params, x), cache

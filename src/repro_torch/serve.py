@@ -1,0 +1,77 @@
+"""Single-device serving steps (counterpart of ``repro.dist.step``'s
+``quantize_params`` / ``dequantize_params`` / ``make_prefill_step`` /
+``make_serve_step``).
+
+``repro``'s steps dequantize every packed weight before the jnp model runs;
+here the model consumes the packed weights directly (K3 reads the bits), so
+the steps pass the packed tree through.  ``load_params`` decodes, once, the
+few packed leaves that no kernel reads packed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import wire_format
+from repro_torch.models import transformer as T
+from repro_torch.quant.qtensor import QTensor, dequantize, quantize
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def quantize_params(cfg, params: dict) -> dict:
+    """Pack weights into ``cfg.quant.weights``.  IEEE formats are a plain
+    cast of every leaf.  Otherwise every leaf with ndim >= 2 (the embedding,
+    the stacked norm gains, every weight and the head) becomes a QTensor with
+    one pow2 scale per leaf, over all layers of a stacked leaf; 1-D leaves
+    stay f32.  Each leaf is packed through K2 on the card."""
+    wf = wire_format(cfg.quant.weights)
+    if wf.family == "ieee":
+        dt = torch.bfloat16 if wf.name == "bf16" else torch.float32
+        return _map(lambda a: a.to(dt), params)
+
+    def q(a):
+        if a.dim() >= 2:
+            return quantize(a.to(torch.float32), wf.name, scaled=True)
+        return a.to(torch.float32)
+
+    return _map(q, params)
+
+
+def dequantize_params(params: dict) -> dict:
+    """Inverse of :func:`quantize_params` (QTensor -> f32, rest unchanged)."""
+    return _map(lambda a: dequantize(a) if isinstance(a, QTensor) else a, params)
+
+
+def load_params(params: dict) -> dict:
+    """Make a packed tree ready to serve: decode, once and through K1, the
+    packed leaves that no matmul reads (the stacked norm gains
+    ``layers.ln1``/``ln2``).  Every other leaf is passed through as it is,
+    so the weights and the embedding stay packed."""
+    layers = {k: dequantize(v) if k in ("ln1", "ln2") and isinstance(v, QTensor) else v
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
+def make_prefill_step(cfg, cache_len: int | None = None):
+    """``step(params, batch) -> (last_logits [B, V], cache)``; ``batch`` holds
+    ``tokens`` [B, S].  ``cache_len`` sizes the cache for later decode steps."""
+
+    def step(params, batch):
+        return T.prefill(cfg, params, batch["tokens"], cache_len=cache_len)
+
+    return step
+
+
+def make_serve_step(cfg):
+    """``step(params, batch, cache) -> (logits [B, V], cache)`` for one token
+    (``batch["token"]`` [B]); the cache is updated in place."""
+
+    def step(params, batch, cache):
+        return T.decode_step(cfg, params, batch["token"], cache)
+
+    return step

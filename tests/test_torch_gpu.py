@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips where no CUDA device is present
+(this file imports neither JAX nor ``repro``, so it runs on a machine that
+has only PyTorch):
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Codecs must match bit for bit (NaN matches NaN).  K3 is held to
+4e-6 * (|x| @ |w|), the limit of chip_smoke.py (which reads a t16 kernel
+with bf16- or TF32-rounded operands above it), K6 to 1e-5 * max|v|.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.formats import wire_format
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
+from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
+from repro_torch.kernels.takum_matmul import takum_matmul, takum_matmul_plain
+
+FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g) * scale
+
+
+def _all_codes(wf):
+    c = torch.arange(1 << wf.nbits, dtype=torch.int64)
+    if wf.nbits == 16:
+        c = torch.where(c >= 1 << 15, c - (1 << 16), c)
+    return c.to(wf.signed_storage).view(wf.storage).reshape(-1, 64)
+
+
+def _same_f32(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS)
+def test_codec_kernels_bit_exact(cuda, fmt):
+    wf = wire_format(fmt)
+    codes = _all_codes(wf)
+    assert _same_f32(takum_decode_2d(codes.to(cuda), fmt).cpu(), takum_decode_2d(codes, fmt))
+    x = _rand((300, 70), 12, 4.0)
+    x[0, :4] = torch.tensor([float("inf"), float("nan"), 1e-40, -0.0])
+    got = takum_encode_2d(x.to(cuda), fmt).cpu()
+    assert torch.equal(got.view(wf.signed_storage), takum_encode_2d(x, fmt).view(wf.signed_storage))
+    # 2 M elements: more than the kernels' capped grid covers in one pass
+    x = _rand((2048, 1024), 18, 0.05)
+    bits = takum_encode_2d(x, fmt)
+    got = takum_encode_2d(x.to(cuda), fmt).cpu()
+    assert torch.equal(got.view(wf.signed_storage), bits.view(wf.signed_storage))
+    assert _same_f32(takum_decode_2d(bits.to(cuda), fmt).cpu(), takum_decode_2d(bits, fmt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS)
+def test_matmul_kernel_within_limit(cuda, fmt):
+    w = takum_encode_2d(_rand((130, 70), 13, 0.3), fmt)
+    wd = ref.codec_decode_ref(w, fmt)
+    for M, dt in ((4, torch.bfloat16), (37, torch.float32), (4, torch.float32),
+                  (37, torch.bfloat16)):
+        x = _rand((M, 130), 14).to(dt)
+        got = takum_matmul(x.to(cuda), w.to(cuda), fmt).cpu()
+        want = takum_matmul_plain(x, w, fmt)
+        bound = 4e-6 * (x.float().abs() @ wd.abs())
+        assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS)
+def test_decode_attention_kernel_masks_like_plain(cuda, fmt):
+    kv = takum_encode_2d(_rand((2 * 45 * 2, 16), 15), fmt).reshape(2, 45, 2, 16)
+    q = _rand((2, 4, 16), 16)
+    k = kv.permute(0, 2, 1, 3)
+    vmax = ref.codec_decode_ref(kv, fmt).abs().max()
+    for length, window, cap in ((40, 0, 0.0), (45, 30, 0.0), (7, 0, 3.0)):
+        got = takum_decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), fmt,
+                                     length=length, window=window, softcap=cap).cpu()
+        want = decode_attention_plain(q, k, k, fmt, length, window, cap)
+        assert (got - want).abs().max() <= 1e-5 * vmax
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_kernel_launches(cuda):
+    ops.reset_launch_counts()
+    x = _rand((4, 32), 17).to(cuda)
+    bits = ops.encode(x, "t8")
+    ops.decode(bits, "t8")
+    ops.matmul(x, bits.t().contiguous(), "t8")
+    kv = bits.reshape(1, 1, 4, 32)
+    ops.decode_attention(torch.zeros(1, 2, 32, device=cuda), kv, kv, "t8")
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
+    ops.reset_launch_counts()

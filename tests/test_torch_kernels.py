@@ -1,0 +1,183 @@
+"""The port's kernel entry points against ``repro``'s Pallas kernels.
+
+Here on the CPU the wrappers run their plain PyTorch versions; ``repro``'s
+kernels run in Pallas interpret mode.  Codecs (K1, K2) must match bit for
+bit.  Matmul (K3) and attention (K6) are compared at a tolerance because
+accumulation order differs between implementations (ROADMAP.md R1):
+
+  * K3: |port - repro| <= 1e-5 * (|x| @ |decode(w)|) elementwise, i.e. a few
+    f32 ulps of the magnitude the sum passes through;
+  * K6: |port - repro| <= 1e-5 * max|v|, softmax weights summing to one.
+
+``tests/test_torch_gpu.py`` holds the CUDA kernels against these plain
+versions on the card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro.core import formats as jformats
+from repro.kernels.takum_attention import takum_decode_attention as j_attention
+from repro.kernels.takum_codec import takum_decode_2d as j_decode_2d
+from repro.kernels.takum_codec import takum_encode_2d as j_encode_2d
+from repro.kernels.takum_matmul import takum_matmul as j_matmul
+from repro_torch.core.formats import wire_format
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.takum_attention import takum_decode_attention
+from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
+from repro_torch.kernels.takum_matmul import takum_matmul
+
+FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _bits(x, fmt):
+    """numpy f32 -> numpy packed bits via repro's registry encode."""
+    return np.array(jformats.wire_format(fmt).encode_jnp(jnp.asarray(x)))
+
+
+def _same_f32(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    return np.array_equal(nan_a, nan_b) and np.array_equal(
+        a[~nan_a].view(np.uint32), b[~nan_b].view(np.uint32))
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_codec_ops_match_pallas_bit_exact(fmt):
+    x = _rand((257, 129), 1, 3.0)
+    x.flat[0] = np.inf
+    x.flat[-1] = -0.0
+    want = np.array(j_encode_2d(jnp.asarray(x), fmt, encode_impl="bits"))
+    got = ops.encode(torch.from_numpy(x), fmt)
+    assert got.dtype == wire_format(fmt).storage
+    assert np.array_equal(got.numpy(), want)
+    want_d = np.asarray(j_decode_2d(jnp.asarray(want), fmt, decode_impl="bits"))
+    assert _same_f32(ops.decode(got, fmt).numpy(), want_d)
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_codec_ops_flatten_nd(fmt):
+    """1-D and 5-D inputs (the KV cache's [L, B, S, Kv, hd]) keep their shape
+    and equal the 2-D kernel on the flattened view."""
+    x = _rand((2, 3, 5, 2, 16), 2)
+    want = np.array(j_encode_2d(jnp.asarray(x.reshape(-1, 16)), fmt, encode_impl="bits"))
+    got = ops.encode(torch.from_numpy(x), fmt)
+    assert tuple(got.shape) == x.shape
+    assert np.array_equal(got.numpy().reshape(-1, 16), want)
+    assert tuple(ops.decode(got, fmt).shape) == x.shape
+    flat = ops.encode(torch.from_numpy(x.reshape(-1)), fmt)
+    assert np.array_equal(flat.numpy(), want.reshape(-1))
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [(4, 64, 48, "f32"), (37, 130, 70, "bf16")])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_matmul_matches_pallas(fmt, M, K, N, x_dtype):
+    x = _rand((M, K), 3)
+    w_bits = _bits(_rand((K, N), 4, 0.5), fmt)
+    jx = jnp.asarray(x, jnp.bfloat16 if x_dtype == "bf16" else jnp.float32)
+    want = np.array(j_matmul(jx, jnp.asarray(w_bits), fmt, bm=32, bn=128, bk=128,
+                               decode_impl="bits"))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    if x_dtype == "bf16":
+        tx = tx.to(torch.bfloat16)
+    got = ops.matmul(tx, torch.from_numpy(w_bits), fmt).numpy()
+    assert got.shape == (M, N) and got.dtype == np.float32
+    w = ref.codec_decode_ref(torch.from_numpy(w_bits), fmt).numpy()
+    bound = 1e-5 * (np.abs(tx.float().numpy()) @ np.abs(w))
+    assert (np.abs(got - want) <= bound).all()
+    assert np.array_equal(got, ref.takum_matmul_ref(tx, torch.from_numpy(w_bits), fmt).numpy())
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_decode_attention_matches_pallas(fmt):
+    B, H, Hkv, S, d = 2, 6, 2, 37, 24  # ragged S tile, GQA g = 3, d off the lane width
+    q = _rand((B, H, d), 5)
+    k_bits = _bits(_rand((B, Hkv, S, d), 6), fmt)
+    v_bits = _bits(_rand((B, Hkv, S, d), 7), fmt)
+    want = np.array(j_attention(jnp.asarray(q), jnp.asarray(k_bits), jnp.asarray(v_bits),
+                                  fmt, block_s=16, decode_impl="bits"))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k_bits, v_bits))
+    got = ops.decode_attention(tq, tk, tv, fmt).numpy()
+    vmax = np.abs(ref.codec_decode_ref(tv, fmt).numpy()).max()
+    assert np.abs(got - want).max() <= 1e-5 * vmax
+    assert np.allclose(got, ref.decode_attention_ref(tq, tk, tv, fmt).numpy(), rtol=0, atol=1e-6 * vmax)
+
+
+def _model_attention(q, k_cache, v_cache, fmt, pos, window, cap):
+    """transformer.py:484-498 of repro, as jnp: q [B, 1, H, hd] f32,
+    cache [B, S, Kv, hd] packed bits, decoded through repro's registry."""
+    wf = jformats.wire_format(fmt)
+    kf = wf.decode_jnp(jnp.asarray(k_cache))
+    vf = wf.decode_jnp(jnp.asarray(v_cache))
+    B, _, H, hd = q.shape
+    S, Kv = kf.shape[1], kf.shape[2]
+    kpos = jnp.arange(S)
+    valid = kpos <= pos
+    valid = jnp.where(window > 0, valid & ((pos - kpos) < window), valid)
+    g = H // Kv
+    kk = jnp.repeat(kf, g, axis=2)
+    vv = jnp.repeat(vf, g, axis=2)
+    logits = jnp.einsum("bqhd,bshd->bhqs", jnp.asarray(q), kk) * (hd ** -0.5)
+    logits = cap * jnp.tanh(logits / cap) if cap > 0 else logits
+    logits = jnp.where(valid[None, None, None, :], logits, -1e30)
+    p = jax.nn.softmax(logits, axis=-1)
+    return np.asarray(jnp.einsum("bhqs,bshd->bqhd", p, vv).reshape(B, H, hd))
+
+
+@pytest.mark.parametrize("pos,window,cap", [(20, 0, 0.0), (0, 0, 0.0), (40, 33, 2.0)])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_masked_decode_attention_matches_model_math(fmt, pos, window, cap):
+    """length < S over a zero-filled preallocated cache, sliding window and
+    softcap, read through the permuted [B, S, Kv, hd] cache view."""
+    B, S, Kv, H, hd = 2, 45, 2, 4, 16
+    q = _rand((B, 1, H, hd), 8)
+    cache_k = _bits(_rand((B, S, Kv, hd), 9), fmt)
+    cache_v = _bits(_rand((B, S, Kv, hd), 10), fmt)
+    cache_k[:, pos + 1:] = 0  # never written: bits 0 decode to 0.0
+    cache_v[:, pos + 1:] = 0
+    want = _model_attention(q, cache_k, cache_v, fmt, pos, window, cap)
+    tk = torch.from_numpy(cache_k).permute(0, 2, 1, 3)
+    tv = torch.from_numpy(cache_v).permute(0, 2, 1, 3)
+    got = ops.decode_attention(torch.from_numpy(q[:, 0]), tk, tv, fmt, length=pos + 1,
+                               window=window, softcap=cap, scale=hd ** -0.5).numpy()
+    vmax = np.abs(ref.codec_decode_ref(torch.from_numpy(cache_v), fmt).numpy()).max()
+    assert np.abs(got - want).max() <= 1e-5 * vmax
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        takum_encode_2d(x, "f32")
+    with pytest.raises(TypeError):
+        takum_decode_2d(torch.zeros(4, 8, dtype=torch.uint8), "t16")
+    with pytest.raises(ValueError):
+        takum_decode_2d(torch.zeros(8, dtype=torch.uint8), "t8")
+    with pytest.raises(ValueError):
+        takum_matmul(x, torch.zeros(4, 8, dtype=torch.uint8), "t8")
+    with pytest.raises(TypeError):
+        takum_matmul(x.to(torch.float16), torch.zeros(8, 4, dtype=torch.uint8), "t8")
+    kv = torch.zeros(1, 2, 5, 8, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        takum_decode_attention(torch.zeros(1, 4, 8), kv, kv, "t8", length=6)
+    with pytest.raises(ValueError):
+        takum_decode_attention(torch.zeros(1, 3, 8), kv, kv, "t8")
+
+
+def test_plain_path_counts_no_launches():
+    ops.reset_launch_counts()
+    x = torch.from_numpy(_rand((4, 32), 11))
+    bits = ops.encode(x, "t8")
+    ops.decode(bits, "t8")
+    ops.matmul(x, bits.t().contiguous(), "t8")
+    kv = bits.reshape(1, 1, 4, 32)
+    ops.decode_attention(torch.zeros(1, 2, 32), kv, kv, "t8")
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
