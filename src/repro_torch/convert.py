@@ -3,8 +3,11 @@
 ``params_from_numpy(tree, cfg)`` takes ``repro``'s parameter tree with every
 leaf as numpy: a plain array, or a packed leaf given as
 ``{"bits", "fmt", "scale"}`` (a ``QTensor``'s fields).  Bits and scale are
-kept unchanged.  The caller converts from ``repro``; this module imports
-neither JAX nor ``repro``.
+kept unchanged: a flat format's scale is its f32 power of two; an mx
+format's bits are the element bytes [..., n] and its scale the uint8 E8M0
+bytes [..., ceil(n/32)], which are interleaved into the port's payload.
+The caller converts from ``repro``; this module imports neither JAX nor
+``repro``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch.core.formats import wire_format
 from repro_torch.device import resolve_device
+from repro_torch.quant import blockscale
 from repro_torch.quant.qtensor import QTensor
 
 
@@ -31,6 +35,14 @@ def _leaf(x, device):
         bits = _tensor(x["bits"], device)
         if wf.name not in ("bf16", "f32") and bits.dtype != wf.storage:
             raise TypeError(f"{wf.name} bits must be {wf.storage}, got {bits.dtype}")
+        if wf.is_block_scaled:
+            scales = _tensor(x["scale"], device)
+            n = bits.shape[-1]
+            if scales.dtype != torch.uint8 or scales.shape != (*bits.shape[:-1], -(-n // 32)):
+                raise TypeError(f"{wf.name} scale must be uint8 [..., ceil(n/32)], got "
+                                f"{scales.dtype} {tuple(scales.shape)}")
+            payload = blockscale.pack_payload(scales, blockscale.pad_block(bits))
+            return QTensor.from_payload(payload, wf.name, n)
         scale = None if x["scale"] is None else _tensor(x["scale"], device).to(torch.float32)
         return QTensor(bits, wf.name, scale)
     if isinstance(x, dict):

@@ -1,12 +1,16 @@
-"""Wire-format registry of the port: the flat formats t8, t16, e4m3, e5m2,
-bf16 and f32 (counterpart of ``repro.core.formats.WIRE_FORMATS`` and
-``wire_format``).  The block-scaled mx containers come with a later slice.
+"""Wire-format registry of the port (counterpart of
+``repro.core.formats.WIRE_FORMATS`` and ``wire_format``): the flat formats
+t8, t16, e4m3, e5m2, bf16 and f32, and the OCP-MX block-scaled containers
+mxe4m3, mxe5m2 and mxt8 (:class:`BlockScaledFormat`).
 
 ``encode``/``decode`` are the plain PyTorch codecs with kernel clamp
-semantics, mapping float32 <-> bit patterns.  ``encode`` returns int64 codes
-(:meth:`WireFormat.pack` turns them into :attr:`WireFormat.storage`);
-``decode`` takes codes in any integer dtype.  ``code`` is the format's id in the CUDA kernels
-(``kernels/csrc/codec.cuh``); f32 has none, since no kernel moves it.
+semantics, mapping float32 <-> bit patterns.  A flat ``encode`` returns int64
+codes (:meth:`WireFormat.pack` turns them into :attr:`WireFormat.storage`);
+``decode`` takes codes in any integer dtype.  An mx ``encode`` maps f32
+``[..., n]`` (n a multiple of 32) to the interleaved uint8 payload
+``[..., n/32*33]`` and ``decode`` maps it back (``quant.blockscale``).
+``code`` is the format's id in the CUDA kernels (``kernels/csrc/codec.cuh``);
+f32 has none, since no kernel moves it.
 """
 
 from __future__ import annotations
@@ -48,6 +52,16 @@ class WireFormat:
         on this view."""
         return {8: torch.uint8, 16: torch.int16, 32: torch.int32}[self.nbits]
 
+    @property
+    def is_block_scaled(self) -> bool:
+        """True for the MX block-scaled containers (see the subclass)."""
+        return False
+
+    @property
+    def wire_bits_per_el(self) -> float:
+        """Wire bits per element, container overhead included."""
+        return float(self.nbits)
+
     def pack(self, codes: torch.Tensor) -> torch.Tensor:
         """int64 codes in [0, 2**nbits) -> a :attr:`storage` tensor (built
         through the signed view, see :attr:`signed_storage`)."""
@@ -55,6 +69,50 @@ class WireFormat:
             return codes.to(torch.uint8)
         wrapped = torch.where(codes >= 1 << (self.nbits - 1), codes - (1 << self.nbits), codes)
         return wrapped.to(self.signed_storage).view(self.storage)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockScaledFormat(WireFormat):
+    """OCP-MX container around an 8-bit element format: one E8M0 scale byte
+    per block of 32 elements, stored interleaved as 33-byte groups
+    ``[scale, e0..e31]``.  ``elem_emax`` is the exponent of the element
+    format's top binade, into which the scale drops each block's absmax
+    (e4m3 8, e5m2 15, t8 0).  ``nbits``/``storage`` describe the payload
+    bytes; the wire cost is :attr:`wire_bits_per_el` (8.25)."""
+
+    elem_name: str = ""
+    block: int = 32
+    elem_emax: int = 0
+
+    @property
+    def elem(self) -> WireFormat:
+        return WIRE_FORMATS[self.elem_name]
+
+    @property
+    def is_block_scaled(self) -> bool:
+        return True
+
+    @property
+    def wire_bits_per_el(self) -> float:
+        return self.nbits + 8.0 / self.block
+
+
+def _mx_wire(elem_name: str, elem_emax: int, code: int) -> BlockScaledFormat:
+    """The codec bodies live in ``repro_torch.quant.blockscale``, imported
+    when first called: quant sits above core."""
+    name = f"mx{elem_name}"
+
+    def _bs():
+        from repro_torch.quant import blockscale
+
+        return blockscale
+
+    return BlockScaledFormat(
+        name=name, nbits=8, family="mx", special="nan_block", code=code,
+        encode=lambda x: _bs().encode_payload(x, name),
+        decode=lambda p: _bs().decode_payload(p, name),
+        elem_name=elem_name, elem_emax=elem_emax,
+    )
 
 
 def _takum_wire(n: int, code: int) -> WireFormat:
@@ -104,6 +162,9 @@ WIRE_FORMATS: dict[str, WireFormat] = {
         _takum_wire(16, 1),
         _ofp8_wire("e4m3", 2),
         _ofp8_wire("e5m2", 3),
+        _mx_wire("e4m3", 8, 5),
+        _mx_wire("e5m2", 15, 6),
+        _mx_wire("t8", 0, 7),
     ]
 }
 
@@ -117,6 +178,10 @@ WIRE_ALIASES = {
     "bfloat16": "bf16",
     "ofp8_e4m3": "e4m3",
     "ofp8_e5m2": "e5m2",
+    "mxfp8": "mxe4m3",  # the OCP MXFP8 default element format
+    "mxfp8_e4m3": "mxe4m3",
+    "mxfp8_e5m2": "mxe5m2",
+    "mxtakum8": "mxt8",
 }
 
 

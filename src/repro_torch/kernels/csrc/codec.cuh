@@ -5,8 +5,13 @@
 //   src/repro/kernels/common.py:99  encode_takum_from_f32
 //   src/repro/core/ofp8.py:40,184   encode_jnp / decode_jnp (field pack/unpack)
 //   src/repro/core/formats.py:308   bf16 shift decode / RNE encode
+//   src/repro/kernels/lut.py:355    encode_epilogue's mx assembly, and
+//   src/repro/quant/blockscale.py   the OCP-MX container (E8M0 scale bytes,
+//                                   element cap, 33-byte [s, e0..e31] groups)
 // Pure integer work on __float_as_uint / __uint_as_float, so the results do
 // not depend on the float mode (the build uses no --use_fast_math: no FTZ).
+// The mx helpers flush to zero explicitly, on the exponent field, where the
+// reference (XLA's CPU backend, DAZ/FTZ) does.
 // The plain PyTorch twins are repro_torch/core/{takum,ofp8,formats}.py; the
 // CPU tests hold those against repro bit for bit, and chip_smoke.py holds
 // these against those.
@@ -18,7 +23,9 @@
 namespace repro {
 
 // format ids: repro_torch.core.formats.WireFormat.code
-enum WireCode : int { kT8 = 0, kT16 = 1, kE4M3 = 2, kE5M2 = 3, kBF16 = 4 };
+enum WireCode : int {
+  kT8 = 0, kT16 = 1, kE4M3 = 2, kE5M2 = 3, kBF16 = 4, kMXE4M3 = 5, kMXE5M2 = 6, kMXT8 = 7
+};
 
 // ---- takum (linear), n in {8, 16} -------------------------------------------
 
@@ -195,6 +202,106 @@ struct Wire<kBF16> {
   static __device__ __forceinline__ uint32_t encode(float x) { return bf16_encode(x); }
 };
 
+// ---- OCP-MX block-scaled containers: mxe4m3, mxe5m2, mxt8 ----------------------
+//
+// A payload row is groups of kMxGroup bytes [s, e0..e31]: one E8M0 scale
+// byte, then the 32 element bytes of its block.  Groups are 33 bytes, so
+// element bytes are not word aligned: they are read one byte at a time.
+
+constexpr int kMxBlock = 32;
+constexpr int kMxGroup = 33;
+constexpr uint32_t kE8M0NaN = 255u;
+
+template <int FMT>
+inline constexpr bool kIsMx = FMT == kMXE4M3 || FMT == kMXE5M2 || FMT == kMXT8;
+
+// byte offsets, within a payload row, of element j's scale and of element j
+__device__ __forceinline__ long long mx_scale_at(long long j) { return (j >> 5) * kMxGroup; }
+__device__ __forceinline__ long long mx_elem_at(long long j) {
+  return (j >> 5) * kMxGroup + 1 + (j & 31);
+}
+
+// E8M0 byte -> f32 scale 2^(b - 127); 255 -> NaN; 0 clamps to 2^-126
+__device__ __forceinline__ float e8m0_decode(uint32_t byte) {
+  if (byte == kE8M0NaN) return __uint_as_float(0x7FC00000u);
+  return __uint_as_float((byte < 1u ? 1u : byte) << 23);
+}
+
+// Scale byte from the bits of a block's absmax (|x| bits, max-reduced as
+// uint32: NaN > Inf > every finite value): the biased f32 exponent minus
+// the element's emax, clipped to [1, 254]; 127 for a zero or subnormal
+// absmax (the all-zero block); 255 for Inf or NaN (the NaN block).
+__device__ __forceinline__ uint32_t mx_scale_byte(uint32_t amax_bits, int elem_emax) {
+  const int e = static_cast<int>((amax_bits >> 23) & 0xFFu);
+  if (e == 0) return 127u;
+  if (e == 255) return kE8M0NaN;
+  const int b = e - elem_emax;
+  return static_cast<uint32_t>(b < 1 ? 1 : (b > 254 ? 254 : b));
+}
+
+// x * 2^k exactly, on the exponent field: a subnormal x, or an exact result
+// below 2^-126, gives signed zero (DAZ in, FTZ out, tininess before
+// rounding: what XLA's CPU backend gives for the reference's two-step pow2
+// multiply).  Inf/NaN pass through (their block is a NaN block).
+__device__ __forceinline__ float mul_pow2_ftz(float x, int k) {
+  const uint32_t u = __float_as_uint(x);
+  const int e = static_cast<int>((u >> 23) & 0xFFu);
+  if (e == 255) return x;
+  if (e == 0 || e + k <= 0) return __uint_as_float(u & 0x80000000u);
+  if (e + k >= 255) return __uint_as_float((u & 0x80000000u) | 0x7F800000u);
+  return __uint_as_float(u + (static_cast<uint32_t>(k) << 23));
+}
+
+// v * s in f32 with the product flushed to signed zero below 2^-126.  An
+// element carries at most 4 significant bits, so a product that is not
+// tiny is exact and one that is tiny cannot round up to 2^-126.
+__device__ __forceinline__ float mul_ftz(float v, float s) {
+  const uint32_t p = __float_as_uint(v * s);
+  return __uint_as_float((p & 0x7F800000u) == 0u ? (p & 0x80000000u) : p);
+}
+
+template <>
+struct Wire<kMXE4M3> {
+  using storage = uint8_t;
+  using Elem = Wire<kE4M3>;
+  static constexpr int kEmax = 8;
+  static __device__ __forceinline__ float cap() { return 448.0f; }
+};
+
+template <>
+struct Wire<kMXE5M2> {
+  using storage = uint8_t;
+  using Elem = Wire<kE5M2>;
+  static constexpr int kEmax = 15;
+  static __device__ __forceinline__ float cap() { return 57344.0f; }
+};
+
+template <>
+struct Wire<kMXT8> {
+  using storage = uint8_t;
+  using Elem = Wire<kT8>;
+  static constexpr int kEmax = 0;
+  static __device__ __forceinline__ float cap() { return 1.875f; }  // t8's top below 2
+};
+
+// one element of an mx block, decoded under its block's scale
+template <int FMT>
+__device__ __forceinline__ float mx_decode(uint32_t elem_bits, float scale) {
+  return mul_ftz(Wire<FMT>::Elem::decode(elem_bits), scale);
+}
+
+// one element of an mx block under scale byte `byte`: multiplied by
+// 2^(127 - byte), clamped to the element cap (NaN stays NaN, -0 stays -0),
+// encoded RNE; a NaN block stores element bits 0
+template <int FMT>
+__device__ __forceinline__ uint32_t mx_encode(float x, uint32_t byte) {
+  if (byte == kE8M0NaN) return 0u;
+  float xs = mul_pow2_ftz(x, 127 - static_cast<int>(byte));
+  const float cap = Wire<FMT>::cap();
+  xs = xs > cap ? cap : (xs < -cap ? -cap : xs);
+  return Wire<FMT>::Elem::encode(xs);
+}
+
 }  // namespace repro
 
 // Calls LAUNCH<FMT>(args...) for a runtime format id; unknown ids return
@@ -206,5 +313,8 @@ struct Wire<kBF16> {
     case repro::kE4M3: return LAUNCH<repro::kE4M3>(__VA_ARGS__);      \
     case repro::kE5M2: return LAUNCH<repro::kE5M2>(__VA_ARGS__);      \
     case repro::kBF16: return LAUNCH<repro::kBF16>(__VA_ARGS__);      \
+    case repro::kMXE4M3: return LAUNCH<repro::kMXE4M3>(__VA_ARGS__);  \
+    case repro::kMXE5M2: return LAUNCH<repro::kMXE5M2>(__VA_ARGS__);  \
+    case repro::kMXT8: return LAUNCH<repro::kMXT8>(__VA_ARGS__);      \
     default: return static_cast<int>(cudaErrorInvalidValue);          \
   }

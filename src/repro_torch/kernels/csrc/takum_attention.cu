@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/takum_attention.py:56
 // _decode_attn_kernel (entry takum_decode_attention :141) for the flat
-// formats, bits codec, without the out_fmt epilogue, and adds what the model
+// formats and the mx payloads (its payload path, :61, :82-99, :167-186),
+// bits codec, without the out_fmt epilogue, and adds what the model
 // computes around it in jnp (src/repro/models/transformer.py:484-498): the
 // `length` bound (key position < length, i.e. kpos <= pos) over a
 // preallocated cache, the sliding `window` and `attn_softcap`.
@@ -18,6 +19,13 @@
 // rows 0.0.  K and V are read through element strides, so the model passes
 // its [B, S, Hkv, d] cache slice as a permuted [B, Hkv, S, d] view with no
 // copy (the d axis must be unit-stride).
+//
+// An mx cache row is the payload of one (position, kv head): ceil(D/32)
+// groups [s, e0..e31], 132 B at D = 128.  Element j is read as a byte at
+// mx_elem_at(j) and scaled by the byte at mx_scale_at(j); the 32 lanes that
+// decode one group read its scale byte as one broadcast.  D need not be a
+// multiple of 32: only j < D is read, so the padded lanes of the last group
+// are dropped, as the reference drops them.
 //
 // Bound on the H100: bytes.  Each block reads its kv head's valid keys and
 // values once (1 or 2 bytes each) and does 4 * g flops per cache byte pair;
@@ -74,8 +82,19 @@ decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>:
       const int s = i / D, j = i % D;
       const int kp = s0 + s;
       const bool valid = kp >= lo && kp < length;
-      k_s[s * ldk + j] = valid ? repro::Wire<FMT>::decode(kb[kp * kss + j]) : 0.0f;
-      v_s[s * D + j] = valid ? repro::Wire<FMT>::decode(vb[kp * vss + j]) : 0.0f;
+      if constexpr (repro::kIsMx<FMT>) {
+        const auto* kr = kb + kp * kss;
+        const auto* vr = vb + kp * vss;
+        k_s[s * ldk + j] = valid ? repro::mx_decode<FMT>(kr[repro::mx_elem_at(j)],
+                                                         repro::e8m0_decode(kr[repro::mx_scale_at(j)]))
+                                 : 0.0f;
+        v_s[s * D + j] = valid ? repro::mx_decode<FMT>(vr[repro::mx_elem_at(j)],
+                                                       repro::e8m0_decode(vr[repro::mx_scale_at(j)]))
+                               : 0.0f;
+      } else {
+        k_s[s * ldk + j] = valid ? repro::Wire<FMT>::decode(kb[kp * kss + j]) : 0.0f;
+        v_s[s * D + j] = valid ? repro::Wire<FMT>::decode(vb[kp * vss + j]) : 0.0f;
+      }
     }
     __syncthreads();
     for (int i = tid; i < g * kTileS; i += kThreads) {

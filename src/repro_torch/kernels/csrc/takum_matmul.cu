@@ -1,8 +1,9 @@
 // K3: dequantising matmul out[M, N] = x[M, K] @ decode(w_bits[K, N]), f32.
 //
 // Replaces the Pallas kernel src/repro/kernels/takum_matmul.py:56
-// _mm_kernel(dual=False) (entry takum_matmul :166) for the flat formats,
-// bits codec, without the out_fmt epilogue.  The TPU kernel carries an f32
+// _mm_kernel(dual=False) (entry takum_matmul :166) for the flat formats and
+// the mx payloads (its `mx` branch, :61-80, :111-132), bits codec, without
+// the out_fmt epilogue.  The TPU kernel carries an f32
 // accumulator tile in VMEM across a sequential K grid axis; here each block
 // owns one output tile and loops over K itself, keeping the accumulators in
 // registers.
@@ -20,6 +21,13 @@
 // 8 x 32 tile for small M, which keeps more blocks in flight over N when a
 // 64-row tile would be mostly padding.  Both add the k terms of each output
 // in the same ascending order, so every output is the same either way.
+//
+// An mx weight is the payload [K, ceil(N/32)*33], blocked along N: row k
+// holds the groups [s, e0..e31] of columns 32g..32g+31.  N need not be a
+// multiple of 32; the padded columns of the last group are never decoded or
+// stored.  Each K step first stages the tile's (k, group) scales in shared
+// memory, one load per pair (BN = 32: one group per weight row; BN = 64:
+// two), then decodes every element byte under its staged scale.
 #include "codec.cuh"
 
 namespace {
@@ -42,6 +50,7 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
   static_assert((BM / TM) * (BN / TN) == kThreads, "one thread per TM x TN sub-tile");
   __shared__ float xs[BK][BM];  // x tile, transposed: xs[k][m]
   __shared__ float ws[BK][BN];  // decoded weight tile
+  __shared__ float ss[BK][BN / 32];  // mx: the tile's (k, group) scales
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
@@ -59,12 +68,31 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
       const int gm = m0 + mm, gk = k0 + kk;
       xs[kk][mm] = (gm < M && gk < K) ? load_x<XBF16>(x, static_cast<long long>(gm) * K + gk) : 0.0f;
     }
-    for (int i = tid; i < BK * BN; i += kThreads) {
-      const int kk = i / BN, nn = i % BN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      ws[kk][nn] = (gk < K && gn < N)
-                       ? repro::Wire<FMT>::decode(w[static_cast<long long>(gk) * N + gn])
-                       : 0.0f;
+    if constexpr (repro::kIsMx<FMT>) {
+      const long long ldw = static_cast<long long>((N + 31) / 32) * repro::kMxGroup;
+      for (int i = tid; i < BK * (BN / 32); i += kThreads) {
+        const int kk = i / (BN / 32), gg = i % (BN / 32);
+        const int gk = k0 + kk, gn = n0 + gg * 32;
+        ss[kk][gg] = (gk < K && gn < N)
+                         ? repro::e8m0_decode(w[gk * ldw + repro::mx_scale_at(gn)])
+                         : 0.0f;
+      }
+      __syncthreads();
+      for (int i = tid; i < BK * BN; i += kThreads) {
+        const int kk = i / BN, nn = i % BN;
+        const int gk = k0 + kk, gn = n0 + nn;
+        ws[kk][nn] = (gk < K && gn < N)
+                         ? repro::mx_decode<FMT>(w[gk * ldw + repro::mx_elem_at(gn)], ss[kk][nn / 32])
+                         : 0.0f;
+      }
+    } else {
+      for (int i = tid; i < BK * BN; i += kThreads) {
+        const int kk = i / BN, nn = i % BN;
+        const int gk = k0 + kk, gn = n0 + nn;
+        ws[kk][nn] = (gk < K && gn < N)
+                         ? repro::Wire<FMT>::decode(w[static_cast<long long>(gk) * N + gn])
+                         : 0.0f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -116,6 +144,8 @@ int launch_mm(const void* x, const void* w, void* out, int M, int N, int K, int 
 
 }  // namespace
 
+// N is the logical column count (for an mx weight, the payload row holds
+// ceil(N/32) groups)
 extern "C" int repro_matmul(const void* x, const void* w, void* out, int M, int N, int K,
                             int x_bf16, int fmt, void* stream) {
   REPRO_WIRE_DISPATCH(fmt, launch_mm, x, w, out, M, N, K, x_bf16,

@@ -3,18 +3,23 @@
 ``decode_attention``.
 
 Each op takes a wire-format handle (a registered name such as 't8', 'e4m3',
-'bf16', a :class:`~repro_torch.core.formats.WireFormat`, or a bare takum
-width).  ``encode``/``decode`` take any rank >= 1 and flatten to 2-D for the
-element-wise K1/K2 kernels.
+'bf16', 'mxe4m3', a :class:`~repro_torch.core.formats.WireFormat`, or a bare
+takum width).  ``encode``/``decode`` take any rank >= 1 and flatten to 2-D
+for the K1/K2 kernels.  For the block-scaled mx formats the last axis is the
+interleaved payload (n elements <-> n/32*33 bytes); a malformed payload or an
+encode input that is not whole 32-element blocks raises here, before any
+kernel or plain version sees it.
 
 On CUDA tensors the ops launch the kernels; on CPU tensors the kernel
-wrappers take their plain versions.  ``use_kernels(False)`` routes every op
-through the plain versions on any device: it is the explicit reference mode
+wrappers take their plain versions.  Inside ``with plain_path():`` every op
+takes its plain version on any device: it is the explicit reference mode
 ``chip_smoke.py`` holds the kernel path against, never a fallback taken on
 an error.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -23,7 +28,9 @@ from .takum_attention import decode_attention_plain, takum_decode_attention
 from .takum_codec import decode_2d_plain, encode_2d_plain, takum_decode_2d, takum_encode_2d
 from .takum_matmul import takum_matmul, takum_matmul_plain
 
-_USE_KERNELS = True
+#: None: the ops launch the kernels; else they take the plain versions,
+#: the plain matmul accumulating in this dtype (see :func:`plain_path`)
+_PLAIN_ACC = None
 
 #: every kernel wrapper of this slice; each carries a ``.launches`` count
 KERNELS = {
@@ -34,10 +41,18 @@ KERNELS = {
 }
 
 
-def use_kernels(flag: bool) -> None:
-    """Route the ops through the kernels (True, default) or the plain versions."""
-    global _USE_KERNELS
-    _USE_KERNELS = bool(flag)
+@contextlib.contextmanager
+def plain_path(acc: torch.dtype = torch.float32):
+    """Route every op through its plain version inside the ``with`` block.
+    ``acc=torch.float64`` accumulates the plain matmuls in float64, an
+    equally valid summation order: how far that moves a model's logits is
+    the model's own sensitivity to order."""
+    global _PLAIN_ACC
+    saved, _PLAIN_ACC = _PLAIN_ACC, acc
+    try:
+        yield
+    finally:
+        _PLAIN_ACC = saved
 
 
 def launch_counts() -> dict[str, int]:
@@ -61,32 +76,69 @@ def _as_2d(x: torch.Tensor):
     return x.reshape(-1, x.shape[-1]), x.shape
 
 
+def _reshape_back(out: torch.Tensor, shape) -> torch.Tensor:
+    """Undo :func:`_as_2d`, keeping the codec's last axis (an mx encode
+    grows it by 33/32, a decode shrinks it)."""
+    return out if shape is None else out.reshape(*shape[:-1], out.shape[-1])
+
+
+def _check_mx_payload(bits: torch.Tensor, wf, what: str) -> None:
+    """An mx payload is whole 33-byte ``[scale | 32 elems]`` groups on its
+    last axis; anything else is truncated or misaligned and would shear
+    scale bytes into element lanes, so it is rejected."""
+    if not wf.is_block_scaled or bits.dim() == 0:
+        return
+    L = bits.shape[-1]
+    if L == 0 or L % 33:
+        raise ValueError(
+            f"{what} for block-scaled format {wf.name!r} has last dim {L}, not a "
+            f"(nonzero) multiple of 33: the payload is truncated or misaligned")
+
+
+def _check_mx_encode_input(x: torch.Tensor, wf) -> None:
+    """An mx encode quantises whole 32-element blocks of the last axis
+    (callers that own the logical shape pad with ``blockscale.pad_block``)."""
+    if not wf.is_block_scaled or x.dim() == 0:
+        return
+    n = x.shape[-1]
+    if n == 0 or n % 32:
+        raise ValueError(
+            f"encode to block-scaled format {wf.name!r} needs a last dim that is a "
+            f"(nonzero) multiple of 32, got {n} (zero-pad with blockscale.pad_block)")
+
+
 def encode(x: torch.Tensor, fmt) -> torch.Tensor:
-    """float32 [...] -> packed wire bits of the same shape (K2)."""
+    """float32 [...] -> packed wire bits of the same shape (K2); an mx format
+    gives the payload, last dim n -> n/32*33."""
     wf = wire_format(fmt)
     if x.dim() == 0:
         raise ValueError("encode takes rank >= 1")
+    _check_mx_encode_input(x, wf)
     x2, shape = _as_2d(x.to(torch.float32).contiguous())
-    out = takum_encode_2d(x2, wf) if _USE_KERNELS else encode_2d_plain(x2, wf)
-    return out if shape is None else out.reshape(shape)
+    out = takum_encode_2d(x2, wf) if _PLAIN_ACC is None else encode_2d_plain(x2, wf)
+    return _reshape_back(out, shape)
 
 
 def decode(bits: torch.Tensor, fmt) -> torch.Tensor:
-    """Packed wire bits [...] -> float32 of the same shape (K1)."""
+    """Packed wire bits [...] -> float32 of the same shape (K1); an mx
+    payload's last dim L becomes L/33*32."""
     wf = wire_format(fmt)
     if bits.dim() == 0:
         raise ValueError("decode takes rank >= 1")
+    _check_mx_payload(bits, wf, "decode payload")
     b2, shape = _as_2d(bits.contiguous())
-    out = takum_decode_2d(b2, wf) if _USE_KERNELS else decode_2d_plain(b2, wf)
-    return out if shape is None else out.reshape(shape)
+    out = takum_decode_2d(b2, wf) if _PLAIN_ACC is None else decode_2d_plain(b2, wf)
+    return _reshape_back(out, shape)
 
 
-def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt) -> torch.Tensor:
-    """x [M, K] @ decode(w_bits [K, N]) -> [M, N] float32 (K3)."""
+def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None) -> torch.Tensor:
+    """x [M, K] @ decode(w_bits [K, N]) -> [M, N] float32 (K3).  An mx
+    ``w_bits`` is the payload [K, ceil(N/32)*33]; ``n`` is its logical N."""
     wf = wire_format(fmt)
-    if _USE_KERNELS:
-        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf)
-    return takum_matmul_plain(x, w_bits, wf)
+    _check_mx_payload(w_bits, wf, "matmul w_bits")
+    if _PLAIN_ACC is None:
+        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n)
+    return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC)
 
 
 def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0.0,
@@ -94,5 +146,7 @@ def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0
     """One-token GQA decode attention over a packed KV cache (K6); see
     :func:`~repro_torch.kernels.takum_attention.takum_decode_attention`."""
     wf = wire_format(fmt)
-    fn = takum_decode_attention if _USE_KERNELS else decode_attention_plain
+    _check_mx_payload(k_bits, wf, "decode_attention k_bits")
+    _check_mx_payload(v_bits, wf, "decode_attention v_bits")
+    fn = takum_decode_attention if _PLAIN_ACC is None else decode_attention_plain
     return fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale)

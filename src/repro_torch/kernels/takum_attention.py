@@ -4,6 +4,10 @@ of ``repro.kernels.takum_attention.takum_decode_attention`` without the
 it in jnp (``models/transformer.py:484-498``): a ``length`` bound over a
 preallocated cache, a sliding ``window`` and an attention-logit ``softcap``.
 
+With an mx cache format, K/V are interleaved payloads [B, Hkv, S,
+ceil(d/32)*33] blocked along d; the padded d lanes of the last block are
+dropped (d need not be a multiple of 32).
+
 ``takum_decode_attention`` launches ``csrc/takum_attention.cu`` for CUDA
 tensors and takes ``decode_attention_plain`` for CPU tensors;
 ``.launches`` counts the kernel launches.
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import wire_format
+from repro_torch.quant import blockscale
 from . import _build
 from .common import kernel_format, stream_of
 
@@ -29,15 +34,16 @@ def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
 
 def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
                            scale=None) -> torch.Tensor:
-    """Plain PyTorch K6: q [B, H, d] f32, k/v bits [B, Hkv, S, d] -> [B, H, d]."""
+    """Plain PyTorch K6: q [B, H, d] f32, k/v bits [B, Hkv, S, d] (an mx
+    payload [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d]."""
     B, H, d = q.shape
     Hkv, S = k_bits.shape[1], k_bits.shape[2]
     g = H // Hkv
     length = S if length is None else length
     scale = d ** -0.5 if scale is None else scale
     dec = wire_format(fmt).decode
-    k = dec(k_bits)
-    v = dec(v_bits)
+    k = dec(k_bits)[..., :d]  # an mx payload decodes to padded d: drop the padding
+    v = dec(v_bits)[..., :d]
     qg = q.to(torch.float32).reshape(B, Hkv, g, d)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg, k) * scale
     if softcap > 0:
@@ -50,7 +56,8 @@ def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softca
 
 def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
                            scale=None) -> torch.Tensor:
-    """K6: q [B, H, d] f32 against packed k/v [B, Hkv, S, d] -> [B, H, d] f32.
+    """K6: q [B, H, d] f32 against packed k/v [B, Hkv, S, d] (an mx payload
+    [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d] f32.
 
     Keys at positions >= ``length`` (default S) are masked, and with
     ``window > 0`` so are keys ``window`` or more positions before
@@ -63,7 +70,8 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
                          f"v {tuple(v_bits.shape)}")
     B, H, d = q.shape
     Bk, Hkv, S, dk = k_bits.shape
-    if (Bk, dk) != (B, d) or Hkv == 0 or H % Hkv:
+    dk_want = blockscale.payload_len(d) if wf.is_block_scaled else d
+    if (Bk, dk) != (B, dk_want) or Hkv == 0 or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match kv {tuple(k_bits.shape)}")
     if q.dtype != torch.float32:
         raise TypeError(f"q must be float32, got {q.dtype}")
@@ -81,7 +89,7 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"q, k and v must share one CUDA device, got {devs}")
     if not q.is_contiguous() or k_bits.stride(3) != 1 or v_bits.stride(3) != 1:
-        raise ValueError("q must be contiguous and k/v unit-stride along d")
+        raise ValueError("q must be contiguous and k/v unit-stride along their last axis")
     out = torch.empty((B, H, d), dtype=torch.float32, device=q.device)
     fn = _build.entry("repro_decode_attention")
     _build.check(

@@ -1,5 +1,7 @@
-"""K1 / K2: element-wise wire-format decode and encode over [R, C]
-(counterpart of ``repro.kernels.takum_codec``).
+"""K1 / K2: wire-format decode and encode over [R, C] (counterpart of
+``repro.kernels.takum_codec``).  Flat formats map [R, C] bits <-> [R, C]
+f32 element by element; the mx containers map an interleaved payload
+[R, C/32*33] <-> [R, C] f32 (encode needs C % 32 == 0).
 
 ``takum_decode_2d`` / ``takum_encode_2d`` launch the CUDA kernels in
 ``csrc/takum_codec.cu`` for a CUDA tensor and take the plain versions
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import wire_format
+from repro_torch.quant import blockscale
 from . import _build
 from .common import kernel_format, stream_of
 
@@ -39,12 +42,14 @@ def _by_rows(fn, x: torch.Tensor) -> torch.Tensor:
 
 
 def decode_2d_plain(bits: torch.Tensor, fmt) -> torch.Tensor:
-    """Plain PyTorch K1: [R, C] packed bits -> [R, C] float32."""
+    """Plain PyTorch K1: [R, C] packed bits (an mx payload [R, C/32*33]) ->
+    [R, C] float32."""
     return _by_rows(wire_format(fmt).decode, bits)
 
 
 def encode_2d_plain(x: torch.Tensor, fmt) -> torch.Tensor:
-    """Plain PyTorch K2: [R, C] float32 -> [R, C] packed bits (storage dtype)."""
+    """Plain PyTorch K2: [R, C] float32 -> [R, C] packed bits (storage dtype),
+    or the mx payload [R, C/32*33]."""
     wf = wire_format(fmt)
     packed = _by_rows(lambda c: wf.pack(wf.encode(c)).view(wf.signed_storage),
                       x.to(torch.float32))
@@ -52,17 +57,20 @@ def encode_2d_plain(x: torch.Tensor, fmt) -> torch.Tensor:
 
 
 def takum_decode_2d(bits: torch.Tensor, fmt) -> torch.Tensor:
-    """K1: [R, C] packed wire bits -> [R, C] float32 (kernel clamp semantics)."""
+    """K1: [R, C] packed wire bits (an mx payload [R, C/32*33]) -> [R, C]
+    float32 (kernel clamp semantics)."""
     wf = kernel_format(fmt)
     _check_2d(bits, wf.storage, "bits")
+    R, L = bits.shape
+    C = blockscale.elems_len(L) if wf.is_block_scaled else L
     if bits.device.type == "cpu":
         return decode_2d_plain(bits, wf)
     if bits.device.type != "cuda":
         raise ValueError(f"unsupported device {bits.device}")
-    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
-    if bits.numel():
+    out = torch.empty((R, C), dtype=torch.float32, device=bits.device)
+    if out.numel():
         fn = _build.entry("repro_decode")
-        _build.check(fn(bits.data_ptr(), out.data_ptr(), bits.numel(), wf.code,
+        _build.check(fn(bits.data_ptr(), out.data_ptr(), out.numel(), wf.code,
                         stream_of(bits)), "takum_decode_2d")
         takum_decode_2d.launches += 1
     return out
@@ -70,14 +78,19 @@ def takum_decode_2d(bits: torch.Tensor, fmt) -> torch.Tensor:
 
 def takum_encode_2d(x: torch.Tensor, fmt) -> torch.Tensor:
     """K2: [R, C] float32 -> [R, C] packed wire bits; RNE, DAZ, saturation
-    (takum) or overflow to NaN/Inf (OFP8, bf16)."""
+    (takum) or overflow to NaN/Inf (OFP8, bf16).  An mx format gives the
+    payload [R, C/32*33] and needs C % 32 == 0."""
     wf = kernel_format(fmt)
     _check_2d(x, torch.float32, "x")
+    R, C = x.shape
+    if wf.is_block_scaled and C % blockscale.BLOCK:
+        raise ValueError(f"block-scaled encode needs a 32-multiple column count, got {C}")
     if x.device.type == "cpu":
         return encode_2d_plain(x, wf)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = torch.empty(x.shape, dtype=wf.storage, device=x.device)
+    cols = blockscale.payload_len(C) if wf.is_block_scaled else C
+    out = torch.empty((R, cols), dtype=wf.storage, device=x.device)
     if x.numel():
         fn = _build.entry("repro_encode")
         _build.check(fn(x.data_ptr(), out.data_ptr(), x.numel(), wf.code, stream_of(x)),

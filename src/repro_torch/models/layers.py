@@ -12,16 +12,15 @@ from repro_torch.quant.qtensor import QTensor
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ w [K, N] in x's dtype with f32 accumulation.
 
-    A packed ``QTensor`` weight goes through K3 (``ops.matmul``), whose f32
-    output takes the pow2 scale (exact) and is then cast to x's dtype; K3
+    A packed ``QTensor`` weight goes through K3 (``ops.matmul``; an mx
+    weight's payload is blocked along N), whose f32 output takes the pow2
+    scale (exact) and is then cast to x's dtype; K3
     keeps the decoded weights in f32, where ``repro`` rounds them to x's
     dtype first.  A plain (bf16/f32) weight is one ``torch.matmul`` in x's
     dtype, as XLA does it in ``repro``.
     """
     if isinstance(w, QTensor) and w.fmt not in ("bf16", "f32"):
-        y = ops.matmul(x.reshape(-1, x.shape[-1]), w.bits, w.fmt)
-        if w.scale is not None:
-            y = y * w.scale
+        y = w.apply_scale(ops.matmul(x.reshape(-1, x.shape[-1]), w.bits, w.fmt, n=w.n))
         return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
     if isinstance(w, QTensor):
         w = w.bits

@@ -9,7 +9,10 @@ L (``repro`` scans them).
 On the card the serving path goes through the port's kernels: every linear
 over a packed weight is K3, the embedding rows are decoded by K1 (as are the
 packed norm gains, once per call), every KV append is K2 and the decode
-step reads the cache through K6.  The KV cache is updated IN PLACE
+step reads the cache through K6.  An mx KV cache (``mxe4m3``, ``mxe5m2``,
+``mxt8``) stores per (position, kv head) the payload of the head dim
+zero-padded to a multiple of 32: ``payload_len(hd)`` bytes, appended
+through K2-mx and read through K6-mx.  The KV cache is updated IN PLACE
 (``repro`` is functional and returns a new cache): ``prefill`` fills a fresh
 cache and ``decode_step`` writes its slot into the cache it is given.
 """
@@ -23,6 +26,7 @@ import torch
 from repro_torch.core.formats import wire_format
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.quant import blockscale
 from repro_torch.quant.qtensor import QTensor
 from .attention import flash_attention
 from .config import ModelConfig
@@ -31,10 +35,6 @@ from .layers import linear, rms_norm, rope, softcap, swiglu
 
 def _act_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.quant.activations == "bf16" else torch.float32
-
-
-def _packed(w) -> bool:
-    return isinstance(w, QTensor) and w.fmt not in ("bf16", "f32")
 
 
 # ---------------------------------------------------------------------------
@@ -98,14 +98,8 @@ def _gain(g) -> torch.Tensor:
 
 def _embed(params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
     e = params["embed"]
-    if _packed(e):
-        wf = wire_format(e.fmt)
-        rows = e.bits.view(wf.signed_storage)[tokens].view(wf.storage)  # gather the bits
-        x = ops.decode(rows, wf)  # K1 on the gathered rows only
-        if e.scale is not None:
-            x = x * e.scale
-        return x.to(adt)
-    e = e.bits if isinstance(e, QTensor) else e
+    if isinstance(e, QTensor):
+        return e[tokens].dequantize(adt)  # K1 on the gathered rows only
     return e[tokens].to(adt)
 
 
@@ -160,8 +154,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
 
 @dataclass
 class KVCache:
-    """k, v: [L, B, S, Kv, hd] in the cache format's storage (takum/OFP8
-    bits, bf16 as torch.bfloat16); pos: the next position to write."""
+    """k, v: [L, B, S, Kv, feat] in the cache format's storage (takum/OFP8
+    bits, bf16 as torch.bfloat16, mx payload bytes); ``feat`` is hd, or
+    ``payload_len(hd)`` for an mx format.  pos: the next position to write."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -175,6 +170,13 @@ def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if wf.name == "bf16" else wf.storage
 
 
+def _cache_feat(cfg: ModelConfig, hd: int) -> int:
+    """Stored width of one KV entry: the head dim, or its mx payload width."""
+    if wire_format(cfg.quant.kv_cache).is_block_scaled:
+        return blockscale.payload_len(hd)
+    return hd
+
+
 def _cache_bits(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
     """The cache tensor as wire bits (a bf16 cache as a 16-bit view)."""
     return t.view(wire_format(cfg.quant.kv_cache).storage)
@@ -182,7 +184,7 @@ def _cache_bits(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> KVCache:
     dev = resolve_device(device)
-    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, _cache_feat(cfg, cfg.resolved_head_dim))
     dt = _cache_dtype(cfg)
     alloc = torch.int16 if dt == torch.uint16 else dt  # zero-fill the 16-bit bits signed
     k = torch.zeros(shape, dtype=alloc, device=dev).view(dt)
@@ -191,16 +193,21 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> KVCache:
 
 
 def _encode_cache(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """KV entries -> cache storage through K2 (encoded at the producer)."""
-    fmt = cfg.quant.kv_cache
-    bits = ops.encode(x.to(torch.float32), fmt)
-    return bits.view(torch.bfloat16) if wire_format(fmt).name == "bf16" else bits
+    """KV entries -> cache storage through K2 (encoded at the producer); an
+    mx format zero-pads the head dim to a multiple of 32 first."""
+    wf = wire_format(cfg.quant.kv_cache)
+    x = x.to(torch.float32)
+    if wf.is_block_scaled:
+        x = blockscale.pad_block(x)
+    bits = ops.encode(x, wf)
+    return bits.view(torch.bfloat16) if wf.name == "bf16" else bits
 
 
-def _decode_cache(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+def _decode_cache(cfg: ModelConfig, t: torch.Tensor, hd: int | None = None) -> torch.Tensor:
     """Cache storage -> f32 through K1 (the model reads the cache via K6;
-    this is for inspection)."""
-    return ops.decode(_cache_bits(cfg, t).contiguous(), cfg.quant.kv_cache)
+    this is for inspection).  ``hd`` slices an mx payload's padding off."""
+    out = ops.decode(_cache_bits(cfg, t).contiguous(), cfg.quant.kv_cache)
+    return out if hd is None else out[..., :hd]
 
 
 def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -254,7 +261,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
         _put(cache.v[l, :, pos:pos + 1], _encode_cache(cfg, v_new))
         o = ops.decode_attention(
             q[:, 0].to(torch.float32),
-            _cache_bits(cfg, cache.k[l]).permute(0, 2, 1, 3),  # [B, Kv, S, hd] view
+            _cache_bits(cfg, cache.k[l]).permute(0, 2, 1, 3),  # [B, Kv, S, feat] view
             _cache_bits(cfg, cache.v[l]).permute(0, 2, 1, 3),
             cfg.quant.kv_cache, length=pos + 1, window=cfg.sliding_window,
             softcap=cfg.attn_softcap, scale=hd ** -0.5,

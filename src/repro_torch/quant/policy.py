@@ -3,7 +3,7 @@
 ``QuantPolicy`` assigns a wire format to each surface of the stack.  The
 serving slice reads ``weights``, ``kv_cache`` and ``activations``; the other
 surfaces are kept so the named policies read exactly as in ``repro``.  The
-guard policy and the block-scaled ``mxfp8`` policy come with later slices.
+guard policy and ``takum_guarded`` come with a later slice.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ import dataclasses
 
 from repro_torch.core.formats import WIRE_FORMATS, wire_format
 
-#: format name -> wire bits per element
-FORMAT_BITS = {name: float(wf.nbits) for name, wf in WIRE_FORMATS.items()}
+#: format name -> wire bits per element (8.25 for the mx containers: the
+#: shared scale byte is charged to its 32 elements)
+FORMAT_BITS = {name: wf.wire_bits_per_el for name, wf in WIRE_FORMATS.items()}
 
 
 def is_takum(fmt: str) -> bool:
@@ -60,9 +61,13 @@ TAKUM_AGGRESSIVE = QuantPolicy(
     weights="t8", kv_cache="t8", grad_comm="t8", opt_state="t8",
     checkpoint="t16", pipe_act="t8",
 )
+MXFP8_BASELINE = QuantPolicy(  # the OCP Microscaling evolution of the FP8 zoo
+    weights="bf16", kv_cache="mxe4m3", grad_comm="mxe5m2", pipe_act="mxe4m3",
+)
 POLICIES = {
     "bf16": BF16_BASELINE,
     "ofp8": OFP8_BASELINE,
+    "mxfp8": MXFP8_BASELINE,
     "takum": TAKUM_UNIFORM,
     "takum8": TAKUM_AGGRESSIVE,
 }

@@ -27,8 +27,9 @@ def quantize_params(cfg, params: dict) -> dict:
     """Pack weights into ``cfg.quant.weights``.  IEEE formats are a plain
     cast of every leaf.  Otherwise every leaf with ndim >= 2 (the embedding,
     the stacked norm gains, every weight and the head) becomes a QTensor with
-    one pow2 scale per leaf, over all layers of a stacked leaf; 1-D leaves
-    stay f32.  Each leaf is packed through K2 on the card."""
+    one pow2 scale per leaf, over all layers of a stacked leaf (an mx
+    format: one E8M0 scale per 32-block of the last axis); 1-D leaves stay
+    f32.  Each leaf is packed through K2 on the card."""
     wf = wire_format(cfg.quant.weights)
     if wf.family == "ieee":
         dt = torch.bfloat16 if wf.name == "bf16" else torch.float32

@@ -142,6 +142,9 @@ def test_wire_format_aliases():
     assert formats.wire_format(8) is formats.wire_format("t8")
     assert formats.wire_format("takum16").name == "t16"
     assert formats.wire_format("bfloat16").storage == torch.uint16
-    assert set(formats.kernel_wire_names()) == set(FMTS)
+    assert set(formats.kernel_wire_names()) == set(FMTS) | {"mxe4m3", "mxe5m2", "mxt8"}
+    assert formats.wire_format("mxfp8").name == "mxe4m3"
+    assert formats.wire_format("mxfp8_e5m2").name == "mxe5m2"
+    assert formats.wire_format("mxtakum8").name == "mxt8"
     with pytest.raises(KeyError):
-        formats.wire_format("mxe4m3")
+        formats.wire_format("mxe2m1")

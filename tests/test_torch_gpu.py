@@ -6,9 +6,10 @@ has only PyTorch):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Codecs must match bit for bit (NaN matches NaN).  K3 is held to
-4e-6 * (|x| @ |w|), the limit of chip_smoke.py (which reads a t16 kernel
-with bf16- or TF32-rounded operands above it), K6 to 1e-5 * max|v|.
+Codecs must match bit for bit (NaN matches NaN), the mx containers
+included.  K3 is held to 4e-6 * (|x| @ |w|), the limit of chip_smoke.py
+(which reads a t16 kernel with bf16- or TF32-rounded operands above it), K6
+to 1e-5 * max|v|.
 """
 
 import pytest
@@ -17,11 +18,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.formats import wire_format
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
 from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
 from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
 from repro_torch.kernels.takum_matmul import takum_matmul, takum_matmul_plain
+from repro_torch.quant import blockscale
 
 FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
+MX_FMTS = ("mxe4m3", "mxe5m2", "mxt8")
 
 
 @pytest.fixture
@@ -96,6 +100,49 @@ def test_decode_attention_kernel_masks_like_plain(cuda, fmt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_codec_kernels_bit_exact(cuda, fmt):
+    codes = mx_all_codes()
+    assert _same_f32(takum_decode_2d(codes.to(cuda), fmt).cpu(), takum_decode_2d(codes, fmt))
+    x = mx_sweep(torch.Generator().manual_seed(19), 400).reshape(-1, 64)
+    assert torch.equal(takum_encode_2d(x.to(cuda), fmt).cpu(), takum_encode_2d(x, fmt))
+    x = _rand((2048, 1024), 20, 0.05)  # past the capped grid
+    bits = takum_encode_2d(x, fmt)
+    assert torch.equal(takum_encode_2d(x.to(cuda), fmt).cpu(), bits)
+    assert _same_f32(takum_decode_2d(bits.to(cuda), fmt).cpu(), takum_decode_2d(bits, fmt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_matmul_kernel_within_limit(cuda, fmt):
+    for N in (100, 64):
+        w = takum_encode_2d(blockscale.pad_block(_rand((130, N), 13, 0.3)), fmt)
+        wd = ref.codec_decode_ref(w, fmt)[:, :N]
+        for M, dt in ((4, torch.bfloat16), (37, torch.float32)):
+            x = _rand((M, 130), 14).to(dt)
+            got = takum_matmul(x.to(cuda), w.to(cuda), fmt, n=N).cpu()
+            assert got.shape == (M, N)
+            want = takum_matmul_plain(x, w, fmt, n=N)
+            assert ((got - want).abs() <= 4e-6 * (x.float().abs() @ wd.abs())).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_decode_attention_kernel_masks_like_plain(cuda, fmt):
+    for d in (16, 80, 128):
+        x = blockscale.pad_block(_rand((2 * 45 * 2, d), 15))
+        kv = takum_encode_2d(x, fmt).reshape(2, 45, 2, -1)
+        q = _rand((2, 4, d), 16)
+        k = kv.permute(0, 2, 1, 3)
+        vmax = ref.codec_decode_ref(kv, fmt).abs().max()
+        for length, window, cap in ((40, 0, 0.0), (45, 30, 0.0), (7, 0, 3.0)):
+            got = takum_decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), fmt,
+                                         length=length, window=window, softcap=cap).cpu()
+            want = decode_attention_plain(q, k, k, fmt, length, window, cap)
+            assert (got - want).abs().max() <= 1e-5 * vmax
+
+
+@pytest.mark.gpu
 def test_launch_counters_count_kernel_launches(cuda):
     ops.reset_launch_counts()
     x = _rand((4, 32), 17).to(cuda)
@@ -105,4 +152,19 @@ def test_launch_counters_count_kernel_launches(cuda):
     kv = bits.reshape(1, 1, 4, 32)
     ops.decode_attention(torch.zeros(1, 2, 32, device=cuda), kv, kv, "t8")
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_mx_kernel_launches(cuda):
+    ops.reset_launch_counts()
+    x = _rand((4, 64), 21).to(cuda)
+    payload = ops.encode(x, "mxt8")
+    assert payload.shape == (4, 66)
+    assert ops.decode(payload, "mxt8").shape == (4, 64)
+    ops.matmul(x, ops.encode(_rand((64, 64), 22).to(cuda), "mxt8"), "mxt8")
+    kv = payload.reshape(1, 1, 4, 66)
+    ops.decode_attention(torch.zeros(1, 2, 64, device=cuda), kv, kv, "mxt8")
+    assert ops.launch_counts() == {"takum_decode_2d": 1, "takum_encode_2d": 2,
+                                   "takum_matmul": 1, "takum_decode_attention": 1}
     ops.reset_launch_counts()

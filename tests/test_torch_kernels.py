@@ -2,8 +2,9 @@
 
 Here on the CPU the wrappers run their plain PyTorch versions; ``repro``'s
 kernels run in Pallas interpret mode.  Codecs (K1, K2) must match bit for
-bit.  Matmul (K3) and attention (K6) are compared at a tolerance because
-accumulation order differs between implementations (ROADMAP.md R1):
+bit, the mx containers (mxe4m3, mxe5m2, mxt8) included.  Matmul (K3) and
+attention (K6) are compared at a tolerance because accumulation order
+differs between implementations (ROADMAP.md R1):
 
   * K3: |port - repro| <= 1e-5 * (|x| @ |decode(w)|) elementwise, i.e. a few
     f32 ulps of the magnitude the sum passes through;
@@ -22,17 +23,22 @@ import jax
 import jax.numpy as jnp
 
 from repro.core import formats as jformats
+from repro.kernels import ops as jops
+from repro.quant import blockscale as jbs
 from repro.kernels.takum_attention import takum_decode_attention as j_attention
 from repro.kernels.takum_codec import takum_decode_2d as j_decode_2d
 from repro.kernels.takum_codec import takum_encode_2d as j_encode_2d
 from repro.kernels.takum_matmul import takum_matmul as j_matmul
 from repro_torch.core.formats import wire_format
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
 from repro_torch.kernels.takum_attention import takum_decode_attention
 from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
 from repro_torch.kernels.takum_matmul import takum_matmul
+from repro_torch.quant import blockscale
 
 FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
+MX_FMTS = ("mxe4m3", "mxe5m2", "mxt8")
 
 
 def _rand(shape, seed, scale=1.0):
@@ -172,6 +178,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         takum_decode_attention(torch.zeros(1, 3, 8), kv, kv, "t8")
 
 
+@pytest.mark.parametrize("fmt", ["t16", "mxt8"])
+def test_plain_path_accumulates_in_the_dtype_asked(fmt):
+    """``ops.plain_path(torch.float64)`` (the order control of chip_smoke.py)
+    accumulates the plain matmul in f64, and the route is restored after
+    the block, also when the block raises."""
+    x = torch.from_numpy(_rand((5, 64), 41))
+    w = torch.from_numpy(_rand((64, 40), 42))
+    n = 40 if fmt == "mxt8" else None
+    w = ops.encode(blockscale.pad_block(w) if n else w, fmt)
+    wd = ref.codec_decode_ref(w, fmt)[:, :40]
+    with ops.plain_path(torch.float64):
+        got = ops.matmul(x, w, fmt, n=n)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, (x.double() @ wd.double()).float())
+    with pytest.raises(RuntimeError):
+        with ops.plain_path(torch.float64):
+            raise RuntimeError
+    assert ops._PLAIN_ACC is None
+    assert torch.equal(ops.matmul(x, w, fmt, n=n), x @ wd)
+
+
 def test_plain_path_counts_no_launches():
     ops.reset_launch_counts()
     x = torch.from_numpy(_rand((4, 32), 11))
@@ -181,3 +208,186 @@ def test_plain_path_counts_no_launches():
     kv = bits.reshape(1, 1, 4, 32)
     ops.decode_attention(torch.zeros(1, 2, 32), kv, kv, "t8")
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+# ---------------------------------------------------------------------------
+# mx containers
+# ---------------------------------------------------------------------------
+
+
+def _mx_input(shape, seed):
+    """f32 [..., 32k] with blocks at random binades, one NaN and one Inf
+    block, an all-zero block, subnormal elements and elements whose scaled
+    value falls below 2^-126."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) * 2.0 ** rng.integers(-60, 60, shape[:-1] + (1,))
+    x = x.astype(np.float32).reshape(-1, 32)
+    x[0, 3], x[1, 4], x[2] = np.nan, -np.inf, 0.0
+    x[3, :3] = [2.0 ** -120, 1e-39, -1e-39]
+    x[4, :2] = [2.0 ** 100, 1.5 * 2.0 ** -27]
+    return x.reshape(shape)
+
+
+def _payload(x, fmt):
+    """numpy f32 [..., 32k] -> numpy payload via repro's jnp encode."""
+    return np.array(jbs.encode_payload(jnp.asarray(x), fmt))
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_codec_ops_match_pallas_bit_exact(fmt):
+    x = _mx_input((257, 128), 31)
+    want = np.array(j_encode_2d(jnp.asarray(x), fmt, encode_impl="bits"))
+    got = ops.encode(torch.from_numpy(x), fmt)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (257, 132)
+    assert np.array_equal(got.numpy(), want)
+    want_d = np.asarray(j_decode_2d(jnp.asarray(want), fmt, decode_impl="bits"))
+    got_d = ops.decode(got, fmt).numpy()
+    assert got_d.shape == (257, 128) and _same_f32(got_d, want_d)
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_card_sweep_matches_repro_bit_exact(fmt):
+    """The block sweep the card checks K2-mx with (zero, NaN, Inf and
+    subnormal blocks, absmax near 2^-126 and 2^127, values above the cap)
+    through the plain K2-mx and K1-mx, against repro's jnp container."""
+    x = mx_sweep(torch.Generator().manual_seed(43), 64).reshape(-1, 64)
+    got = ops.encode(x, fmt)
+    assert np.array_equal(got.numpy(), _payload(x.numpy(), fmt))
+    want_d = np.asarray(jbs.decode_payload(jnp.asarray(got.numpy()), fmt))
+    assert _same_f32(ops.decode(got, fmt).numpy(), want_d)
+    codes = mx_all_codes()
+    want_d = np.asarray(jbs.decode_payload(jnp.asarray(codes.numpy()), fmt))
+    assert _same_f32(ops.decode(codes, fmt).numpy(), want_d)
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_codec_ops_flatten_nd(fmt):
+    """A 5-D KV block [L, B, S, Kv, 32] keeps its leading shape; the last axis
+    becomes the 33-byte payload and decodes back to 32."""
+    x = _mx_input((2, 3, 5, 2, 32), 32)
+    want = np.array(j_encode_2d(jnp.asarray(x.reshape(-1, 32)), fmt, encode_impl="bits"))
+    got = ops.encode(torch.from_numpy(x), fmt)
+    assert tuple(got.shape) == (2, 3, 5, 2, 33)
+    assert np.array_equal(got.numpy().reshape(-1, 33), want)
+    assert tuple(ops.decode(got, fmt).shape) == x.shape
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [(4, 64, 100, "f32"), (37, 130, 64, "bf16")])
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_matmul_matches_pallas(fmt, M, K, N, x_dtype):
+    """w is the payload [K, ceil(N/32)*33] blocked along N; with N = 100 the
+    last group is padded and the port drops the padded columns."""
+    x = _rand((M, K), 33)
+    w = _payload(blockscale.pad_block(torch.from_numpy(_rand((K, N), 34, 0.5))).numpy(), fmt)
+    jx = jnp.asarray(x, jnp.bfloat16 if x_dtype == "bf16" else jnp.float32)
+    want = np.array(j_matmul(jx, jnp.asarray(w), fmt, bm=32, bn=128, bk=128,
+                             decode_impl="bits"))[:, :N]
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    if x_dtype == "bf16":
+        tx = tx.to(torch.bfloat16)
+    got = ops.matmul(tx, torch.from_numpy(w), fmt, n=N).numpy()
+    assert got.shape == (M, N) and got.dtype == np.float32
+    wd = ref.codec_decode_ref(torch.from_numpy(w), fmt).numpy()[:, :N]
+    bound = 1e-5 * (np.abs(tx.float().numpy()) @ np.abs(wd))
+    assert (np.abs(got - want) <= bound).all()
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_decode_attention_matches_pallas(fmt):
+    B, H, Hkv, S, d = 2, 6, 2, 37, 64  # ragged S tile, GQA g = 3; repro's kernel takes d % 32 == 0
+    q = _rand((B, H, d), 35)
+    k_bits = _payload(_rand((B, Hkv, S, d), 36), fmt)
+    v_bits = _payload(_rand((B, Hkv, S, d), 37), fmt)
+    want = np.array(j_attention(jnp.asarray(q), jnp.asarray(k_bits), jnp.asarray(v_bits),
+                                fmt, block_s=16, decode_impl="bits"))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k_bits, v_bits))
+    got = ops.decode_attention(tq, tk, tv, fmt).numpy()
+    vmax = np.abs(ref.codec_decode_ref(tv, fmt).numpy()).max()
+    assert np.abs(got - want).max() <= 1e-5 * vmax
+
+
+def _mx_model_attention(q, k_cache, v_cache, fmt, pos, window, cap):
+    """transformer.py:484-498 of repro for an mx cache: the payload decoded
+    by repro's jnp container and sliced back to hd (``_decode_cache``)."""
+    hd = q.shape[-1]
+    kf = np.asarray(jbs.decode_payload(jnp.asarray(k_cache), fmt))[..., :hd]
+    vf = np.asarray(jbs.decode_payload(jnp.asarray(v_cache), fmt))[..., :hd]
+    return _model_attention_f32(q, kf, vf, pos, window, cap)
+
+
+def _model_attention_f32(q, kf, vf, pos, window, cap):
+    B, _, H, hd = q.shape
+    S, Kv = kf.shape[1], kf.shape[2]
+    kpos = jnp.arange(S)
+    valid = kpos <= pos
+    valid = jnp.where(window > 0, valid & ((pos - kpos) < window), valid)
+    g = H // Kv
+    kk = jnp.repeat(jnp.asarray(kf), g, axis=2)
+    vv = jnp.repeat(jnp.asarray(vf), g, axis=2)
+    logits = jnp.einsum("bqhd,bshd->bhqs", jnp.asarray(q), kk) * (hd ** -0.5)
+    logits = cap * jnp.tanh(logits / cap) if cap > 0 else logits
+    logits = jnp.where(valid[None, None, None, :], logits, -1e30)
+    p = jax.nn.softmax(logits, axis=-1)
+    return np.asarray(jnp.einsum("bhqs,bshd->bqhd", p, vv).reshape(B, H, hd))
+
+
+@pytest.mark.parametrize("hd", [16, 80])
+@pytest.mark.parametrize("pos,window,cap", [(20, 0, 0.0), (40, 33, 2.0)])
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_masked_decode_attention_matches_model_math(fmt, pos, window, cap, hd):
+    """Head dims off the 32-block (16: one group, 16 padded lanes; 80: three
+    groups), length < S, window and softcap, through the permuted cache view."""
+    B, S, Kv, H = 2, 45, 2, 4
+    q = _rand((B, 1, H, hd), 38)
+    pad = blockscale.padded_len(hd) - hd
+    cache_k = _payload(np.pad(_rand((B, S, Kv, hd), 39), [(0, 0)] * 3 + [(0, pad)]), fmt)
+    cache_v = _payload(np.pad(_rand((B, S, Kv, hd), 40), [(0, 0)] * 3 + [(0, pad)]), fmt)
+    cache_k[:, pos + 1:] = 0  # never written: payload 0 decodes to 0.0
+    cache_v[:, pos + 1:] = 0
+    want = _mx_model_attention(q, cache_k, cache_v, fmt, pos, window, cap)
+    tk = torch.from_numpy(cache_k).permute(0, 2, 1, 3)
+    tv = torch.from_numpy(cache_v).permute(0, 2, 1, 3)
+    got = ops.decode_attention(torch.from_numpy(q[:, 0]), tk, tv, fmt, length=pos + 1,
+                               window=window, softcap=cap, scale=hd ** -0.5).numpy()
+    vmax = np.abs(ref.codec_decode_ref(torch.from_numpy(cache_v), fmt).numpy()).max()
+    assert got.shape == (B, H, hd)
+    assert np.abs(got - want).max() <= 1e-5 * vmax
+
+
+def _raises(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        return type(e)
+    return None
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_shape_checks_raise_like_repro(fmt):
+    """The loud payload checks: a last dim that is not whole 33-byte groups,
+    and an encode input that is not whole 32-element blocks, raise
+    ValueError in both packages."""
+    cases = [
+        ("decode", (np.zeros((4, 32), np.uint8),)),
+        ("decode", (np.zeros((4, 0), np.uint8),)),
+        ("encode", (np.zeros((4, 40), np.float32),)),
+        ("encode", (np.zeros((4, 0), np.float32),)),
+        ("matmul", (np.zeros((2, 8), np.float32), np.zeros((8, 34), np.uint8))),
+        ("decode_attention", (np.zeros((1, 2, 32), np.float32), np.zeros((1, 1, 4, 32), np.uint8),
+                              np.zeros((1, 1, 4, 32), np.uint8))),
+    ]
+    for op, args in cases:
+        want = _raises(lambda: getattr(jops, op)(*(jnp.asarray(a) for a in args), fmt))
+        got = _raises(lambda: getattr(ops, op)(*(torch.from_numpy(a) for a in args), fmt))
+        assert want is ValueError and got is ValueError, (op, want, got)
+    # the payload shapes the kernels take, and what they refuse
+    with pytest.raises(ValueError):
+        takum_encode_2d(torch.zeros(4, 40), fmt)
+    with pytest.raises(ValueError):
+        takum_decode_2d(torch.zeros(4, 34, dtype=torch.uint8), fmt)
+    with pytest.raises(ValueError):
+        takum_matmul(torch.zeros(2, 8), torch.zeros(8, 66, dtype=torch.uint8), fmt, n=20)
+    kv = torch.zeros(1, 2, 5, 33, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        takum_decode_attention(torch.zeros(1, 4, 40), kv, kv, fmt)
+    assert takum_decode_attention(torch.zeros(1, 4, 20), kv, kv, fmt).shape == (1, 4, 20)
