@@ -4,12 +4,14 @@ takum8-packed KV cache (twin of examples/serve_takum_kv.py).
     PYTHONPATH=src python examples/serve_takum_kv_torch.py --device cuda
     PYTHONPATH=src python examples/serve_takum_kv_torch.py --device cpu
     PYTHONPATH=src python examples/serve_takum_kv_torch.py --policy mxfp8
+    PYTHONPATH=src python examples/serve_takum_kv_torch.py --policy takum8
 
 Prefills a prompt batch, then decodes tokens against the packed cache,
 reporting cache bytes and the greedy-token agreement with a bf16 cache.
 ``--policy`` serves a named policy instead (its weights and KV cache, e.g.
-``mxfp8``: bf16 weights, an MX-e4m3 cache).  On the card every cache append
-is K2 and every decode-step attention is K6.
+``mxfp8``: bf16 weights, an MX-e4m3 cache; ``takum8``: t8 weights and
+cache, every kernel through its table codec).  On the card every cache
+append is K2 and every decode-step attention is K6.
 """
 
 import argparse

@@ -53,6 +53,18 @@ class WireFormat:
         return {8: torch.uint8, 16: torch.int16, 32: torch.int32}[self.nbits]
 
     @property
+    def supports_lut_decode(self) -> bool:
+        """Decode can be one gather: a table of 2**nbits f32 patterns."""
+        return self.nbits <= 16
+
+    @property
+    def supports_lut_encode(self) -> bool:
+        """A table-driven encode exists: the 8-bit formats use the 256-entry
+        exponent-byte pair, takum16 the two-level scheme.  bf16 has none:
+        its encode is already a 2-op shift-round."""
+        return self.nbits == 8 or (self.family == "takum" and self.nbits == 16)
+
+    @property
     def is_block_scaled(self) -> bool:
         """True for the MX block-scaled containers (see the subclass)."""
         return False
@@ -95,6 +107,16 @@ class BlockScaledFormat(WireFormat):
     @property
     def wire_bits_per_el(self) -> float:
         return self.nbits + 8.0 / self.block
+
+    @property
+    def supports_lut_decode(self) -> bool:
+        """The payload is not one code space, but the element decode inside
+        the container follows the element format's tabulability."""
+        return self.elem.supports_lut_decode
+
+    @property
+    def supports_lut_encode(self) -> bool:
+        return self.elem.supports_lut_encode
 
 
 def _mx_wire(elem_name: str, elem_emax: int, code: int) -> BlockScaledFormat:

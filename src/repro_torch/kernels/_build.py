@@ -41,15 +41,18 @@ _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _F = ctypes.c_float
 
-#: C entry -> (library, argtypes); every entry returns a cudaError_t as int
+#: C entry -> (library, argtypes); every entry returns a cudaError_t as int.
+#: Each takes the format id and the codec id, then the table pointers (null
+#: for "bits"): the decode table, or the encode pair (meta, thr | sub); the
+#: stream comes last.
 ENTRIES = {
-    "repro_decode": ("takum_codec", [_P, _P, _LL, _INT, _P]),
-    "repro_encode": ("takum_codec", [_P, _P, _LL, _INT, _P]),
-    "repro_matmul": ("takum_matmul", [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P]),
+    "repro_decode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P]),
+    "repro_encode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P, _P]),
+    "repro_matmul": ("takum_matmul", [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P]),
     "repro_decode_attention": (
         "takum_attention",
         [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _LL, _LL, _LL, _LL, _LL, _LL,
-         _INT, _INT, _F, _F, _INT, _P],
+         _INT, _INT, _F, _F, _INT, _INT, _P, _P],
     ),
 }
 

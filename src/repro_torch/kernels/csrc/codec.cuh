@@ -5,16 +5,19 @@
 //   src/repro/kernels/common.py:99  encode_takum_from_f32
 //   src/repro/core/ofp8.py:40,184   encode_jnp / decode_jnp (field pack/unpack)
 //   src/repro/core/formats.py:308   bf16 shift decode / RNE encode
-//   src/repro/kernels/lut.py:355    encode_epilogue's mx assembly, and
+//   src/repro/kernels/lut.py:355    encode_epilogue's mx assembly,
 //   src/repro/quant/blockscale.py   the OCP-MX container (E8M0 scale bytes,
-//                                   element cap, 33-byte [s, e0..e31] groups)
+//                                   element cap, 33-byte [s, e0..e31] groups), and
+//   src/repro/kernels/lut.py:187-335 the table ("lut") codecs: decode_wire_lut,
+//                                   _shift_round_rne, encode_takum8_lut,
+//                                   encode_ofp8_lut, encode_takum16_lut
 // Pure integer work on __float_as_uint / __uint_as_float, so the results do
 // not depend on the float mode (the build uses no --use_fast_math: no FTZ).
 // The mx helpers flush to zero explicitly, on the exponent field, where the
 // reference (XLA's CPU backend, DAZ/FTZ) does.
-// The plain PyTorch twins are repro_torch/core/{takum,ofp8,formats}.py; the
-// CPU tests hold those against repro bit for bit, and chip_smoke.py holds
-// these against those.
+// The plain PyTorch twins are repro_torch/core/{takum,ofp8,formats}.py and
+// repro_torch/kernels/lut.py; the CPU tests hold those against repro bit for
+// bit, and chip_smoke.py holds these against those.
 #pragma once
 
 #include <cstdint>
@@ -263,7 +266,6 @@ __device__ __forceinline__ float mul_ftz(float v, float s) {
 template <>
 struct Wire<kMXE4M3> {
   using storage = uint8_t;
-  using Elem = Wire<kE4M3>;
   static constexpr int kEmax = 8;
   static __device__ __forceinline__ float cap() { return 448.0f; }
 };
@@ -271,7 +273,6 @@ struct Wire<kMXE4M3> {
 template <>
 struct Wire<kMXE5M2> {
   using storage = uint8_t;
-  using Elem = Wire<kE5M2>;
   static constexpr int kEmax = 15;
   static __device__ __forceinline__ float cap() { return 57344.0f; }
 };
@@ -279,30 +280,203 @@ struct Wire<kMXE5M2> {
 template <>
 struct Wire<kMXT8> {
   using storage = uint8_t;
-  using Elem = Wire<kT8>;
   static constexpr int kEmax = 0;
   static __device__ __forceinline__ float cap() { return 1.875f; }  // t8's top below 2
 };
 
-// one element of an mx block, decoded under its block's scale
+// ---- table codecs (the "lut" impl) ----------------------------------------------
+//
+// The tables come from repro_torch/core/tables.py as int32 arrays of uint32
+// bit patterns and are read as such: a decode table holds the f32 bits of
+// every code (reinterpreted with __int_as_float, so NaN payloads survive);
+// an 8-bit encode pair (meta, thr) and the takum16 pair (meta, sub) are
+// indexed by the f32 exponent byte (sub by the takum regime).
+
+enum Impl : int { kBits = 0, kLut = 1 };  // repro_torch.kernels.common.IMPL_CODE
+
+constexpr uint32_t kEnc8ThrFlag = 1u << 7;  // tables.ENC8_THR_FLAG
+
+// the element format of FMT (an mx container's, else FMT itself), its width,
+// and whether it has encode tables (every kernel format but bf16)
 template <int FMT>
-__device__ __forceinline__ float mx_decode(uint32_t elem_bits, float scale) {
-  return mul_ftz(Wire<FMT>::Elem::decode(elem_bits), scale);
+inline constexpr int kElem = FMT == kMXE4M3 ? kE4M3 : FMT == kMXE5M2 ? kE5M2 : FMT == kMXT8 ? kT8 : FMT;
+template <int FMT>
+inline constexpr int kElemBits = (kElem<FMT> == kT16 || kElem<FMT> == kBF16) ? 16 : 8;
+template <int FMT>
+inline constexpr bool kHasEncodeLut = kElem<FMT> != kBF16;
+
+// Ints of shared memory a kernel of FMT under IMPL stages its decode table
+// in: an 8-bit table (1 KiB) is copied per block; a 16-bit one (256 KiB,
+// more than a block may hold) is read from global memory, where it stays
+// L2-resident.  1, not 0, so the array declaration stays legal.
+template <int FMT, int IMPL>
+inline constexpr int kDecodeTabInts = (IMPL == kLut && kElemBits<FMT> == 8) ? 256 : 1;
+
+// The table the decode of FMT under IMPL reads: for an 8-bit lut table,
+// `smem` after every thread of the block has copied its share (ends in
+// __syncthreads, so every thread must call it); else `tab` itself.
+template <int FMT, int IMPL>
+__device__ __forceinline__ const int* stage_decode_table(const int* __restrict__ tab, int* smem) {
+  if constexpr (kDecodeTabInts<FMT, IMPL> == 256) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) smem[i] = tab[i];
+    __syncthreads();
+    return smem;
+  } else {
+    return tab;
+  }
+}
+
+// one code through the decode table (lut.py decode_wire_lut)
+template <int NBITS>
+__device__ __forceinline__ float lut_decode(const int* tab, uint32_t b) {
+  if constexpr (NBITS == 8) {
+    return __int_as_float(tab[b & 0xFFu]);
+  } else {
+    return __int_as_float(__ldg(tab + (b & 0xFFFFu)));
+  }
+}
+
+// one element of FMT (an mx container: of its element format) decoded by IMPL
+template <int FMT, int IMPL>
+__device__ __forceinline__ float elem_decode(const int* tab, uint32_t b) {
+  if constexpr (IMPL == kLut) {
+    return lut_decode<kElemBits<FMT>>(tab, b);
+  } else {
+    return Wire<kElem<FMT>>::decode(b);
+  }
+}
+
+// one element of an mx block decoded by IMPL under its block's scale
+template <int FMT, int IMPL>
+__device__ __forceinline__ float mx_decode(const int* tab, uint32_t elem_bits, float scale) {
+  return mul_ftz(elem_decode<FMT, IMPL>(tab, elem_bits), scale);
+}
+
+// base + RNE(m23 >> s) with ties to the even *code* (lut.py _shift_round_rne):
+// takum codes and OFP8 magnitude codes are consecutive integers in value
+// order, so a carry out of the mantissa lands on the next binade's bottom.
+// s in [1, 23].
+__device__ __forceinline__ uint32_t shift_round_rne(uint32_t base, uint32_t s, uint32_t m23) {
+  const uint32_t kept = m23 >> s;
+  const uint32_t guard = (m23 >> (s - 1u)) & 1u;
+  const uint32_t below = m23 & ((1u << (s - 1u)) - 1u);
+  const bool up = guard && (below != 0u || ((base + kept) & 1u));
+  return base + kept + (up ? 1u : 0u);
+}
+
+// the 8-bit tail (lut.py _round_shift_or_threshold): finite |x| bits -> the
+// magnitude code, by the threshold path or the shift path of its binade
+__device__ __forceinline__ uint32_t encode8_lut_mag(uint32_t a, const uint32_t* meta, const int* thr) {
+  const uint32_t e = a >> 23;
+  const uint32_t m23 = a & 0x7FFFFFu;
+  const uint32_t mt = meta[e];
+  if (mt & kEnc8ThrFlag) return (mt >> 8) + (static_cast<int>(m23) > thr[e] ? 1u : 0u);
+  return shift_round_rne(mt >> 8, mt & 0x7Fu, m23);
+}
+
+// f32 -> 8-bit code by table (lut.py encode_takum8_lut, encode_ofp8_lut).
+// Takum8: NaR for Inf/NaN, two's-complement negatives, DAZ from the e = 0
+// row.  OFP8: sign-magnitude; rounding past the top finite code is capped
+// at the overflow pattern (E4M3 NaN, E5M2 Inf), Inf -> that pattern, NaN ->
+// 0x7F.  Bit-identical to Wire<E>::encode.
+template <int E>
+__device__ __forceinline__ uint32_t encode8_lut(float x, const uint32_t* meta, const int* thr) {
+  const uint32_t u = __float_as_uint(x);
+  const uint32_t a = u & 0x7FFFFFFFu;
+  if constexpr (E == kT8) {
+    if (a >= 0x7F800000u) return 0x80u;
+    const uint32_t mag = encode8_lut_mag(a, meta, thr);
+    return (u >> 31) ? ((0u - mag) & 0xFFu) : mag;
+  } else {
+    static_assert(E == kE4M3 || E == kE5M2, "8-bit table encode: t8, e4m3, e5m2");
+    constexpr uint32_t kOvf = E == kE4M3 ? 0x7Fu : 0x7Cu;  // tables.ofp8_overflow_code
+    uint32_t mag;
+    if (a > 0x7F800000u) {
+      mag = 0x7Fu;
+    } else if (a == 0x7F800000u) {
+      mag = kOvf;
+    } else {
+      mag = encode8_lut_mag(a, meta, thr);
+      mag = mag < kOvf ? mag : kOvf;
+    }
+    return ((u >> 31) << 7) | mag;
+  }
+}
+
+// f32 -> takum16 by the two-level tables (lut.py encode_takum16_lut): meta
+// gives (base << 8) | regime, sub the regime's mantissa shift; DAZ and NaR
+// explicit, no saturation needed (|c| <= 128 after a carry)
+__device__ __forceinline__ uint32_t encode16_lut(float x, const uint32_t* meta, const int* sub) {
+  const uint32_t u = __float_as_uint(x);
+  const uint32_t a = u & 0x7FFFFFFFu;
+  if (a >= 0x7F800000u) return 0x8000u;
+  if (a < 0x00800000u) return 0u;
+  const uint32_t mt = meta[a >> 23];
+  const uint32_t mag = shift_round_rne(mt >> 8, static_cast<uint32_t>(sub[mt & 0xFFu]), a & 0x7FFFFFu);
+  return (u >> 31) ? ((0u - mag) & 0xFFFFu) : mag;
+}
+
+// one element of FMT (an mx container: of its element format) encoded by
+// IMPL; `aux` is thr (8-bit) or sub (takum16)
+template <int FMT, int IMPL>
+__device__ __forceinline__ uint32_t elem_encode(float x, const uint32_t* meta, const int* aux) {
+  constexpr int E = kElem<FMT>;
+  if constexpr (IMPL == kLut) {
+    if constexpr (E == kT16) {
+      return encode16_lut(x, meta, aux);
+    } else {
+      return encode8_lut<E>(x, meta, aux);
+    }
+  } else {
+    return Wire<E>::encode(x);
+  }
+}
+
+// Ints of shared memory for the encode tables of FMT under IMPL: meta, and
+// thr (256) or sub (128, takum16); 1 when bits reads none
+template <int FMT, int IMPL>
+inline constexpr int kEncodeTabInts = IMPL == kLut ? 256 : 1;
+template <int FMT, int IMPL>
+inline constexpr int kEncodeAuxInts = IMPL != kLut ? 1 : (kElem<FMT> == kT16 ? 128 : 256);
+
+// Copy the encode tables into the block's shared arrays (lut; every thread
+// must call it, it ends in __syncthreads); bits copies nothing.
+template <int FMT, int IMPL>
+__device__ __forceinline__ void stage_encode_tables(const uint32_t* __restrict__ meta,
+                                                    const int* __restrict__ aux, uint32_t* meta_s,
+                                                    int* aux_s) {
+  if constexpr (IMPL == kLut) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) meta_s[i] = meta[i];
+    for (int i = threadIdx.x; i < kEncodeAuxInts<FMT, IMPL>; i += blockDim.x) aux_s[i] = aux[i];
+    __syncthreads();
+  }
 }
 
 // one element of an mx block under scale byte `byte`: multiplied by
 // 2^(127 - byte), clamped to the element cap (NaN stays NaN, -0 stays -0),
-// encoded RNE; a NaN block stores element bits 0
-template <int FMT>
-__device__ __forceinline__ uint32_t mx_encode(float x, uint32_t byte) {
+// encoded RNE by IMPL (after the clamp, so the non-saturating OFP8 table
+// encode is exact here); a NaN block stores element bits 0
+template <int FMT, int IMPL>
+__device__ __forceinline__ uint32_t mx_encode(float x, uint32_t byte, const uint32_t* meta,
+                                              const int* aux) {
   if (byte == kE8M0NaN) return 0u;
   float xs = mul_pow2_ftz(x, 127 - static_cast<int>(byte));
   const float cap = Wire<FMT>::cap();
   xs = xs > cap ? cap : (xs < -cap ? -cap : xs);
-  return Wire<FMT>::Elem::encode(xs);
+  return elem_encode<FMT, IMPL>(xs, meta, aux);
 }
 
 }  // namespace repro
+
+// Calls LAUNCH<FMT, IMPL>(args...) for a runtime codec id `impl`: unknown
+// ids, and lut where FMT has no tables (HAS_LUT false), return
+// cudaErrorInvalidValue from the enclosing launcher.
+#define REPRO_IMPL_DISPATCH(impl, HAS_LUT, LAUNCH, FMT, ...)                              \
+  if ((impl) == repro::kBits) return LAUNCH<FMT, repro::kBits>(__VA_ARGS__);               \
+  if constexpr (HAS_LUT) {                                                                 \
+    if ((impl) == repro::kLut) return LAUNCH<FMT, repro::kLut>(__VA_ARGS__);                \
+  }                                                                                        \
+  return static_cast<int>(cudaErrorInvalidValue);
 
 // Calls LAUNCH<FMT>(args...) for a runtime format id; unknown ids return
 // cudaErrorInvalidValue from the enclosing C entry.

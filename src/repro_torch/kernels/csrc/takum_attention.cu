@@ -3,7 +3,8 @@
 // Replaces the Pallas kernel src/repro/kernels/takum_attention.py:56
 // _decode_attn_kernel (entry takum_decode_attention :141) for the flat
 // formats and the mx payloads (its payload path, :61, :82-99, :167-186),
-// bits codec, without the out_fmt epilogue, and adds what the model
+// with either codec (IMPL kBits, or kLut: its `lut` branch, :201-204),
+// without the out_fmt epilogue, and adds what the model
 // computes around it in jnp (src/repro/models/transformer.py:484-498): the
 // `length` bound (key position < length, i.e. kpos <= pos) over a
 // preallocated cache, the sliding `window` and `attn_softcap`.
@@ -27,6 +28,12 @@
 // multiple of 32: only j < D is read, so the padded lanes of the last group
 // are dropped, as the reference drops them.
 //
+// lut: an 8-bit decode table (1 KiB) sits at the end of the dynamic shared
+// memory, which launch_attn sizes for it, and is copied in once per block;
+// the t16/bf16 tables (256 KiB) are read from global memory through __ldg.
+// Decoded values and summation order equal the bits codec's, so the output
+// is the same bit for bit.
+//
 // Bound on the H100: bytes.  Each block reads its kv head's valid keys and
 // values once (1 or 2 bytes each) and does 4 * g flops per cache byte pair;
 // at B = 4, Hkv = 8 that is 32 blocks, so the kernel is latency-bound long
@@ -40,12 +47,13 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kTileS = 32;     // keys per tile: one per lane in the row update
 
-template <int FMT>
+template <int FMT, int IMPL>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>::storage* __restrict__ k,
                    const typename repro::Wire<FMT>::storage* __restrict__ v, float* __restrict__ out,
                    int H, int Hkv, int D, long long ksb, long long ksh, long long kss, long long vsb,
-                   long long vsh, long long vss, int length, int window, float scale, float softcap) {
+                   long long vsh, long long vss, int length, int window, float scale, float softcap,
+                   const int* __restrict__ tab) {
   extern __shared__ float smem[];
   const int g = H / Hkv;
   const int h = blockIdx.x;
@@ -59,6 +67,8 @@ decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>:
   float* m_s = p_s + g * kTileS;          // [g] running max
   float* l_s = m_s + g;                   // [g] running denominator
   float* a_s = l_s + g;                   // [g] rescale of this tile
+  int* tab_s = reinterpret_cast<int*>(a_s + g);  // lut: [256] an 8-bit decode table
+  const int* dtab = repro::stage_decode_table<FMT, IMPL>(tab, tab_s);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -85,15 +95,17 @@ decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>:
       if constexpr (repro::kIsMx<FMT>) {
         const auto* kr = kb + kp * kss;
         const auto* vr = vb + kp * vss;
-        k_s[s * ldk + j] = valid ? repro::mx_decode<FMT>(kr[repro::mx_elem_at(j)],
-                                                         repro::e8m0_decode(kr[repro::mx_scale_at(j)]))
+        k_s[s * ldk + j] = valid ? repro::mx_decode<FMT, IMPL>(
+                                       dtab, kr[repro::mx_elem_at(j)],
+                                       repro::e8m0_decode(kr[repro::mx_scale_at(j)]))
                                  : 0.0f;
-        v_s[s * D + j] = valid ? repro::mx_decode<FMT>(vr[repro::mx_elem_at(j)],
-                                                       repro::e8m0_decode(vr[repro::mx_scale_at(j)]))
+        v_s[s * D + j] = valid ? repro::mx_decode<FMT, IMPL>(
+                                     dtab, vr[repro::mx_elem_at(j)],
+                                     repro::e8m0_decode(vr[repro::mx_scale_at(j)]))
                                : 0.0f;
       } else {
-        k_s[s * ldk + j] = valid ? repro::Wire<FMT>::decode(kb[kp * kss + j]) : 0.0f;
-        v_s[s * D + j] = valid ? repro::Wire<FMT>::decode(vb[kp * vss + j]) : 0.0f;
+        k_s[s * ldk + j] = valid ? repro::elem_decode<FMT, IMPL>(dtab, kb[kp * kss + j]) : 0.0f;
+        v_s[s * D + j] = valid ? repro::elem_decode<FMT, IMPL>(dtab, vb[kp * vss + j]) : 0.0f;
       }
     }
     __syncthreads();
@@ -142,35 +154,52 @@ decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>:
   for (int i = tid; i < g * D; i += kThreads) ob[i] = acc_s[i] / l_s[i / D];
 }
 
-template <int FMT>
-int launch_attn(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-                int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-                long long vss, int length, int window, float scale, float softcap,
-                cudaStream_t stream) {
+template <int FMT, int IMPL>
+int launch_attn_as(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
+                   int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+                   long long vss, int length, int window, float scale, float softcap,
+                   const void* tab, cudaStream_t stream) {
   using T = typename repro::Wire<FMT>::storage;
+  const int* t = static_cast<const int*>(tab);
+  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int g = H / Hkv;
+  // the float regions of the kernel, then the staged table (none for kBits
+  // and for the 16-bit tables, which are read from global memory)
+  constexpr int kTabInts = repro::kDecodeTabInts<FMT, IMPL> == 256 ? 256 : 0;
   const size_t smem =
-      sizeof(float) * (2 * g * D + kTileS * (D + 1) + kTileS * D + g * kTileS + 3 * g);
+      sizeof(float) * (2 * g * D + kTileS * (D + 1) + kTileS * D + g * kTileS + 3 * g) +
+      sizeof(int) * kTabInts;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_attn_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<FMT, IMPL>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(Hkv, B);
-  decode_attn_kernel<FMT><<<grid, kThreads, smem, stream>>>(
+  decode_attn_kernel<FMT, IMPL><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<float*>(out), H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss, length, window, scale,
-      softcap);
+      softcap, t);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int FMT>
+int launch_attn(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
+                int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+                long long vss, int length, int window, float scale, float softcap, int impl,
+                const void* tab, cudaStream_t stream) {
+  REPRO_IMPL_DISPATCH(impl, true, launch_attn_as, FMT, q, k, v, out, B, H, Hkv, D, ksb, ksh, kss,
+                      vsb, vsh, vss, length, window, scale, softcap, tab, stream)
 }
 
 }  // namespace
 
+// impl is repro::Impl, tab the decode table (null for kBits)
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* out, int B,
                                       int H, int Hkv, int D, long long ksb, long long ksh,
                                       long long kss, long long vsb, long long vsh, long long vss,
                                       int length, int window, float scale, float softcap, int fmt,
-                                      void* stream) {
+                                      int impl, const void* tab, void* stream) {
   REPRO_WIRE_DISPATCH(fmt, launch_attn, q, k, v, out, B, H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss,
-                      length, window, scale, softcap, static_cast<cudaStream_t>(stream))
+                      length, window, scale, softcap, impl, tab, static_cast<cudaStream_t>(stream))
 }

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/takum_matmul.py:56
 // _mm_kernel(dual=False) (entry takum_matmul :166) for the flat formats and
-// the mx payloads (its `mx` branch, :61-80, :111-132), bits codec, without
-// the out_fmt epilogue.  The TPU kernel carries an f32
+// the mx payloads (its `mx` branch, :61-80, :111-132), with either codec
+// (IMPL kBits, or kLut: its `lut` branch, :139-142), without the out_fmt
+// epilogue.  The TPU kernel carries an f32
 // accumulator tile in VMEM across a sequential K grid axis; here each block
 // owns one output tile and loops over K itself, keeping the accumulators in
 // registers.
@@ -28,6 +29,12 @@
 // stored.  Each K step first stages the tile's (k, group) scales in shared
 // memory, one load per pair (BN = 32: one group per weight row; BN = 64:
 // two), then decodes every element byte under its staged scale.
+//
+// lut: an 8-bit decode table (1 KiB) is copied into shared memory once,
+// before the K loop (one more __syncthreads); the t16/bf16 tables (256 KiB)
+// are read from global memory through __ldg.  The decoded values equal the
+// bits decode's and the k terms are added in the same order, so the two
+// codecs give the same output bit for bit.
 #include "codec.cuh"
 
 namespace {
@@ -43,14 +50,16 @@ __device__ __forceinline__ float load_x(const void* x, long long i) {
   }
 }
 
-template <int FMT, bool XBF16, int BM, int BN, int BK, int TM, int TN>
+template <int FMT, int IMPL, bool XBF16, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
 mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* __restrict__ w,
-          float* __restrict__ out, int M, int N, int K) {
+          float* __restrict__ out, int M, int N, int K, const int* __restrict__ tab) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "one thread per TM x TN sub-tile");
   __shared__ float xs[BK][BM];  // x tile, transposed: xs[k][m]
   __shared__ float ws[BK][BN];  // decoded weight tile
   __shared__ float ss[BK][BN / 32];  // mx: the tile's (k, group) scales
+  __shared__ int tab_s[repro::kDecodeTabInts<FMT, IMPL>];  // lut: an 8-bit decode table
+  const int* dtab = repro::stage_decode_table<FMT, IMPL>(tab, tab_s);
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
@@ -82,7 +91,8 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
         const int kk = i / BN, nn = i % BN;
         const int gk = k0 + kk, gn = n0 + nn;
         ws[kk][nn] = (gk < K && gn < N)
-                         ? repro::mx_decode<FMT>(w[gk * ldw + repro::mx_elem_at(gn)], ss[kk][nn / 32])
+                         ? repro::mx_decode<FMT, IMPL>(dtab, w[gk * ldw + repro::mx_elem_at(gn)],
+                                                       ss[kk][nn / 32])
                          : 0.0f;
       }
     } else {
@@ -90,7 +100,7 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
         const int kk = i / BN, nn = i % BN;
         const int gk = k0 + kk, gn = n0 + nn;
         ws[kk][nn] = (gk < K && gn < N)
-                         ? repro::Wire<FMT>::decode(w[static_cast<long long>(gk) * N + gn])
+                         ? repro::elem_decode<FMT, IMPL>(dtab, w[static_cast<long long>(gk) * N + gn])
                          : 0.0f;
       }
     }
@@ -122,32 +132,41 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
   }
 }
 
-template <int FMT, bool XBF16, int BM, int BN, int BK, int TM, int TN>
-int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, cudaStream_t stream) {
+template <int FMT, int IMPL, bool XBF16, int BM, int BN, int BK, int TM, int TN>
+int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, const int* tab,
+                 cudaStream_t stream) {
   using T = typename repro::Wire<FMT>::storage;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm_kernel<FMT, XBF16, BM, BN, BK, TM, TN><<<grid, kThreads, 0, stream>>>(
-      x, static_cast<const T*>(w), static_cast<float*>(out), M, N, K);
+  mm_kernel<FMT, IMPL, XBF16, BM, BN, BK, TM, TN><<<grid, kThreads, 0, stream>>>(
+      x, static_cast<const T*>(w), static_cast<float*>(out), M, N, K, tab);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int FMT>
-int launch_mm(const void* x, const void* w, void* out, int M, int N, int K, int x_bf16,
-              cudaStream_t stream) {
+template <int FMT, int IMPL>
+int launch_mm_as(const void* x, const void* w, void* out, int M, int N, int K, int x_bf16,
+                 const void* tab, cudaStream_t stream) {
+  const int* t = static_cast<const int*>(tab);
+  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 16) {
-    return x_bf16 ? launch_tiled<FMT, true, 8, 32, 32, 1, 1>(x, w, out, M, N, K, stream)
-                  : launch_tiled<FMT, false, 8, 32, 32, 1, 1>(x, w, out, M, N, K, stream);
+    return x_bf16 ? launch_tiled<FMT, IMPL, true, 8, 32, 32, 1, 1>(x, w, out, M, N, K, t, stream)
+                  : launch_tiled<FMT, IMPL, false, 8, 32, 32, 1, 1>(x, w, out, M, N, K, t, stream);
   }
-  return x_bf16 ? launch_tiled<FMT, true, 64, 64, 16, 4, 4>(x, w, out, M, N, K, stream)
-                : launch_tiled<FMT, false, 64, 64, 16, 4, 4>(x, w, out, M, N, K, stream);
+  return x_bf16 ? launch_tiled<FMT, IMPL, true, 64, 64, 16, 4, 4>(x, w, out, M, N, K, t, stream)
+                : launch_tiled<FMT, IMPL, false, 64, 64, 16, 4, 4>(x, w, out, M, N, K, t, stream);
+}
+
+template <int FMT>
+int launch_mm(const void* x, const void* w, void* out, int M, int N, int K, int x_bf16, int impl,
+              const void* tab, cudaStream_t stream) {
+  REPRO_IMPL_DISPATCH(impl, true, launch_mm_as, FMT, x, w, out, M, N, K, x_bf16, tab, stream)
 }
 
 }  // namespace
 
 // N is the logical column count (for an mx weight, the payload row holds
-// ceil(N/32) groups)
+// ceil(N/32) groups); impl is repro::Impl, tab the decode table (null for kBits)
 extern "C" int repro_matmul(const void* x, const void* w, void* out, int M, int N, int K,
-                            int x_bf16, int fmt, void* stream) {
-  REPRO_WIRE_DISPATCH(fmt, launch_mm, x, w, out, M, N, K, x_bf16,
+                            int x_bf16, int fmt, int impl, const void* tab, void* stream) {
+  REPRO_WIRE_DISPATCH(fmt, launch_mm, x, w, out, M, N, K, x_bf16, impl, tab,
                       static_cast<cudaStream_t>(stream))
 }

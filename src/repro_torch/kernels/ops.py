@@ -10,6 +10,14 @@ interleaved payload (n elements <-> n/32*33 bytes); a malformed payload or an
 encode input that is not whole 32-element blocks raises here, before any
 kernel or plain version sees it.
 
+``decode_impl`` / ``encode_impl`` pick the codec inside each kernel: "bits"
+(the format family's branch-free codec) or "lut" (a gather from the tables
+of ``core/tables.py``); None takes the per-format default of
+``lut.DEFAULT_DECODE_IMPL`` / ``DEFAULT_ENCODE_IMPL``, as in ``repro``.  The
+knob is resolved (``lut.resolve_impl``: "lut" on a format without tables
+raises) before any kernel or plain version runs, and the plain version runs
+the same codec as the kernel.
+
 On CUDA tensors the ops launch the kernels; on CPU tensors the kernel
 wrappers take their plain versions.  Inside ``with plain_path():`` every op
 takes its plain version on any device: it is the explicit reference mode
@@ -24,6 +32,7 @@ import contextlib
 import torch
 
 from repro_torch.core.formats import wire_format
+from .lut import DECODE_IMPLS, resolve_impl
 from .takum_attention import decode_attention_plain, takum_decode_attention
 from .takum_codec import decode_2d_plain, encode_2d_plain, takum_decode_2d, takum_encode_2d
 from .takum_matmul import takum_matmul, takum_matmul_plain
@@ -32,13 +41,11 @@ from .takum_matmul import takum_matmul, takum_matmul_plain
 #: the plain matmul accumulating in this dtype (see :func:`plain_path`)
 _PLAIN_ACC = None
 
-#: every kernel wrapper of this slice; each carries a ``.launches`` count
-KERNELS = {
-    "takum_decode_2d": takum_decode_2d,
-    "takum_encode_2d": takum_encode_2d,
-    "takum_matmul": takum_matmul,
-    "takum_decode_attention": takum_decode_attention,
-}
+#: every kernel wrapper; each counts its launches per codec in ``.launches``
+WRAPPERS = (takum_decode_2d, takum_encode_2d, takum_matmul, takum_decode_attention)
+#: every kernel, named ``wrapper[impl]`` (e.g. ``takum_matmul[lut]``): one
+#: per wrapper and codec, each a template instantiation of its own
+KERNELS = {f"{fn.__name__}[{impl}]": (fn, impl) for fn in WRAPPERS for impl in DECODE_IMPLS}
 
 
 @contextlib.contextmanager
@@ -56,13 +63,14 @@ def plain_path(acc: torch.dtype = torch.float32):
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches of each kernel of :data:`KERNELS` since the last
+    :func:`reset_launch_counts`."""
+    return {name: fn.launches[impl] for name, (fn, impl) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = dict.fromkeys(DECODE_IMPLS, 0)
 
 
 def _as_2d(x: torch.Tensor):
@@ -107,46 +115,50 @@ def _check_mx_encode_input(x: torch.Tensor, wf) -> None:
             f"(nonzero) multiple of 32, got {n} (zero-pad with blockscale.pad_block)")
 
 
-def encode(x: torch.Tensor, fmt) -> torch.Tensor:
+def encode(x: torch.Tensor, fmt, encode_impl=None) -> torch.Tensor:
     """float32 [...] -> packed wire bits of the same shape (K2); an mx format
     gives the payload, last dim n -> n/32*33."""
     wf = wire_format(fmt)
     if x.dim() == 0:
         raise ValueError("encode takes rank >= 1")
     _check_mx_encode_input(x, wf)
+    impl = resolve_impl(encode_impl, wf, "encode")
     x2, shape = _as_2d(x.to(torch.float32).contiguous())
-    out = takum_encode_2d(x2, wf) if _PLAIN_ACC is None else encode_2d_plain(x2, wf)
+    out = takum_encode_2d(x2, wf, impl) if _PLAIN_ACC is None else encode_2d_plain(x2, wf, impl)
     return _reshape_back(out, shape)
 
 
-def decode(bits: torch.Tensor, fmt) -> torch.Tensor:
+def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     """Packed wire bits [...] -> float32 of the same shape (K1); an mx
     payload's last dim L becomes L/33*32."""
     wf = wire_format(fmt)
     if bits.dim() == 0:
         raise ValueError("decode takes rank >= 1")
     _check_mx_payload(bits, wf, "decode payload")
+    impl = resolve_impl(decode_impl, wf)
     b2, shape = _as_2d(bits.contiguous())
-    out = takum_decode_2d(b2, wf) if _PLAIN_ACC is None else decode_2d_plain(b2, wf)
+    out = takum_decode_2d(b2, wf, impl) if _PLAIN_ACC is None else decode_2d_plain(b2, wf, impl)
     return _reshape_back(out, shape)
 
 
-def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None) -> torch.Tensor:
+def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None) -> torch.Tensor:
     """x [M, K] @ decode(w_bits [K, N]) -> [M, N] float32 (K3).  An mx
     ``w_bits`` is the payload [K, ceil(N/32)*33]; ``n`` is its logical N."""
     wf = wire_format(fmt)
     _check_mx_payload(w_bits, wf, "matmul w_bits")
+    impl = resolve_impl(decode_impl, wf)
     if _PLAIN_ACC is None:
-        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n)
-    return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC)
+        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl)
+    return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl)
 
 
 def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0.0,
-                     scale=None) -> torch.Tensor:
+                     scale=None, decode_impl=None) -> torch.Tensor:
     """One-token GQA decode attention over a packed KV cache (K6); see
     :func:`~repro_torch.kernels.takum_attention.takum_decode_attention`."""
     wf = wire_format(fmt)
     _check_mx_payload(k_bits, wf, "decode_attention k_bits")
     _check_mx_payload(v_bits, wf, "decode_attention v_bits")
+    impl = resolve_impl(decode_impl, wf)
     fn = takum_decode_attention if _PLAIN_ACC is None else decode_attention_plain
-    return fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale)
+    return fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale, impl)

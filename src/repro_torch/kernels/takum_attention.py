@@ -8,19 +8,20 @@ With an mx cache format, K/V are interleaved payloads [B, Hkv, S,
 ceil(d/32)*33] blocked along d; the padded d lanes of the last block are
 dropped (d need not be a multiple of 32).
 
-``takum_decode_attention`` launches ``csrc/takum_attention.cu`` for CUDA
-tensors and takes ``decode_attention_plain`` for CPU tensors;
-``.launches`` counts the kernel launches.
+``decode_impl`` picks the K/V decode ("bits" or "lut", see :mod:`.lut`;
+None is the format's default).  ``takum_decode_attention`` launches
+``csrc/takum_attention.cu`` for CUDA tensors and takes
+``decode_attention_plain`` for CPU tensors; ``.launches`` counts the kernel
+launches per codec.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import wire_format
 from repro_torch.quant import blockscale
-from . import _build
-from .common import kernel_format, stream_of
+from . import _build, lut
+from .common import IMPL_CODE, kernel_format, stream_of, table_ptrs
 
 
 def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
@@ -33,7 +34,7 @@ def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
 
 
 def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
-                           scale=None) -> torch.Tensor:
+                           scale=None, decode_impl=None) -> torch.Tensor:
     """Plain PyTorch K6: q [B, H, d] f32, k/v bits [B, Hkv, S, d] (an mx
     payload [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d]."""
     B, H, d = q.shape
@@ -41,7 +42,7 @@ def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softca
     g = H // Hkv
     length = S if length is None else length
     scale = d ** -0.5 if scale is None else scale
-    dec = wire_format(fmt).decode
+    dec = lut.decode_fn(fmt, decode_impl)
     k = dec(k_bits)[..., :d]  # an mx payload decodes to padded d: drop the padding
     v = dec(v_bits)[..., :d]
     qg = q.to(torch.float32).reshape(B, Hkv, g, d)
@@ -55,7 +56,7 @@ def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softca
 
 
 def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
-                           scale=None) -> torch.Tensor:
+                           scale=None, decode_impl=None) -> torch.Tensor:
     """K6: q [B, H, d] f32 against packed k/v [B, Hkv, S, d] (an mx payload
     [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d] f32.
 
@@ -65,6 +66,7 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
     a [B, S, Hkv, d] cache slice permuted to [B, Hkv, S, d].
     """
     wf = kernel_format(fmt)
+    impl = lut.resolve_impl(decode_impl, wf)
     if q.dim() != 3 or k_bits.dim() != 4 or v_bits.shape != k_bits.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k_bits.shape)}, "
                          f"v {tuple(v_bits.shape)}")
@@ -85,7 +87,8 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
     scale = d ** -0.5 if scale is None else float(scale)
     devs = {q.device, k_bits.device, v_bits.device}
     if devs == {torch.device("cpu")}:
-        return decode_attention_plain(q, k_bits, v_bits, wf, length, window, softcap, scale)
+        return decode_attention_plain(q, k_bits, v_bits, wf, length, window, softcap, scale,
+                                      impl)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"q, k and v must share one CUDA device, got {devs}")
     if not q.is_contiguous() or k_bits.stride(3) != 1 or v_bits.stride(3) != 1:
@@ -95,11 +98,12 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
     _build.check(
         fn(q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(), out.data_ptr(), B, H, Hkv, d,
            *k_bits.stride()[:3], *v_bits.stride()[:3], length, int(window), scale,
-           float(softcap), wf.code, stream_of(q)),
+           float(softcap), wf.code, IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", q.device),
+           stream_of(q)),
         "takum_decode_attention",
     )
-    takum_decode_attention.launches += 1
+    takum_decode_attention.launches[impl] += 1
     return out
 
 
-takum_decode_attention.launches = 0
+takum_decode_attention.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)

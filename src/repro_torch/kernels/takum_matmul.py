@@ -4,9 +4,10 @@ without the ``out_fmt`` epilogue).  An mx weight is the payload
 [K, ceil(N/32)*33], blocked along N; ``n`` names its logical N, and the
 padded output columns are dropped.
 
-``takum_matmul`` launches ``csrc/takum_matmul.cu`` for CUDA tensors and
-takes ``takum_matmul_plain`` for CPU tensors; ``.launches`` counts the
-kernel launches.
+``decode_impl`` picks the weight decode ("bits" or "lut", see :mod:`.lut`;
+None is the format's default).  ``takum_matmul`` launches
+``csrc/takum_matmul.cu`` for CUDA tensors and takes ``takum_matmul_plain``
+for CPU tensors; ``.launches`` counts the kernel launches per codec.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import torch
 
 from repro_torch.core.formats import wire_format
 from repro_torch.quant import blockscale
-from . import _build
-from .common import kernel_format, stream_of
+from . import _build, lut
+from .common import IMPL_CODE, kernel_format, stream_of, table_ptrs
 from .takum_codec import decode_2d_plain
 
 
@@ -36,18 +37,20 @@ def _logical_n(w_bits: torch.Tensor, wf, n) -> int:
 
 
 def takum_matmul_plain(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None,
-                       acc: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain PyTorch K3: decode the whole weight, then one matmul in ``acc``
-    (float32; float64 is the order control of ``ops.plain_path``), returned
-    as float32."""
-    w = decode_2d_plain(w_bits, fmt)[:, :_logical_n(w_bits, wire_format(fmt), n)]
+                       acc: torch.dtype = torch.float32, decode_impl=None) -> torch.Tensor:
+    """Plain PyTorch K3: decode the whole weight (through ``decode_impl``),
+    then one matmul in ``acc`` (float32; float64 is the order control of
+    ``ops.plain_path``), returned as float32."""
+    w = decode_2d_plain(w_bits, fmt, decode_impl)[:, :_logical_n(w_bits, wire_format(fmt), n)]
     return torch.matmul(x.to(acc), w.to(acc)).to(torch.float32)
 
 
-def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None) -> torch.Tensor:
+def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None,
+                 decode_impl=None) -> torch.Tensor:
     """K3: x [M, K] f32/bf16 @ decode(w_bits [K, N]) -> [M, N] float32; an mx
     ``w_bits`` is the payload [K, ceil(N/32)*33] and ``n`` its logical N."""
     wf = kernel_format(fmt)
+    impl = lut.resolve_impl(decode_impl, wf)
     if x.dim() != 2 or w_bits.dim() != 2 or x.shape[1] != w_bits.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(x.shape)} @ {tuple(w_bits.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -56,7 +59,7 @@ def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None) -> torch.Te
         raise TypeError(f"w_bits must be {wf.storage} for {wf.name}, got {w_bits.dtype}")
     N = _logical_n(w_bits, wf, n)
     if x.device.type == "cpu" and w_bits.device.type == "cpu":
-        return takum_matmul_plain(x, w_bits, wf, N)
+        return takum_matmul_plain(x, w_bits, wf, N, decode_impl=impl)
     if x.device.type != "cuda" or w_bits.device != x.device:
         raise ValueError(f"x and w_bits must share one CUDA device, got {x.device}, {w_bits.device}")
     if not (x.is_contiguous() and w_bits.is_contiguous()):
@@ -69,11 +72,12 @@ def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None) -> torch.Te
         fn = _build.entry("repro_matmul")
         _build.check(
             fn(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), M, N, K,
-               int(x.dtype == torch.bfloat16), wf.code, stream_of(x)),
+               int(x.dtype == torch.bfloat16), wf.code, IMPL_CODE[impl],
+               *table_ptrs(wf, impl, "decode", x.device), stream_of(x)),
             "takum_matmul",
         )
-        takum_matmul.launches += 1
+        takum_matmul.launches[impl] += 1
     return out
 
 
-takum_matmul.launches = 0
+takum_matmul.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)

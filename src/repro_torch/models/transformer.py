@@ -9,7 +9,10 @@ L (``repro`` scans them).
 On the card the serving path goes through the port's kernels: every linear
 over a packed weight is K3, the embedding rows are decoded by K1 (as are the
 packed norm gains, once per call), every KV append is K2 and the decode
-step reads the cache through K6.  An mx KV cache (``mxe4m3``, ``mxe5m2``,
+step reads the cache through K6.  No call names a codec, so each kernel
+takes its format's default (``kernels/lut.py``, as in ``repro``): the table
+("lut") codec for t8 weights and caches (and mxt8's elements), the e4m3 /
+e5m2 cache read and the t16 weight packing; the bits codec elsewhere.  An mx KV cache (``mxe4m3``, ``mxe5m2``,
 ``mxt8``) stores per (position, kv head) the payload of the head dim
 zero-padded to a multiple of 32: ``payload_len(hd)`` bytes, appended
 through K2-mx and read through K6-mx.  The KV cache is updated IN PLACE

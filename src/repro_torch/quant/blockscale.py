@@ -118,8 +118,11 @@ def elem_cap(fmt) -> float:
     return _elem_cap(_bs(fmt).name)
 
 
-def block_quantize(x: torch.Tensor, fmt):
-    """f32 [..., n] (n % 32 == 0) -> (scales [..., n/32] uint8, bits [..., n] uint8)."""
+def block_quantize(x: torch.Tensor, fmt, elem_encode=None):
+    """f32 [..., n] (n % 32 == 0) -> (scales [..., n/32] uint8, bits [..., n] uint8).
+    ``elem_encode`` (f32 -> int64 codes) replaces the element format's bits
+    encode, e.g. by its table encode; it sees values already clamped to the
+    element cap, so a non-saturating encoder is exact here."""
     wf = _bs(fmt)
     n = x.shape[-1]
     if n % BLOCK:
@@ -139,18 +142,20 @@ def block_quantize(x: torch.Tensor, fmt):
     xs = torch.where(tiny, xb * 0.0, xs)
     cap = elem_cap(wf)
     xs = xs.clamp(-cap, cap)  # the saturating MX conversion
-    bits = wf.elem.encode(xs).to(torch.int64)
+    bits = (elem_encode or wf.elem.encode)(xs).to(torch.int64)
     # NaN-scale blocks carry zero element bits (decode is NaN regardless)
     bits = torch.where((sb == E8M0_NAN)[..., None], torch.zeros_like(bits), bits)
     return sb, bits.reshape(x.shape).to(torch.uint8)
 
 
-def block_dequantize(scales: torch.Tensor, bits: torch.Tensor, fmt):
+def block_dequantize(scales: torch.Tensor, bits: torch.Tensor, fmt, elem_decode=None):
     """(scales [..., n/32], bits [..., n]) -> f32 [..., n]: ``scale * element``
-    in f32, products below 2^-126 flushed; NaN-scale blocks are all NaN."""
+    in f32, products below 2^-126 flushed; NaN-scale blocks are all NaN.
+    ``elem_decode`` replaces the element format's bits decode (e.g. by its
+    table gather)."""
     wf = _bs(fmt)
     n = bits.shape[-1]
-    vals = wf.elem.decode(bits).reshape(*bits.shape[:-1], n // BLOCK, BLOCK)
+    vals = (elem_decode or wf.elem.decode)(bits).reshape(*bits.shape[:-1], n // BLOCK, BLOCK)
     out = _flush_tiny(vals * e8m0_decode(scales)[..., None])
     return out.reshape(*bits.shape[:-1], n)
 
@@ -171,12 +176,12 @@ def unpack_payload(payload: torch.Tensor):
     return grp[..., 0], grp[..., 1:].reshape(*payload.shape[:-1], nb * BLOCK)
 
 
-def encode_payload(x: torch.Tensor, fmt) -> torch.Tensor:
+def encode_payload(x: torch.Tensor, fmt, elem_encode=None) -> torch.Tensor:
     """f32 [..., n] (n % 32 == 0) -> interleaved payload uint8 [..., n/32*33]."""
-    return pack_payload(*block_quantize(x, fmt))
+    return pack_payload(*block_quantize(x, fmt, elem_encode))
 
 
-def decode_payload(payload: torch.Tensor, fmt) -> torch.Tensor:
+def decode_payload(payload: torch.Tensor, fmt, elem_decode=None) -> torch.Tensor:
     """Interleaved payload [..., L] -> f32 [..., L/33*32]."""
     scales, bits = unpack_payload(payload)
-    return block_dequantize(scales, bits, fmt)
+    return block_dequantize(scales, bits, fmt, elem_decode)

@@ -10,7 +10,7 @@ and the per-32-block E8M0 scale bytes in ``scale`` (a view into the
 payload); ``repro`` keeps the element bytes and the scales apart instead, and
 :func:`repro_torch.convert.params_from_numpy` interleaves them.  Encode and
 decode go through :mod:`repro_torch.kernels.ops`, i.e. K2 and K1 on the
-card.  Stochastic rounding comes with the training slice.
+card, each with the format's default codec.  Stochastic rounding comes with the training slice.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ has only PyTorch):
 Codecs must match bit for bit (NaN matches NaN), the mx containers
 included.  K3 is held to 4e-6 * (|x| @ |w|), the limit of chip_smoke.py
 (which reads a t16 kernel with bf16- or TF32-rounded operands above it), K6
-to 1e-5 * max|v|.
+to 1e-5 * max|v|.  Each kernel has a "bits" and a "lut" instantiation (the
+codec inside it): the lut codecs must also equal the bits kernels bit for
+bit, and K3/K6 under lut must equal K3/K6 under bits bit for bit (the same
+decoded values summed in the same order).
 """
 
 import pytest
@@ -26,6 +29,7 @@ from repro_torch.quant import blockscale
 
 FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
 MX_FMTS = ("mxe4m3", "mxe5m2", "mxt8")
+IMPLS = ("bits", "lut")
 
 
 @pytest.fixture
@@ -144,13 +148,15 @@ def test_mx_decode_attention_kernel_masks_like_plain(cuda, fmt):
 
 @pytest.mark.gpu
 def test_launch_counters_count_kernel_launches(cuda):
+    """One launch of each op under each impl counts one on each kernel."""
     ops.reset_launch_counts()
     x = _rand((4, 32), 17).to(cuda)
-    bits = ops.encode(x, "t8")
-    ops.decode(bits, "t8")
-    ops.matmul(x, bits.t().contiguous(), "t8")
-    kv = bits.reshape(1, 1, 4, 32)
-    ops.decode_attention(torch.zeros(1, 2, 32, device=cuda), kv, kv, "t8")
+    for impl in IMPLS:
+        bits = ops.encode(x, "t8", encode_impl=impl)
+        ops.decode(bits, "t8", decode_impl=impl)
+        ops.matmul(x, bits.t().contiguous(), "t8", decode_impl=impl)
+        kv = bits.reshape(1, 1, 4, 32)
+        ops.decode_attention(torch.zeros(1, 2, 32, device=cuda), kv, kv, "t8", decode_impl=impl)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
     ops.reset_launch_counts()
 
@@ -165,6 +171,81 @@ def test_launch_counters_count_mx_kernel_launches(cuda):
     ops.matmul(x, ops.encode(_rand((64, 64), 22).to(cuda), "mxt8"), "mxt8")
     kv = payload.reshape(1, 1, 4, 66)
     ops.decode_attention(torch.zeros(1, 2, 64, device=cuda), kv, kv, "mxt8")
-    assert ops.launch_counts() == {"takum_decode_2d": 1, "takum_encode_2d": 2,
-                                   "takum_matmul": 1, "takum_decode_attention": 1}
+    # mxt8 takes the t8 tables by default, encode and decode
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "takum_decode_2d[lut]": 1,
+                                   "takum_encode_2d[lut]": 2, "takum_matmul[lut]": 1,
+                                   "takum_decode_attention[lut]": 1}
     ops.reset_launch_counts()
+
+
+def _lut_encode_ok(fmt):
+    return wire_format(fmt).supports_lut_encode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_lut_codec_kernels_bit_exact(cuda, fmt):
+    """K1-lut over every code (an mx format: every element code under every
+    scale byte) and K2-lut over a sweep, also past the capped grid: equal to
+    the plain lut codecs and to the bits kernels.  bf16 has no encode tables."""
+    wf = wire_format(fmt)
+    codes = mx_all_codes() if wf.is_block_scaled else _all_codes(wf)
+    got = takum_decode_2d(codes.to(cuda), fmt, "lut").cpu()
+    assert _same_f32(got, takum_decode_2d(codes, fmt, "lut"))
+    assert _same_f32(got, takum_decode_2d(codes.to(cuda), fmt, "bits").cpu())
+    if wf.is_block_scaled:
+        sweep = mx_sweep(torch.Generator().manual_seed(23), 400).reshape(-1, 64)
+    else:
+        sweep = _rand((300, 70), 24, 4.0)
+        sweep[0, :4] = torch.tensor([float("inf"), float("nan"), 1e-40, -0.0])
+    big = _rand((2048, 1024), 25, 0.05)  # past the capped grid
+    sig = wf.signed_storage
+    for x in (sweep, big):
+        if not _lut_encode_ok(fmt):
+            with pytest.raises(ValueError):
+                takum_encode_2d(x.to(cuda), fmt, "lut")
+            continue
+        got = takum_encode_2d(x.to(cuda), fmt, "lut").cpu()
+        assert torch.equal(got.view(sig), takum_encode_2d(x, fmt, "lut").view(sig))
+        assert torch.equal(got.view(sig), takum_encode_2d(x.to(cuda), fmt, "bits").cpu().view(sig))
+        assert _same_f32(takum_decode_2d(got.to(cuda), fmt, "lut").cpu(),
+                         takum_decode_2d(got, fmt, "lut"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_lut_matmul_kernel_equals_bits_kernel(cuda, fmt):
+    mx = wire_format(fmt).is_block_scaled
+    N = 100 if mx else 70
+    w = _rand((130, N), 26, 0.3)
+    w = takum_encode_2d(blockscale.pad_block(w) if mx else w, fmt)
+    wd = ref.codec_decode_ref(w, fmt)[:, :N]
+    n = N if mx else None
+    for M, dt in ((4, torch.bfloat16), (37, torch.float32), (4, torch.float32),
+                  (37, torch.bfloat16)):
+        x = _rand((M, 130), 27).to(dt)
+        got = takum_matmul(x.to(cuda), w.to(cuda), fmt, n, "lut")
+        assert torch.equal(got, takum_matmul(x.to(cuda), w.to(cuda), fmt, n, "bits"))
+        want = takum_matmul_plain(x, w, fmt, n, decode_impl="lut")
+        assert ((got.cpu() - want).abs() <= 4e-6 * (x.float().abs() @ wd.abs())).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_lut_decode_attention_kernel_equals_bits_kernel(cuda, fmt):
+    mx = wire_format(fmt).is_block_scaled
+    for d in ((16, 80, 128) if mx else (16, 128)):
+        x = _rand((2 * 45 * 2, d), 28)
+        kv = takum_encode_2d(blockscale.pad_block(x) if mx else x, fmt).reshape(2, 45, 2, -1)
+        q = _rand((2, 4, d), 29)
+        k = kv.permute(0, 2, 1, 3)
+        vmax = ref.codec_decode_ref(kv, fmt).abs().max()
+        for length, window, cap in ((40, 0, 0.0), (45, 30, 0.0), (7, 0, 3.0)):
+            args = dict(length=length, window=window, softcap=cap)
+            got = takum_decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), fmt,
+                                         decode_impl="lut", **args)
+            bits = takum_decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), fmt,
+                                          decode_impl="bits", **args)
+            assert torch.equal(got, bits)
+            want = decode_attention_plain(q, k, k, fmt, length, window, cap, decode_impl="lut")
+            assert (got.cpu() - want).abs().max() <= 1e-5 * vmax

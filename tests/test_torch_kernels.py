@@ -391,3 +391,102 @@ def test_mx_shape_checks_raise_like_repro(fmt):
     with pytest.raises(ValueError):
         takum_decode_attention(torch.zeros(1, 4, 40), kv, kv, fmt)
     assert takum_decode_attention(torch.zeros(1, 4, 20), kv, kv, fmt).shape == (1, 4, 20)
+
+
+# ---------------------------------------------------------------------------
+# codec impls: "bits" and "lut" through every op
+# ---------------------------------------------------------------------------
+
+
+IMPLS = ("bits", "lut")
+
+
+def _impl_input(fmt, shape, seed):
+    return _mx_input(shape, seed) if fmt in MX_FMTS else _rand(shape, seed, 3.0)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_codec_ops_by_impl_match_pallas_bit_exact(fmt, impl):
+    """ops.encode/decode with an explicit impl against repro's kernels with
+    the same impl; "lut" where a format has no tables (bf16 encode) raises
+    ValueError in both packages before any kernel runs."""
+    x = _impl_input(fmt, (67, 96), 51)
+    x.flat[1], x.flat[-1] = np.inf, -0.0
+    want = _raises(lambda: j_encode_2d(jnp.asarray(x), fmt, encode_impl=impl))
+    if want is None:
+        want = np.array(j_encode_2d(jnp.asarray(x), fmt, encode_impl=impl))
+        got = ops.encode(torch.from_numpy(x), fmt, encode_impl=impl)
+        assert np.array_equal(got.numpy(), want)
+    else:
+        assert want is ValueError and (fmt, impl) == ("bf16", "lut")
+        assert _raises(lambda: ops.encode(torch.from_numpy(x), fmt, encode_impl=impl)) is ValueError
+        want = np.array(j_encode_2d(jnp.asarray(x), fmt, encode_impl="bits"))
+    want_d = np.asarray(j_decode_2d(jnp.asarray(want), fmt, decode_impl=impl))
+    got_d = ops.decode(torch.from_numpy(want), fmt, decode_impl=impl).numpy()
+    assert _same_f32(got_d, want_d)
+    with pytest.raises(ValueError):
+        ops.decode(torch.from_numpy(want), fmt, decode_impl="table")
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_matmul_by_impl_matches_pallas(fmt, impl):
+    """K3 with an explicit weight decode against repro's kernel with the same
+    impl (1e-5 of |x| @ |w|), and bit for bit against the port's other impl."""
+    M, K, N = 37, 130, 100
+    x = _rand((M, K), 52)
+    w = _rand((K, N), 53, 0.5)
+    if fmt in MX_FMTS:
+        w_bits = _payload(blockscale.pad_block(torch.from_numpy(w)).numpy(), fmt)
+    else:
+        w_bits = _bits(w, fmt)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    want = np.array(j_matmul(jx, jnp.asarray(w_bits), fmt, bm=32, bn=128, bk=128,
+                             decode_impl=impl))[:, :N]
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(torch.bfloat16)
+    tw = torch.from_numpy(w_bits)
+    got = ops.matmul(tx, tw, fmt, n=N if fmt in MX_FMTS else None, decode_impl=impl)
+    wd = ref.codec_decode_ref(tw, fmt).numpy()[:, :N]
+    assert (np.abs(got.numpy() - want) <= 1e-5 * (np.abs(tx.float().numpy()) @ np.abs(wd))).all()
+    other = ops.matmul(tx, tw, fmt, n=N if fmt in MX_FMTS else None,
+                       decode_impl="bits" if impl == "lut" else "lut")
+    assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_decode_attention_by_impl_matches_pallas(fmt, impl):
+    """K6 with an explicit K/V decode against repro's kernel with the same
+    impl (1e-5 max|v|), and bit for bit against the port's other impl."""
+    B, H, Hkv, S, d = 2, 6, 2, 37, 32
+    q = _rand((B, H, d), 54)
+    if fmt in MX_FMTS:
+        k_bits, v_bits = (_payload(_rand((B, Hkv, S, d), s), fmt) for s in (55, 56))
+    else:
+        k_bits, v_bits = (_bits(_rand((B, Hkv, S, d), s), fmt) for s in (55, 56))
+    want = np.array(j_attention(jnp.asarray(q), jnp.asarray(k_bits), jnp.asarray(v_bits),
+                                fmt, block_s=16, decode_impl=impl))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k_bits, v_bits))
+    got = ops.decode_attention(tq, tk, tv, fmt, decode_impl=impl)
+    vmax = np.abs(ref.codec_decode_ref(tv, fmt).numpy()).max()
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * vmax
+    other = ops.decode_attention(tq, tk, tv, fmt, decode_impl="bits" if impl == "lut" else "lut")
+    assert torch.equal(got, other)
+
+
+def test_table_pointers_refuse_a_wrong_table(monkeypatch):
+    """The kernels read fixed table lengths, so the wrappers hand them only
+    tables of the right size, type and device (bits passes null pointers)."""
+    from repro_torch.kernels import common
+
+    cpu = torch.device("cpu")
+    assert common.table_ptrs(wire_format("t8"), "bits", "decode", cpu) == (0,)
+    assert common.table_ptrs(wire_format("t16"), "bits", "encode", cpu) == (0, 0)
+    assert all(common.table_ptrs(wire_format("mxt8"), "lut", "encode", cpu))
+    assert all(common.table_ptrs(wire_format("t16"), "lut", "encode", cpu))
+    good = common.tables_on("t8", "decode", cpu)
+    for bad in ((good[0][:128],), (good[0].to(torch.int64),), (torch.zeros(512, dtype=torch.int32),)):
+        monkeypatch.setattr(common, "tables_on", lambda *a, bad=bad: bad)
+        with pytest.raises(ValueError):
+            common.table_ptrs(wire_format("t8"), "lut", "decode", cpu)

@@ -47,6 +47,7 @@ from repro.quant.policy import POLICIES as JPOLICIES
 from repro.quant.policy import QuantPolicy as JQuantPolicy
 from repro.quant.qtensor import QTensor as JQTensor
 from repro_torch import configs, convert, serve
+from repro_torch.kernels import lut
 from repro_torch.models import transformer as T
 from repro_torch.quant import blockscale
 from repro_torch.quant.policy import POLICIES, QuantPolicy
@@ -228,7 +229,29 @@ def test_prefill_and_decode_match_repro(jparams, prompt, policy, act):
 def test_cache_append_matches_repro(jparams, prompt):
     """The prefill's packed KV cache equals repro's code for code, except
     codes an accumulation-order ulp moves across a rounding boundary."""
-    jcfg, tcfg = _cfgs("takum", "f32")
+    _check_cache_append(jparams, prompt, "takum")
+
+
+def test_takum8_cache_append_matches_repro(jparams, prompt, monkeypatch):
+    """takum8 (t8 weights and KV cache): the same cache parity, and the CPU
+    path goes through the plain table codecs, as the defaults say (t8 encode
+    and decode are "lut"), for the KV append, the cache read and the weights."""
+    calls = {"decode": 0, "encode": 0}
+
+    def spy(op, fn):
+        def counted(*a):
+            calls[op] += 1
+            return fn(*a)
+        return counted
+
+    monkeypatch.setattr(lut, "decode_wire_lut", spy("decode", lut.decode_wire_lut))
+    monkeypatch.setattr(lut, "encode_wire_lut", spy("encode", lut.encode_wire_lut))
+    _check_cache_append(jparams, prompt, "takum8")
+    assert calls["decode"] > 0 and calls["encode"] > 0, calls
+
+
+def _check_cache_append(jparams, prompt, policy):
+    jcfg, tcfg = _cfgs(policy, "f32")
     qparams = dstep.quantize_params(jcfg, jparams)
     _, jcache = JT.prefill(jcfg, dstep.dequantize_params(qparams), jnp.asarray(prompt),
                            cache_len=S0 + 2)
