@@ -34,6 +34,19 @@ Phases, each of which must pass:
       (bf16 KV cache: K2 and K6 with the bits codec), kernel path against
       the plain path (``ops.plain_path()``) on the same inputs, with the
       kernel path's launches counted.
+  (f) the producers, through the ``out_fmt`` epilogues of K3, K4 and K6 and
+      K4 (the dual matmul): every producer (K3, K4, K6, flat and mx) under
+      each decode codec and every out format (t8, t16, e4m3, e5m2, bf16,
+      mxe4m3, mxe5m2, mxt8) with each encode codec it has, at odd shapes
+      that reach both matmul tiles, bit for bit against K2's encode of the
+      same kernel's unfused output (the count of differing codes is
+      printed); K4 unfused within K3's limit of its plain version; NaN/Inf
+      rows and overflow mapped to each out family's specials.  Then the
+      producer path at llama3-8b's widths through ``ops.matmul`` /
+      ``dual_matmul`` / ``decode_attention`` with out_fmt, counted, checked
+      the same way and timed against the unfused pair (the producer, then K2)
+      and, for K4, ``torch.matmul`` on pre-decoded bf16 operands.  Phase (b)
+      prints each source's nvcc time and kernel count.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -43,6 +56,7 @@ it, or when any phase fails.  Detailed rows go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -571,6 +585,327 @@ def phase_bank_probe(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase (f): the producers (K3, K4, K6 with out_fmt, and K4 unfused)
+# ---------------------------------------------------------------------------
+
+#: every out format a producer stores
+OUT_FMTS = FMTS + MX_FMTS
+
+
+def out_cases():
+    """(out format, encode codec) for every out format and every encode
+    codec it has: 15 cases (bf16 has no encode tables)."""
+    return [(o, oi) for o in OUT_FMTS for oi in impls_of(o, "encode")]
+
+
+def bytes_differing(torch, a, b):
+    """Count of differing storage bytes (differing codes of an 8-bit format,
+    differing halves of a 16-bit one; a shape mismatch counts all)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel()) * a.element_size()
+    return int((a.contiguous().view(torch.uint8) != b.contiguous().view(torch.uint8)).sum())
+
+
+def dual_rate(fmt):
+    """The card's peak for K4's products: bf16 tensor cores where both
+    decoded operands are exact in bf16 (every format but t16), else f32 FMA."""
+    return F32_FLOPS if fmt == "t16" else BF16_FLOPS
+
+
+def phase_producers_exact(torch, dev):
+    """(f) 1-3: every producer (K3, K3-mx, K4, K4-mx, K6, K6-mx) under each
+    decode codec and each (out_fmt, encode codec) of ``out_cases``, at both
+    K3/K4 tiles (M = 3 and 37), K not a multiple of the K tile (flat x: K =
+    1000; an mx x is whole 32-blocks, K = 992), N = 96 (whole mx blocks, not a
+    multiple of the 64-column tile), K6 at S = 100, d = 64 and 128, g = 4,
+    and with length, window and softcap: the fused output must equal, bit
+    for bit, K2's encode of the same kernel's unfused output.  K4 unfused
+    against its plain version within K3_LIMIT of |decode(x)| @ |w|.  Then
+    the specials: a NaN or Inf row of x gives the out family's special in
+    exactly that row (head, for K6) and finite values elsewhere, and an
+    overflow takes each family's route (t8 saturates finite, e4m3 NaN, e5m2
+    and bf16 Inf).  Returns the differing-code counts per producer."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels.takum_attention import takum_decode_attention
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain, takum_decode_2d
+    from repro_torch.kernels.takum_codec import takum_encode_2d
+    from repro_torch.kernels.takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain,
+                                                  takum_matmul)
+    from repro_torch.quant import blockscale
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    cases = out_cases()
+    differing = {}
+
+    def held(producer, fused_fn, unfused, tag):
+        """Every out case of one producer launch against K2 of its unfused
+        output; flattens a [B, H, d] output to rows for K2."""
+        flat = unfused.reshape(-1, unfused.shape[-1])
+        nbad_all = 0
+        for out, oi in cases:
+            fused = fused_fn(out, oi)
+            want = takum_encode_2d(flat, out, oi).reshape(*unfused.shape[:-1], -1)
+            nbad = bytes_differing(torch, fused, want)
+            nbad_all += nbad
+            check(nbad == 0, f"{producer} {tag} -> {out}:{oi}: {nbad} codes differ from K2 of "
+                             f"the unfused output")
+        differing[producer] = differing.get(producer, 0) + nbad_all
+
+    N = 96
+    for fmt in FMTS + MX_FMTS:
+        wf = wire_format(fmt)
+        mx = wf.is_block_scaled
+        kind = "mx" if mx else "flat"
+        for impl in impls_of(fmt, "decode"):
+            for M, xdt in ((3, torch.float32), (37, torch.bfloat16)):
+                # K3: K = 1000 (not a multiple of either K tile)
+                K = 1000
+                x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+                w = encode_2d_plain(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5,
+                                    fmt)
+                unfused = takum_matmul(x, w, fmt, N, impl)
+                held(f"K3 {kind}", lambda o, oi: takum_matmul(x, w, fmt, N, impl, o, oi),
+                     unfused, f"{fmt}[{impl}] M={M} K={K} x {str(xdt)[6:]}")
+                # K4: both operands fmt; an mx x is whole blocks along K
+                K = 992 if mx else 1000
+                xb = encode_2d_plain(torch.randn((M, K), generator=gen, device=dev), fmt)
+                w = encode_2d_plain(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5,
+                                    fmt)
+                unfused = takum_dual_matmul(xb, w, fmt, N, impl)
+                want = takum_dual_matmul_plain(xb, w, fmt, N, decode_impl=impl)
+                scale = torch.matmul(decode_2d_plain(xb, fmt).abs(), decode_2d_plain(w, fmt).abs())
+                ratio = float(((unfused - want).abs() / scale.clamp(min=1e-30)).max())
+                check(bool(torch.isfinite(unfused).all()), f"K4 {fmt}[{impl}] M={M}: non-finite")
+                check(ratio <= K3_LIMIT, f"K4 {fmt}[{impl}] M={M} K={K}: err {ratio:.3g} of "
+                                         f"|x|@|w| > {K3_LIMIT}")
+                held(f"K4 {kind}", lambda o, oi: takum_dual_matmul(xb, w, fmt, N, impl, o, oi),
+                     unfused, f"{fmt}[{impl}] M={M} K={K}")
+            # K6: S = 100, g = 4, d = 64 and 128, the full cache and a
+            # length / window / softcap case
+            B, H, Kv, S = 2, 8, 2, 100
+            for d in (64, 128):
+                def cache():
+                    c = encode_2d_plain(torch.randn((B * S * Kv, d), generator=gen, device=dev),
+                                        fmt)
+                    return c.reshape(B, S, Kv, -1).permute(0, 2, 1, 3)
+                kc, vc = cache(), cache()
+                q = torch.randn((B, H, d), generator=gen, device=dev)
+                for args in (dict(), dict(length=77, window=40, softcap=20.0)):
+                    unfused = takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
+                    held(f"K6 {kind}", lambda o, oi: takum_decode_attention(
+                        q, kc, vc, fmt, decode_impl=impl, out_fmt=o, encode_impl=oi, **args),
+                         unfused, f"{fmt}[{impl}] d={d} {args}")
+    log(f"(f) fused == K2(unfused) for {len(cases)} out cases; differing codes {differing}")
+
+    # specials: NaN / Inf rows of x (NaR rows of x bits for K4, a NaN in
+    # head 0's q for K6) must give the out family's special in exactly those
+    # rows, every other row finite
+    def family_special(y, out):
+        wf = wire_format(out)
+        ok = not bool(torch.isfinite(y).any())
+        if wf.special in ("nar", "nan") or wf.is_block_scaled:
+            ok = ok and bool(torch.isnan(y).all())
+        return ok
+
+    M, K, Nsp = 8, 64, 64
+    for out in OUT_FMTS:
+        for fmt in ("t8", "e4m3"):
+            x = torch.randn((M, K), generator=gen, device=dev) * 0.1
+            x[0, 0], x[1, 1] = math.nan, math.inf
+            w = encode_2d_plain(torch.randn((K, Nsp), generator=gen, device=dev) * 0.1, fmt)
+            y = takum_decode_2d(takum_matmul(x, w, fmt, out_fmt=out), out)
+            check(family_special(y[:2], out) and bool(torch.isfinite(y[2:]).all()),
+                  f"K3 {fmt} -> {out}: specials not confined to the poisoned rows")
+        for fmt in ("t8", "t16"):
+            x = torch.randn((M, K), generator=gen, device=dev) * 0.3
+            x[0, 0], x[1, 1] = math.nan, math.inf
+            xb = encode_2d_plain(x, fmt)
+            w = encode_2d_plain(torch.randn((K, Nsp), generator=gen, device=dev) * 0.3, fmt)
+            y = takum_decode_2d(takum_dual_matmul(xb, w, fmt, out_fmt=out), out)
+            check(family_special(y[:2], out) and bool(torch.isfinite(y[2:]).all()),
+                  f"K4 {fmt} -> {out}: specials not confined to the poisoned rows")
+            kc = encode_2d_plain(torch.randn((40, 32), generator=gen, device=dev), fmt)
+            kc = kc.reshape(1, 2, 20, 32)
+            q = torch.randn((1, 4, 32), generator=gen, device=dev)
+            q[0, 0, 0] = math.nan
+            y = takum_decode_2d(takum_decode_attention(q, kc, kc, fmt, out_fmt=out)[0], out)
+            check(family_special(y[0], out) and bool(torch.isfinite(y[1:]).all()),
+                  f"K6 {fmt} -> {out}: specials not confined to head 0")
+    # overflow: 64 products of 50 * 50 (160000: past e4m3's and e5m2's
+    # range), and one product 1.843e19 * 2^64 (3.3998e38: finite in f32,
+    # rounds past bf16's largest finite value)
+    big = (torch.full((4, 64), 50.0, device=dev),
+           encode_2d_plain(torch.full((64, 32), 50.0, device=dev), "t16"))
+    huge_x = torch.zeros((4, 16), device=dev)
+    huge_x[:, 0] = 1.843e19
+    huge = (huge_x, encode_2d_plain(torch.full((16, 32), 2.0 ** 64, device=dev), "t16"))
+    for out, (x, w), want in (("t8", big, "finite"), ("t8", huge, "finite"), ("e4m3", big, "nan"),
+                              ("e5m2", big, "inf"), ("bf16", huge, "inf")):
+        y = takum_decode_2d(takum_matmul(x, w, "t16", out_fmt=out), out)
+        got = ("finite" if bool((torch.isfinite(y) & (y > 0)).all()) else
+               "nan" if bool(torch.isnan(y).all()) else
+               "inf" if bool((y == math.inf).all()) else "mixed")
+        check(got == want, f"overflow to {out}: {got}, want {want}")
+    log("(f) specials confined to their rows for every out format; overflow: t8 saturates, "
+        "e4m3 NaN, e5m2 and bf16 Inf")
+    return differing
+
+
+#: (f) 4, the full-width rows: (producer, fmt, M, K, N, out_fmt, encode
+#: impl); producer "K3" (bf16 x at the serving widths, the head at M=4),
+#: "K4" (x bits of fmt), "K6" (B=4, H=32, Kv=8, S=288, hd=128); out None is
+#: the unfused launch.  Every codec is its format's default.
+FULL_ROWS = (
+    [("K3", w, M, 4096, 14336, o, "lut") for w in ("t8", "t16") for M in (4, 1024)
+     for o in ("t8", "mxt8")]
+    + [("K3", "t8", 4, 4096, 128256, "t8", "lut")]
+    + [("K4", f, M, 4096, 14336, o, oi) for M in (4, 1024)
+       for f, o, oi in (("t8", None, None), ("t8", "t16", "lut"), ("t8", "t8", "lut"),
+                        ("mxt8", None, None), ("mxt8", "mxt8", "lut"))]
+    + [("K6", "t8", 4, 128, 0, "t8", "lut"), ("K6", "mxe4m3", 4, 128, 0, "mxe4m3", None)]
+)
+
+
+def phase_producers_full(torch, dev):
+    """(f) 4: the producers at llama3-8b's widths, driven once through the
+    ``ops`` entry points with the launch counts reset just before and read
+    just after (the producer path of this phase), then each row checked
+    (fused == K2 of the unfused output of the same kernel, bit for bit; K4
+    unfused against its plain version within K3_LIMIT and against
+    ``torch.matmul`` on pre-decoded bf16 operands) and timed: the kernel, its
+    plain version, the unfused pair (K3/K4/K6 then K2) for a fused row, and
+    ``torch.matmul`` on the pre-decoded operands for K4.  Returns (rows,
+    launch counts of the producer path)."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels import lut, ops
+    from repro_torch.kernels.takum_attention import decode_attention_plain
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain, takum_encode_2d
+    from repro_torch.kernels.takum_matmul import takum_dual_matmul_plain, takum_matmul_plain
+    from repro_torch.quant import blockscale
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    inputs = {}
+
+    def operands(prod, fmt, M, K, N):
+        key = (prod, fmt, M, K, N)
+        if key not in inputs:
+            if prod == "K6":
+                B, H, Kv, S, hd = 4, 32, 8, 288, K
+                def cache():
+                    c = torch.randn((B * S * Kv, hd), generator=gen, device=dev)
+                    return encode_2d_plain(c, fmt).reshape(B, S, Kv, -1).permute(0, 2, 1, 3)
+                inputs[key] = (torch.randn((B, H, hd), generator=gen, device=dev), cache(),
+                               cache())
+            else:
+                w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+                w = encode_2d_plain(w, fmt)
+                x = torch.randn((M, K), generator=gen, device=dev)
+                x = x.to(torch.bfloat16) if prod == "K3" else encode_2d_plain(x, fmt)
+                inputs[key] = (x, w)
+        return inputs[key]
+
+    def call(prod, fmt, M, K, N, out, oi, plain=False):
+        with ops.plain_path() if plain else contextlib.nullcontext():
+            if prod == "K3":
+                x, w = operands(prod, fmt, M, K, N)
+                return ops.matmul(x, w, fmt, out_fmt=out, encode_impl=oi)
+            if prod == "K4":
+                x, w = operands(prod, fmt, M, K, N)
+                return ops.dual_matmul(x, w, fmt, out_fmt=out, encode_impl=oi)
+            q, kc, vc = operands(prod, fmt, M, K, N)
+            return ops.decode_attention(q, kc, vc, fmt, out_fmt=out, encode_impl=oi)
+
+    for row in FULL_ROWS:  # make every input before the counted run
+        operands(*row[:5])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for row in FULL_ROWS:
+        call(*row)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"(f) producer path launches: { {k: v for k, v in counts.items() if v} }")
+
+    kname = {"K3": "takum_matmul", "K4": "takum_dual_matmul", "K6": "takum_decode_attention"}
+    rows = []
+    for prod, fmt, M, K, N, out, oi in FULL_ROWS:
+        wf = wire_format(fmt)
+        impl = lut.resolve_impl(None, fmt)
+        out_name, out_impl = lut.resolve_out_fmt(out, oi)
+        tag = f"{prod} {fmt}[{impl}] M={M} K={K} N={N}" + (f" -> {out_name}:{out_impl}" if out
+                                                            else "")
+        unfused = call(prod, fmt, M, K, N, None, None)
+        row = dict(kernel=kname[prod], producer=prod, fmt=fmt, impl=impl, out_fmt=out_name,
+                   encode_impl=out_impl, shape=[M, K, N] if prod != "K6" else [4, 32, 8, 288, K],
+                   launch_key=f"{kname[prod]}[{impl}" + (f">{out_name}:{out_impl}]" if out
+                                                          else "]"))
+        flat = unfused.reshape(-1, unfused.shape[-1])
+        if out is not None:
+            fused = call(prod, fmt, M, K, N, out, oi)
+            want = takum_encode_2d(flat, out_name, out_impl).reshape(*unfused.shape[:-1], -1)
+            nbad = bytes_differing(torch, fused, want)
+            check(nbad == 0, f"{tag}: {nbad} codes differ from K2 of the unfused output")
+            row.update(differing_codes=nbad, max_abs_err=0.0)
+            del fused, want
+        if prod == "K4":
+            x, w = operands(prod, fmt, M, K, N)
+            xd, wd = decode_2d_plain(x, fmt), decode_2d_plain(w, fmt)
+            want = takum_dual_matmul_plain(x, w, fmt)
+            scale = torch.matmul(xd.abs(), wd.abs())
+            ratio = float(((unfused - want).abs() / scale.clamp(min=1e-30)).max())
+            check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|w| > {K3_LIMIT}")
+            lib_in = (xd.to(torch.bfloat16), wd.to(torch.bfloat16))
+            lib = torch.matmul(*lib_in).float()
+            check(bool(((lib - unfused).abs() <= 1e-2 * scale + 1e-6).all()),
+                  f"{tag}: far from torch.matmul on pre-decoded bf16 operands")
+            row.update(err_over_absprod=ratio)
+            if out is None:
+                row["max_abs_err"] = float((unfused - want).abs().max())
+            del xd, wd, want, scale, lib
+        # bound: inputs read once, output written once; products at the
+        # operands' peak rate
+        out_wf = wire_format(out_name) if out else None
+        if prod == "K6":
+            B, H, Kv, S, hd = 4, 32, 8, 288, K
+            cache = 2 * B * Kv * S * (blockscale.payload_len(hd) if wf.is_block_scaled
+                                      else hd * wf.nbits // 8)
+            out_bytes = B * H * (4 * hd if out_wf is None else
+                                 blockscale.payload_len(hd) if out_wf.is_block_scaled
+                                 else hd * out_wf.nbits // 8)
+            b_ms, b_by = bound(B * H * hd * 4 + cache + out_bytes, 4.0 * B * H * S * hd)
+        else:
+            x, w = operands(prod, fmt, M, K, N)
+            out_bytes = (M * N * 4 if out_wf is None else
+                         M * blockscale.payload_len(N) if out_wf.is_block_scaled
+                         else M * N * out_wf.nbits // 8)
+            rate = matmul_rate(torch, fmt, torch.bfloat16) if prod == "K3" else dual_rate(fmt)
+            b_ms, b_by = bound(x.numel() * x.element_size() + w.numel() * w.element_size()
+                               + out_bytes, 2.0 * M * N * K, rate)
+        row.update(
+            ms=time_ms(torch, lambda: call(prod, fmt, M, K, N, out, oi), flush=flush),
+            plain_ms=time_ms(torch, lambda: call(prod, fmt, M, K, N, out, oi, plain=True),
+                             flush=flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if out is not None:
+            # the unfused pair this launch replaces: the producer, then K2
+            row["unfused_pair_ms"] = time_ms(torch, lambda: takum_encode_2d(
+                call(prod, fmt, M, K, N, None, None).reshape(-1, flat.shape[-1]), out_name,
+                out_impl), flush=flush)
+        if prod == "K4" and out is None:
+            row["library_ms"] = time_ms(torch, lambda: torch.matmul(*lib_in), flush=flush)
+        rows.append(row)
+        log(f"(f) {tag}: {row['ms']:.4f} ms (bound {b_ms:.4f}, {b_by}; plain "
+            f"{row['plain_ms']:.3f}; pair {row.get('unfused_pair_ms')}; torch.matmul "
+            f"{row['library_ms']})")
+        del unfused, flat
+    del flush, inputs
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
 # phase (d): full-depth serving; phase (e): kernel path vs plain path
 # ---------------------------------------------------------------------------
 
@@ -748,7 +1083,6 @@ def phase_parity(torch, dev):
     cache) the one that drives the bits codec of K2 and K6.  Every reading
     (per-step errors, the control, the share of KV-cache bytes in which the
     runs differ) is logged before it is checked."""
-    import contextlib
     import dataclasses
 
     from repro_torch import configs, serve
@@ -843,6 +1177,8 @@ KERNEL_INFO = {
                      "src/repro/kernels/takum_matmul.py:56"),
     "takum_decode_attention": ("K6", "src/repro_torch/kernels/csrc/takum_attention.cu",
                                "src/repro/kernels/takum_attention.py:56"),
+    "takum_dual_matmul": ("K4", "src/repro_torch/kernels/csrc/takum_dual_matmul.cu",
+                          "src/repro/kernels/takum_matmul.py:56"),
 }
 
 #: (kernel, format, codec, shape, path) rows that stand for each kernel in
@@ -878,6 +1214,31 @@ SUMMARY = [
 ]
 
 
+def kernel_census(build_mod):
+    """Per source: the wall time of its nvcc in this run's build, and its
+    count of kernel instantiations with their registers, stack and shared
+    memory (``cuobjdump -res-usage`` of the library; None where the
+    toolkit has no cuobjdump)."""
+    import os
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for lib in sorted(build_mod.build_dir().glob("lib*.so")):
+        src = lib.stem[3:] + ".cu"
+        info = dict(nvcc_s=round(build_mod.last_build_by_source.get(src, 0.0), 1), kernels=None)
+        if os.path.exists(cuobjdump):
+            res = subprocess.run([cuobjdump, "-res-usage", str(lib)], capture_output=True,
+                                 text=True, timeout=120)
+            lines = res.stdout.splitlines()
+            usage = [(a.strip(), b.strip()) for a, b in zip(lines, lines[1:])
+                     if a.strip().startswith("Function ") and "REG:" in b]
+            kernels = [u for u in usage if "kernel" in u[0]]
+            info.update(kernels=len(kernels), res_usage=usage)
+        out[src] = info
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is not beside this script", file=sys.stderr)
@@ -901,7 +1262,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     _build.build_all()
     build_s = _build.last_build_seconds
+    build = kernel_census(_build)
     log(f"(b) kernels built in {build_s:.1f} s into {_build.build_dir()}")
+    for src, info in build.items():
+        log(f"(b) {src}: nvcc {info['nvcc_s']} s, {info['kernels']} kernel instantiations")
 
     rows = []
     t0 = time.perf_counter()
@@ -923,6 +1287,11 @@ def main() -> int:
     parity = phase_parity(torch, dev)
     log(f"(e) parity done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    differing = phase_producers_exact(torch, dev)
+    producer_rows, producer_counts = phase_producers_full(torch, dev)
+    log(f"(f) producers done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     for path in ("mxt8", "bf16"):
         launches[path] = next(r["launches"] for r in parity
@@ -940,11 +1309,26 @@ def main() -> int:
             source=source, replaces=replaces, path=path, launches=n,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # phase (f): K4 and every fused variant, launches from its producer path
+    for row in producer_rows:
+        tag, source, replaces = KERNEL_INFO[row["kernel"]]
+        name = (tag + ("-mx" if row["fmt"].startswith("mx") else "")
+                + ("-lut" if row["impl"] == "lut" else "")
+                + (f"+{row['out_fmt']}:{row['encode_impl']}" if row["out_fmt"] else ""))
+        n = producer_counts.get(row["launch_key"], 0)
+        check(n > 0, f"{name} was never launched on the producer path")
+        summary.append(dict(
+            name=f"{name} {row['kernel']} {row['fmt']} {'x'.join(map(str, row['shape']))}",
+            route="cuda", source=source, replaces=replaces, path="producers", launches=n,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, torch=torch.__version__, build_s=build_s,
+        dict(card=card, torch=torch.__version__, build_s=build_s, build=build,
              kernel_rows=rows, bank_probe=bank_probe, serving=serving, parity=parity,
+             producers=dict(differing_codes=differing, rows=producer_rows,
+                            launches={k: v for k, v in producer_counts.items() if v}),
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -41,18 +41,25 @@ _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _F = ctypes.c_float
 
+#: the trailing epilogue arguments of a producer (K3, K4, K6): out format id
+#: (-1: f32 out), its encode codec id and its encode tables (meta, thr | sub)
+_EPI = [_INT, _INT, _P, _P]
+
 #: C entry -> (library, argtypes); every entry returns a cudaError_t as int.
 #: Each takes the format id and the codec id, then the table pointers (null
-#: for "bits"): the decode table, or the encode pair (meta, thr | sub); the
-#: stream comes last.
+#: for "bits"): the decode table, or the encode pair (meta, thr | sub); a
+#: producer then takes its epilogue arguments; the stream comes last.
 ENTRIES = {
     "repro_decode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P]),
     "repro_encode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P, _P]),
-    "repro_matmul": ("takum_matmul", [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P]),
+    "repro_matmul": ("takum_matmul",
+                     [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, *_EPI, _P]),
+    "repro_dual_matmul": ("takum_dual_matmul",
+                          [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P, *_EPI, _P]),
     "repro_decode_attention": (
         "takum_attention",
         [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _LL, _LL, _LL, _LL, _LL, _LL,
-         _INT, _INT, _F, _F, _INT, _INT, _P, _P],
+         _INT, _INT, _F, _F, _INT, _INT, _P, *_EPI, _P],
     ),
 }
 
@@ -60,6 +67,8 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: seconds the last build took (0.0 when every library was already built)
 last_build_seconds = 0.0
+#: wall seconds of each source's nvcc in the last build (name -> s)
+last_build_by_source: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -84,7 +93,7 @@ def build_dir() -> Path:
 def build_all() -> Path:
     """Compile every ``csrc/*.cu`` that is not built yet, one ``nvcc`` per
     source, in parallel.  Raises with the compiler's output on failure."""
-    global last_build_seconds
+    global last_build_seconds, last_build_by_source
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -95,13 +104,21 @@ def build_all() -> Path:
             continue
         tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp.so"
         cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        # one thread per nvcc drains its output and clocks its wall time
+        done = {}
+        waiter = threading.Thread(
+            target=lambda p=proc, d=done: d.update(log=p.communicate()[0],
+                                                   s=time.perf_counter() - t0))
+        waiter.start()
+        procs.append((src, lib, tmp, proc, waiter, done))
     errors = []
-    for lib, tmp, proc in procs:
-        log, _ = proc.communicate()
+    last_build_by_source = {}
+    for src, lib, tmp, proc, waiter, done in procs:
+        waiter.join()
+        last_build_by_source[src.name] = done["s"]
         if proc.returncode != 0:
-            errors.append(f"{lib.name}: nvcc exited {proc.returncode}\n{log}")
+            errors.append(f"{lib.name}: nvcc exited {proc.returncode}\n{done['log']}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file

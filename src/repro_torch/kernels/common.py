@@ -15,7 +15,8 @@ import torch
 from repro_torch.core.formats import WireFormat, wire_format
 from repro_torch.core.takum import takum_decode as decode_takum_f32  # noqa: F401
 from repro_torch.core.takum import takum_encode as encode_takum_from_f32  # noqa: F401
-from .lut import tables_on
+from repro_torch.quant import blockscale
+from .lut import resolve_out_fmt, tables_on
 
 
 def kernel_format(fmt) -> WireFormat:
@@ -52,3 +53,52 @@ def table_ptrs(wf: WireFormat, impl: str, op: str, device) -> tuple[int, ...]:
             raise ValueError(f"{op} table for {name}: want {size} contiguous int32 on {device}, "
                              f"got {t.numel()} {t.dtype} on {t.device}")
     return tuple(t.data_ptr() for t in tabs)
+
+
+#: the C entries' out-format id of an unfused launch (``repro::kOutF32``)
+OUT_F32 = -1
+
+
+def out_format(out_fmt, encode_impl, n: int, dim: str = "N"):
+    """A producer's ``out_fmt=`` / ``encode_impl=`` resolved, on every route:
+    ``(out WireFormat, encode impl)``, or ``(None, None)`` for f32 output.
+    Raises as ``lut.resolve_out_fmt`` does, for a format no kernel stores
+    (f32), and for an mx out whose last dim ``n`` (the matmul's N, the
+    attention's head dim) is not whole 32-element blocks, as ``repro``
+    does."""
+    name, impl = resolve_out_fmt(out_fmt, encode_impl)
+    if name is None:
+        return None, None
+    out_wf = kernel_format(name)
+    if out_wf.is_block_scaled and n % blockscale.BLOCK:
+        raise ValueError(f"block-scaled out_fmt needs a 32-multiple {dim}, got {n}")
+    return out_wf, impl
+
+
+def empty_out(lead: tuple, n: int, out_wf, device) -> torch.Tensor:
+    """A producer's output: f32 [*lead, n], or ``out_wf``'s packed bits
+    [*lead, n] (an mx payload [*lead, n/32*33])."""
+    if out_wf is None:
+        return torch.empty((*lead, n), dtype=torch.float32, device=device)
+    cols = blockscale.payload_len(n) if out_wf.is_block_scaled else n
+    return torch.empty((*lead, cols), dtype=out_wf.storage, device=device)
+
+
+def epilogue_args(out_wf, out_impl, device) -> tuple:
+    """The four trailing epilogue arguments of a producer's C entry: out
+    format id, encode codec id and encode table pointers; ``(OUT_F32, 0, 0,
+    0)`` for f32 output (``out_wf`` None)."""
+    if out_wf is None:
+        return (OUT_F32, 0, 0, 0)
+    return (out_wf.code, IMPL_CODE[out_impl], *table_ptrs(out_wf, out_impl, "encode", device))
+
+
+def launch_key(impl: str, out_name=None, out_impl=None) -> str:
+    """Key of a launch in a wrapper's ``.launches``: the decode codec, and
+    for a fused launch the out format and its encode codec
+    (``"lut>t8:lut"``)."""
+    return impl if out_name is None else f"{impl}>{out_name}:{out_impl}"
+
+
+def count_launch(fn, key: str) -> None:
+    fn.launches[key] = fn.launches.get(key, 0) + 1

@@ -466,6 +466,87 @@ __device__ __forceinline__ uint32_t mx_encode(float x, uint32_t byte, const uint
   return elem_encode<FMT, IMPL>(xs, meta, aux);
 }
 
+// ---- the fused out_fmt epilogue of K3, K4 and K6 (lut.py:355 encode_epilogue) ----
+//
+// A producer that was asked for packed output stages its finished f32 tile
+// in shared memory and hands it to store_encoded_tile, which encodes
+// exactly those values, the ones the unfused launch writes, as K2 would:
+// element by element through elem_encode for a flat format; for an mx
+// format one warp per 32-element group, its E8M0 byte from the group's
+// absmax (__reduce_max_sync over the |x| bits, as K2-mx), lane 0 writing
+// the scale byte and lane i element byte 1 + i.  A group spans the
+// registers of several threads (8 in K3's 64 x 64 tile, 32 in its 8 x 32
+// tile), which is why the tile goes through shared memory first.
+//
+// The out format and its codec are runtime values: store_encoded_tile is
+// compiled once per translation unit (__noinline__) and switches on them
+// once per tile, so a producer has one fused instantiation per kernel
+// instantiation, not one per out format and codec.  The encode tables are
+// read from global memory, where L1 keeps them.
+
+constexpr int kOutF32 = -1;  // Epilogue::code of an unfused launch: f32 output
+
+struct Epilogue {
+  int code;            // out format (WireCode), or kOutF32
+  int impl;            // its encode codec (Impl)
+  const uint32_t* meta;  // lut: the encode pair, else null
+  const int* aux;
+  long long ldo;       // output row stride: elements, or payload bytes for mx
+};
+
+// Whether a launch may run with `ep`: a known out format, and its tables
+// when the codec is lut (bf16 has none).
+inline bool epilogue_ok(const Epilogue& ep) {
+  if (ep.code == kOutF32) return true;
+  if (ep.code < kT8 || ep.code > kMXT8) return false;
+  if (ep.impl == kBits) return true;
+  return ep.impl == kLut && ep.code != kBF16 && ep.meta != nullptr && ep.aux != nullptr;
+}
+
+template <int OUT, int OIMPL>
+__device__ __forceinline__ void encode_tile_as(const float* t, int ldt, int rows, int cols,
+                                               void* out, long long row0, long long col0,
+                                               const Epilogue& ep) {
+  if constexpr (kIsMx<OUT>) {
+    uint8_t* o = static_cast<uint8_t*>(out);
+    const int lane = static_cast<int>(threadIdx.x) & 31;
+    const int per_row = cols / kMxBlock;  // cols is whole groups
+    for (int grp = static_cast<int>(threadIdx.x) / 32; grp < rows * per_row;
+         grp += static_cast<int>(blockDim.x) / 32) {
+      const int r = grp / per_row, c = (grp % per_row) * kMxBlock;
+      const float x = t[r * ldt + c + lane];
+      const uint32_t amax = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(x) & 0x7FFFFFFFu);
+      const uint32_t byte = mx_scale_byte(amax, Wire<OUT>::kEmax);
+      uint8_t* g = o + (row0 + r) * ep.ldo + mx_scale_at(col0 + c);
+      if (lane == 0) g[0] = static_cast<uint8_t>(byte);
+      g[1 + lane] = static_cast<uint8_t>(mx_encode<OUT, OIMPL>(x, byte, ep.meta, ep.aux));
+    }
+  } else {
+    using T = typename Wire<OUT>::storage;
+    T* o = static_cast<T*>(out);
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols, c = i % cols;
+      o[(row0 + r) * ep.ldo + col0 + c] =
+          static_cast<T>(elem_encode<OUT, OIMPL>(t[r * ldt + c], ep.meta, ep.aux));
+    }
+  }
+}
+
+// the tile through out format F's codec ep.impl (lut only where F has tables)
+template <int F>
+__device__ __forceinline__ int encode_tile_fmt(const float* t, int ldt, int rows, int cols,
+                                               void* out, long long row0, long long col0,
+                                               const Epilogue& ep) {
+  if constexpr (kHasEncodeLut<F>) {
+    if (ep.impl == kLut) {
+      encode_tile_as<F, kLut>(t, ldt, rows, cols, out, row0, col0, ep);
+      return 0;
+    }
+  }
+  encode_tile_as<F, kBits>(t, ldt, rows, cols, out, row0, col0, ep);
+  return 0;
+}
+
 }  // namespace repro
 
 // Calls LAUNCH<FMT, IMPL>(args...) for a runtime codec id `impl`: unknown
@@ -492,3 +573,18 @@ __device__ __forceinline__ uint32_t mx_encode(float x, uint32_t byte, const uint
     case repro::kMXT8: return LAUNCH<repro::kMXT8>(__VA_ARGS__);      \
     default: return static_cast<int>(cudaErrorInvalidValue);          \
   }
+
+namespace repro {
+
+// Encode the rows x cols tile `t` (row stride ldt floats; every thread of
+// the block calls this after a __syncthreads that made `t` visible) into
+// rows row0.. and columns col0.. of the packed output `out`.  For an mx
+// format col0 and cols are whole 32-element groups.  Returns nonzero only
+// for an out format that epilogue_ok refuses before any launch.
+inline __device__ __noinline__ int store_encoded_tile(const float* t, int ldt, int rows, int cols,
+                                                      void* out, long long row0, long long col0,
+                                                      const Epilogue& ep) {
+  REPRO_WIRE_DISPATCH(ep.code, encode_tile_fmt, t, ldt, rows, cols, out, row0, col0, ep)
+}
+
+}  // namespace repro

@@ -3,8 +3,8 @@
 // Replaces the Pallas kernel src/repro/kernels/takum_attention.py:56
 // _decode_attn_kernel (entry takum_decode_attention :141) for the flat
 // formats and the mx payloads (its payload path, :61, :82-99, :167-186),
-// with either codec (IMPL kBits, or kLut: its `lut` branch, :201-204),
-// without the out_fmt epilogue, and adds what the model
+// with either codec (IMPL kBits, or kLut: its `lut` branch, :201-204) and
+// its out_fmt epilogue (:120-132), and adds what the model
 // computes around it in jnp (src/repro/models/transformer.py:484-498): the
 // `length` bound (key position < length, i.e. kpos <= pos) over a
 // preallocated cache, the sliding `window` and `attn_softcap`.
@@ -34,6 +34,12 @@
 // Decoded values and summation order equal the bits codec's, so the output
 // is the same bit for bit.
 //
+// FUSED (out_fmt): the block divides acc_s by the denominators in place,
+// the same division the unfused flush stores, and hands the [g, D] tile to
+// repro::store_encoded_tile: the packed [B, H, D] (an mx out: [B, H,
+// D/32*33], D a multiple of 32, only the D real lanes encoded) is K2's
+// encode of exactly the unfused output.  The S loop is the unfused one.
+//
 // Bound on the H100: bytes.  Each block reads its kv head's valid keys and
 // values once (1 or 2 bytes each) and does 4 * g flops per cache byte pair;
 // at B = 4, Hkv = 8 that is 32 blocks, so the kernel is latency-bound long
@@ -47,13 +53,13 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kTileS = 32;     // keys per tile: one per lane in the row update
 
-template <int FMT, int IMPL>
+template <int FMT, int IMPL, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>::storage* __restrict__ k,
-                   const typename repro::Wire<FMT>::storage* __restrict__ v, float* __restrict__ out,
+                   const typename repro::Wire<FMT>::storage* __restrict__ v, void* __restrict__ out,
                    int H, int Hkv, int D, long long ksb, long long ksh, long long kss, long long vsb,
                    long long vsh, long long vss, int length, int window, float scale, float softcap,
-                   const int* __restrict__ tab) {
+                   const int* __restrict__ tab, repro::Epilogue ep) {
   extern __shared__ float smem[];
   const int g = H / Hkv;
   const int h = blockIdx.x;
@@ -150,18 +156,24 @@ decode_attn_kernel(const float* __restrict__ q, const typename repro::Wire<FMT>:
     __syncthreads();
   }
 
-  float* ob = out + (static_cast<long long>(b) * H + static_cast<long long>(h) * g) * D;
-  for (int i = tid; i < g * D; i += kThreads) ob[i] = acc_s[i] / l_s[i / D];
+  const long long row0 = static_cast<long long>(b) * H + static_cast<long long>(h) * g;
+  if constexpr (FUSED) {
+    for (int i = tid; i < g * D; i += kThreads) acc_s[i] = acc_s[i] / l_s[i / D];
+    __syncthreads();
+    repro::store_encoded_tile(acc_s, D, g, D, out, row0, 0, ep);
+  } else {
+    float* ob = static_cast<float*>(out) + row0 * D;
+    for (int i = tid; i < g * D; i += kThreads) ob[i] = acc_s[i] / l_s[i / D];
+  }
 }
 
-template <int FMT, int IMPL>
-int launch_attn_as(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-                   int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-                   long long vss, int length, int window, float scale, float softcap,
-                   const void* tab, cudaStream_t stream) {
+template <int FMT, int IMPL, bool FUSED>
+int launch_attn_fused(const void* q, const void* k, const void* v, void* out, int B, int H,
+                      int Hkv, int D, long long ksb, long long ksh, long long kss, long long vsb,
+                      long long vsh, long long vss, int length, int window, float scale,
+                      float softcap, const int* t, const repro::Epilogue& ep,
+                      cudaStream_t stream) {
   using T = typename repro::Wire<FMT>::storage;
-  const int* t = static_cast<const int*>(tab);
-  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int g = H / Hkv;
   // the float regions of the kernel, then the staged table (none for kBits
   // and for the 16-bit tables, which are read from global memory)
@@ -170,36 +182,64 @@ int launch_attn_as(const void* q, const void* k, const void* v, void* out, int B
       sizeof(float) * (2 * g * D + kTileS * (D + 1) + kTileS * D + g * kTileS + 3 * g) +
       sizeof(int) * kTabInts;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<FMT, IMPL>,
+    const cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<FMT, IMPL, FUSED>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(Hkv, B);
-  decode_attn_kernel<FMT, IMPL><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(out), H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss, length, window, scale,
-      softcap, t);
+  decode_attn_kernel<FMT, IMPL, FUSED><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v), out, H,
+      Hkv, D, ksb, ksh, kss, vsb, vsh, vss, length, window, scale, softcap, t, ep);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The unfused or the fused instantiation, as `ep` asks.
+template <int FMT, int IMPL>
+int launch_attn_as(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
+                   int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+                   long long vss, int length, int window, float scale, float softcap,
+                   const void* tab, const repro::Epilogue& ep, cudaStream_t stream) {
+  const int* t = static_cast<const int*>(tab);
+  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!repro::epilogue_ok(ep)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ep.code == repro::kOutF32) {
+    return launch_attn_fused<FMT, IMPL, false>(q, k, v, out, B, H, Hkv, D, ksb, ksh, kss, vsb,
+                                               vsh, vss, length, window, scale, softcap, t, ep,
+                                               stream);
+  }
+  if (ep.code >= repro::kMXE4M3 && D % repro::kMxBlock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_attn_fused<FMT, IMPL, true>(q, k, v, out, B, H, Hkv, D, ksb, ksh, kss, vsb, vsh,
+                                            vss, length, window, scale, softcap, t, ep, stream);
 }
 
 template <int FMT>
 int launch_attn(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
                 int D, long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
                 long long vss, int length, int window, float scale, float softcap, int impl,
-                const void* tab, cudaStream_t stream) {
+                const void* tab, const repro::Epilogue& ep, cudaStream_t stream) {
   REPRO_IMPL_DISPATCH(impl, true, launch_attn_as, FMT, q, k, v, out, B, H, Hkv, D, ksb, ksh, kss,
-                      vsb, vsh, vss, length, window, scale, softcap, tab, stream)
+                      vsb, vsh, vss, length, window, scale, softcap, tab, ep, stream)
 }
 
 }  // namespace
 
-// impl is repro::Impl, tab the decode table (null for kBits)
+// impl is repro::Impl, tab the decode table (null for kBits); out_code is
+// the out format (repro::kOutF32: f32 out), out_impl its encode codec,
+// meta/aux its encode tables (null for kBits)
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* out, int B,
                                       int H, int Hkv, int D, long long ksb, long long ksh,
                                       long long kss, long long vsb, long long vsh, long long vss,
                                       int length, int window, float scale, float softcap, int fmt,
-                                      int impl, const void* tab, void* stream) {
+                                      int impl, const void* tab, int out_code, int out_impl,
+                                      const void* meta, const void* aux, void* stream) {
+  const long long ldo =
+      out_code >= repro::kMXE4M3 ? static_cast<long long>(D) / 32 * repro::kMxGroup : D;
+  const repro::Epilogue ep{out_code, out_impl, static_cast<const uint32_t*>(meta),
+                           static_cast<const int*>(aux), ldo};
   REPRO_WIRE_DISPATCH(fmt, launch_attn, q, k, v, out, B, H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss,
-                      length, window, scale, softcap, impl, tab, static_cast<cudaStream_t>(stream))
+                      length, window, scale, softcap, impl, tab, ep,
+                      static_cast<cudaStream_t>(stream))
 }

@@ -87,6 +87,19 @@ def resolve_impl(impl: str | None, fmt, op: str = "decode") -> str:
     return impl
 
 
+def resolve_out_fmt(out_fmt, encode_impl) -> tuple[str | None, str | None]:
+    """Normalise a producer's fused-encode knobs (``out_fmt=``,
+    ``encode_impl=`` of ``matmul``, ``dual_matmul`` and
+    ``decode_attention``): ``(canonical name, encode impl)``, or ``(None,
+    None)`` for a plain f32 output.  An unknown format (t32 among them: the
+    port registers none) raises the registry's KeyError; "lut" where the
+    format has no encode tables (bf16) raises ValueError."""
+    if out_fmt is None:
+        return None, None
+    name = wire_format(out_fmt).name
+    return name, resolve_impl(encode_impl, name, "encode")
+
+
 @functools.lru_cache(maxsize=None)
 def _tables_on(name: str, op: str, device: torch.device) -> tuple[torch.Tensor, ...]:
     tabs = (decode_table_bits(name),) if op == "decode" else encode_tables(name)

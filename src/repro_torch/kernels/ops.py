@@ -1,5 +1,5 @@
 """Public entry points of the port's kernels (counterpart of
-``repro.kernels.ops``): ``encode``, ``decode``, ``matmul``,
+``repro.kernels.ops``): ``encode``, ``decode``, ``matmul``, ``dual_matmul``,
 ``decode_attention``.
 
 Each op takes a wire-format handle (a registered name such as 't8', 'e4m3',
@@ -18,6 +18,13 @@ knob is resolved (``lut.resolve_impl``: "lut" on a format without tables
 raises) before any kernel or plain version runs, and the plain version runs
 the same codec as the kernel.
 
+The producers ``matmul``, ``dual_matmul`` and ``decode_attention`` take
+``out_fmt=`` (and ``encode_impl=`` for its codec): the kernel encodes its
+output in its flush and returns the out format's packed bits, equal bit for
+bit to ``encode(<the unfused output>, out_fmt, encode_impl)`` (the contract
+of ``ref.fused_matmul_ref``).  A fused launch that cannot run raises; it
+never gives way to the unfused kernel followed by ``encode``.
+
 On CUDA tensors the ops launch the kernels; on CPU tensors the kernel
 wrappers take their plain versions.  Inside ``with plain_path():`` every op
 takes its plain version on any device: it is the explicit reference mode
@@ -35,16 +42,20 @@ from repro_torch.core.formats import wire_format
 from .lut import DECODE_IMPLS, resolve_impl
 from .takum_attention import decode_attention_plain, takum_decode_attention
 from .takum_codec import decode_2d_plain, encode_2d_plain, takum_decode_2d, takum_encode_2d
-from .takum_matmul import takum_matmul, takum_matmul_plain
+from .takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain, takum_matmul,
+                           takum_matmul_plain)
 
 #: None: the ops launch the kernels; else they take the plain versions,
 #: the plain matmul accumulating in this dtype (see :func:`plain_path`)
 _PLAIN_ACC = None
 
 #: every kernel wrapper; each counts its launches per codec in ``.launches``
-WRAPPERS = (takum_decode_2d, takum_encode_2d, takum_matmul, takum_decode_attention)
-#: every kernel, named ``wrapper[impl]`` (e.g. ``takum_matmul[lut]``): one
-#: per wrapper and codec, each a template instantiation of its own
+WRAPPERS = (takum_decode_2d, takum_encode_2d, takum_matmul, takum_dual_matmul,
+            takum_decode_attention)
+#: every unfused kernel, named ``wrapper[impl]`` (e.g. ``takum_matmul[lut]``):
+#: one per wrapper and codec, each a template instantiation of its own.  A
+#: fused producer launch counts under ``wrapper[impl>out_fmt:encode_impl]``
+#: (e.g. ``takum_matmul[lut>t8:lut]``), a key that exists once launched.
 KERNELS = {f"{fn.__name__}[{impl}]": (fn, impl) for fn in WRAPPERS for impl in DECODE_IMPLS}
 
 
@@ -63,9 +74,9 @@ def plain_path(acc: torch.dtype = torch.float32):
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel of :data:`KERNELS` since the last
-    :func:`reset_launch_counts`."""
-    return {name: fn.launches[impl] for name, (fn, impl) in KERNELS.items()}
+    """Launches of each kernel of :data:`KERNELS`, and of each fused
+    producer launched, since the last :func:`reset_launch_counts`."""
+    return {f"{fn.__name__}[{key}]": n for fn in WRAPPERS for key, n in fn.launches.items()}
 
 
 def reset_launch_counts() -> None:
@@ -141,24 +152,48 @@ def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     return _reshape_back(out, shape)
 
 
-def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None) -> torch.Tensor:
-    """x [M, K] @ decode(w_bits [K, N]) -> [M, N] float32 (K3).  An mx
-    ``w_bits`` is the payload [K, ceil(N/32)*33]; ``n`` is its logical N."""
+def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None, out_fmt=None,
+           encode_impl=None) -> torch.Tensor:
+    """x [M, K] @ decode(w_bits [K, N]) -> [M, N] float32 (K3), or with
+    ``out_fmt`` its packed encode (an mx out: the payload [M, N/32*33]).  An
+    mx ``w_bits`` is the payload [K, ceil(N/32)*33]; ``n`` is its logical N."""
     wf = wire_format(fmt)
     _check_mx_payload(w_bits, wf, "matmul w_bits")
     impl = resolve_impl(decode_impl, wf)
     if _PLAIN_ACC is None:
-        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl)
-    return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl)
+        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt, encode_impl)
+    return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt, encode_impl)
+
+
+def dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
+                out_fmt=None, encode_impl=None) -> torch.Tensor:
+    """decode(x_bits [M, K]) @ decode(w_bits [K, N]) -> [M, N] float32 (K4,
+    the VDPPT analogue), or with ``out_fmt`` its packed encode.  Both operands
+    are ``fmt``; an mx ``x_bits`` is the payload [M, K/32*33], an mx
+    ``w_bits`` [K, ceil(N/32)*33] with ``n`` its logical N."""
+    wf = wire_format(fmt)
+    _check_mx_payload(x_bits, wf, "dual_matmul x_bits")
+    _check_mx_payload(w_bits, wf, "dual_matmul w_bits")
+    impl = resolve_impl(decode_impl, wf)
+    if _PLAIN_ACC is None:
+        return takum_dual_matmul(x_bits.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt,
+                                 encode_impl)
+    return takum_dual_matmul_plain(x_bits, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt,
+                                   encode_impl)
 
 
 def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0.0,
-                     scale=None, decode_impl=None) -> torch.Tensor:
-    """One-token GQA decode attention over a packed KV cache (K6); see
+                     scale=None, decode_impl=None, out_fmt=None,
+                     encode_impl=None) -> torch.Tensor:
+    """One-token GQA decode attention over a packed KV cache (K6), or with
+    ``out_fmt`` its packed encode; see
     :func:`~repro_torch.kernels.takum_attention.takum_decode_attention`."""
     wf = wire_format(fmt)
     _check_mx_payload(k_bits, wf, "decode_attention k_bits")
     _check_mx_payload(v_bits, wf, "decode_attention v_bits")
     impl = resolve_impl(decode_impl, wf)
-    fn = takum_decode_attention if _PLAIN_ACC is None else decode_attention_plain
-    return fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale, impl)
+    if _PLAIN_ACC is None:
+        return takum_decode_attention(q.contiguous(), k_bits, v_bits, wf, length, window, softcap,
+                                      scale, impl, out_fmt, encode_impl)
+    return decode_attention_plain(q.contiguous(), k_bits, v_bits, wf, length, window, softcap,
+                                  scale, impl, out_fmt, encode_impl)

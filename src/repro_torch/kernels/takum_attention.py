@@ -1,18 +1,21 @@
 """K6: one-token GQA decode attention over a packed KV cache (counterpart
-of ``repro.kernels.takum_attention.takum_decode_attention`` without the
-``out_fmt`` epilogue), extended with what ``repro``'s model computes around
-it in jnp (``models/transformer.py:484-498``): a ``length`` bound over a
-preallocated cache, a sliding ``window`` and an attention-logit ``softcap``.
+of ``repro.kernels.takum_attention.takum_decode_attention``), extended with
+what ``repro``'s model computes around it in jnp
+(``models/transformer.py:484-498``): a ``length`` bound over a preallocated
+cache, a sliding ``window`` and an attention-logit ``softcap``.
 
 With an mx cache format, K/V are interleaved payloads [B, Hkv, S,
 ceil(d/32)*33] blocked along d; the padded d lanes of the last block are
 dropped (d need not be a multiple of 32).
 
 ``decode_impl`` picks the K/V decode ("bits" or "lut", see :mod:`.lut`;
-None is the format's default).  ``takum_decode_attention`` launches
-``csrc/takum_attention.cu`` for CUDA tensors and takes
+None is the format's default).  ``out_fmt`` fuses the output's wire encode
+into the kernel's flush (``encode_impl`` picks its codec): the result is the
+packed [B, H, d] (an mx out: [B, H, d/32*33], d a multiple of 32), equal bit
+for bit to ``ops.encode`` of the unfused output.  ``takum_decode_attention``
+launches ``csrc/takum_attention.cu`` for CUDA tensors and takes
 ``decode_attention_plain`` for CPU tensors; ``.launches`` counts the kernel
-launches per codec.
+launches per codec, fused launches under their own keys (``"lut>t8:lut"``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import torch
 
 from repro_torch.quant import blockscale
 from . import _build, lut
-from .common import IMPL_CODE, kernel_format, stream_of, table_ptrs
+from .common import (IMPL_CODE, count_launch, empty_out, epilogue_args, kernel_format, launch_key,
+                     out_format, stream_of, table_ptrs)
+from .takum_codec import encode_2d_plain
 
 
 def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
@@ -34,10 +39,13 @@ def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
 
 
 def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
-                           scale=None, decode_impl=None) -> torch.Tensor:
+                           scale=None, decode_impl=None, out_fmt=None,
+                           encode_impl=None) -> torch.Tensor:
     """Plain PyTorch K6: q [B, H, d] f32, k/v bits [B, Hkv, S, d] (an mx
-    payload [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d]."""
+    payload [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d] f32, or with ``out_fmt``
+    its plain encode (``encode_impl``)."""
     B, H, d = q.shape
+    out_wf, out_impl = out_format(out_fmt, encode_impl, d, "head dim")
     Hkv, S = k_bits.shape[1], k_bits.shape[2]
     g = H // Hkv
     length = S if length is None else length
@@ -52,13 +60,18 @@ def decode_attention_plain(q, k_bits, v_bits, fmt, length=None, window=0, softca
     valid = _valid_keys(S, length, window, q.device)
     logits = torch.where(valid, logits, torch.full_like(logits, float("-inf")))
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, H, d)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, H, d)
+    if out_wf is None:
+        return out
+    return encode_2d_plain(out.reshape(B * H, d), out_wf, out_impl).reshape(B, H, -1)
 
 
 def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softcap=0.0,
-                           scale=None, decode_impl=None) -> torch.Tensor:
+                           scale=None, decode_impl=None, out_fmt=None,
+                           encode_impl=None) -> torch.Tensor:
     """K6: q [B, H, d] f32 against packed k/v [B, Hkv, S, d] (an mx payload
-    [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d] f32.
+    [B, Hkv, S, ceil(d/32)*33]) -> [B, H, d] f32, or with ``out_fmt`` its
+    packed encode [B, H, d] (an mx out: [B, H, d/32*33]).
 
     Keys at positions >= ``length`` (default S) are masked, and with
     ``window > 0`` so are keys ``window`` or more positions before
@@ -85,24 +98,25 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
     if window < 0 or softcap < 0:
         raise ValueError("window and softcap must be >= 0")
     scale = d ** -0.5 if scale is None else float(scale)
+    out_wf, out_impl = out_format(out_fmt, encode_impl, d, "head dim")
     devs = {q.device, k_bits.device, v_bits.device}
     if devs == {torch.device("cpu")}:
         return decode_attention_plain(q, k_bits, v_bits, wf, length, window, softcap, scale,
-                                      impl)
+                                      impl, out_wf, out_impl)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"q, k and v must share one CUDA device, got {devs}")
     if not q.is_contiguous() or k_bits.stride(3) != 1 or v_bits.stride(3) != 1:
         raise ValueError("q must be contiguous and k/v unit-stride along their last axis")
-    out = torch.empty((B, H, d), dtype=torch.float32, device=q.device)
+    out = empty_out((B, H), d, out_wf, q.device)
     fn = _build.entry("repro_decode_attention")
     _build.check(
         fn(q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(), out.data_ptr(), B, H, Hkv, d,
            *k_bits.stride()[:3], *v_bits.stride()[:3], length, int(window), scale,
            float(softcap), wf.code, IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", q.device),
-           stream_of(q)),
+           *epilogue_args(out_wf, out_impl, q.device), stream_of(q)),
         "takum_decode_attention",
     )
-    takum_decode_attention.launches[impl] += 1
+    count_launch(takum_decode_attention, launch_key(impl, out_wf and out_wf.name, out_impl))
     return out
 
 

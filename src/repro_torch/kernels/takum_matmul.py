@@ -1,13 +1,24 @@
-"""K3: dequantising matmul ``x[M, K] @ decode(w_bits[K, N])`` with f32
-accumulation (counterpart of ``repro.kernels.takum_matmul.takum_matmul``
-without the ``out_fmt`` epilogue).  An mx weight is the payload
-[K, ceil(N/32)*33], blocked along N; ``n`` names its logical N, and the
-padded output columns are dropped.
+"""K3 and K4: dequantising matmuls with f32 accumulation (counterparts of
+``repro.kernels.takum_matmul.takum_matmul`` and ``takum_dual_matmul``).
 
-``decode_impl`` picks the weight decode ("bits" or "lut", see :mod:`.lut`;
-None is the format's default).  ``takum_matmul`` launches
-``csrc/takum_matmul.cu`` for CUDA tensors and takes ``takum_matmul_plain``
-for CPU tensors; ``.launches`` counts the kernel launches per codec.
+K3 computes ``x[M, K] @ decode(w_bits[K, N])`` for f32 or bf16 ``x``; K4
+computes ``decode(x_bits[M, K]) @ decode(w_bits[K, N])``, both operands in
+one wire format (with ``out_fmt`` t16 over t8 operands, the paper's widening
+dot product VDPPT8PT16).  An mx weight is the payload [K, ceil(N/32)*33],
+blocked along N; ``n`` names its logical N, and the padded output columns
+are dropped.  An mx ``x_bits`` is the payload [M, K/32*33], blocked along K.
+
+``decode_impl`` picks the operand decode ("bits" or "lut", see :mod:`.lut`;
+None is the format's default).  ``out_fmt`` fuses the output's wire encode
+into the kernel's flush (``encode_impl`` picks its codec): the result is the
+out format's packed bits, [M, N] (an mx out: the payload [M, N/32*33], N a
+multiple of 32), equal bit for bit to ``ops.encode`` of the unfused output.
+
+``takum_matmul`` / ``takum_dual_matmul`` launch ``csrc/takum_matmul.cu`` /
+``csrc/takum_dual_matmul.cu`` for CUDA tensors and take the plain versions
+for CPU tensors; ``.launches`` counts the kernel launches per codec, fused
+launches under their own keys (``"lut>t8:lut"``, see
+:func:`~.common.launch_key`).
 """
 
 from __future__ import annotations
@@ -17,8 +28,9 @@ import torch
 from repro_torch.core.formats import wire_format
 from repro_torch.quant import blockscale
 from . import _build, lut
-from .common import IMPL_CODE, kernel_format, stream_of, table_ptrs
-from .takum_codec import decode_2d_plain
+from .common import (IMPL_CODE, count_launch, empty_out, epilogue_args, kernel_format, launch_key,
+                     out_format, stream_of, table_ptrs)
+from .takum_codec import decode_2d_plain, encode_2d_plain
 
 
 def _logical_n(w_bits: torch.Tensor, wf, n) -> int:
@@ -37,18 +49,65 @@ def _logical_n(w_bits: torch.Tensor, wf, n) -> int:
 
 
 def takum_matmul_plain(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None,
-                       acc: torch.dtype = torch.float32, decode_impl=None) -> torch.Tensor:
+                       acc: torch.dtype = torch.float32, decode_impl=None, out_fmt=None,
+                       encode_impl=None) -> torch.Tensor:
     """Plain PyTorch K3: decode the whole weight (through ``decode_impl``),
     then one matmul in ``acc`` (float32; float64 is the order control of
-    ``ops.plain_path``), returned as float32."""
-    w = decode_2d_plain(w_bits, fmt, decode_impl)[:, :_logical_n(w_bits, wire_format(fmt), n)]
-    return torch.matmul(x.to(acc), w.to(acc)).to(torch.float32)
+    ``ops.plain_path``), returned as float32, or with ``out_fmt`` encoded by
+    the plain encode (``encode_impl``)."""
+    N = _logical_n(w_bits, wire_format(fmt), n)
+    out_wf, out_impl = out_format(out_fmt, encode_impl, N)
+    w = decode_2d_plain(w_bits, fmt, decode_impl)[:, :N]
+    out = torch.matmul(x.to(acc), w.to(acc)).to(torch.float32)
+    return out if out_wf is None else encode_2d_plain(out, out_wf, out_impl)
 
 
-def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None,
-                 decode_impl=None) -> torch.Tensor:
-    """K3: x [M, K] f32/bf16 @ decode(w_bits [K, N]) -> [M, N] float32; an mx
-    ``w_bits`` is the payload [K, ceil(N/32)*33] and ``n`` its logical N."""
+def takum_dual_matmul_plain(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None,
+                            acc: torch.dtype = torch.float32, decode_impl=None, out_fmt=None,
+                            encode_impl=None) -> torch.Tensor:
+    """Plain PyTorch K4: decode both operands (an mx x to its whole-block
+    K), then one matmul in ``acc``; ``out_fmt`` as in
+    :func:`takum_matmul_plain`."""
+    x = decode_2d_plain(x_bits, fmt, decode_impl)
+    return takum_matmul_plain(x, w_bits, fmt, n, acc, decode_impl, out_fmt, encode_impl)
+
+
+def _check_device(a: torch.Tensor, b: torch.Tensor, names: str) -> bool:
+    """True for two CPU tensors (the plain version runs); raises unless both
+    are contiguous on one CUDA device."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return True
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{names} must share one CUDA device, got {a.device}, {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{names} must be contiguous")
+    return False
+
+
+def _launch(entry: str, fn, x, w_bits, dims: tuple, wf, impl, out_wf, out_impl):
+    """Allocate the output ([M, N] f32, or the out format's packed [M, N] or
+    payload), run the C entry ``entry`` on (x, w_bits, out, *dims, format,
+    codec, tables, epilogue, stream) and count the launch on ``fn``."""
+    M, N, K = dims[:3]
+    if max(M, N, K) >= 2**31:
+        raise ValueError("matmul dims must fit in int32")
+    out = empty_out((M,), N, out_wf, x.device)
+    if out.numel():
+        _build.check(
+            _build.entry(entry)(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), *dims, wf.code,
+                                IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", x.device),
+                                *epilogue_args(out_wf, out_impl, x.device), stream_of(x)),
+            fn.__name__,
+        )
+        count_launch(fn, launch_key(impl, out_wf and out_wf.name, out_impl))
+    return out
+
+
+def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
+                 out_fmt=None, encode_impl=None) -> torch.Tensor:
+    """K3: x [M, K] f32/bf16 @ decode(w_bits [K, N]) -> [M, N] float32, or
+    with ``out_fmt`` its packed encode; an mx ``w_bits`` is the payload
+    [K, ceil(N/32)*33] and ``n`` its logical N."""
     wf = kernel_format(fmt)
     impl = lut.resolve_impl(decode_impl, wf)
     if x.dim() != 2 or w_bits.dim() != 2 or x.shape[1] != w_bits.shape[0]:
@@ -58,26 +117,40 @@ def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None,
     if w_bits.dtype != wf.storage:
         raise TypeError(f"w_bits must be {wf.storage} for {wf.name}, got {w_bits.dtype}")
     N = _logical_n(w_bits, wf, n)
-    if x.device.type == "cpu" and w_bits.device.type == "cpu":
-        return takum_matmul_plain(x, w_bits, wf, N, decode_impl=impl)
-    if x.device.type != "cuda" or w_bits.device != x.device:
-        raise ValueError(f"x and w_bits must share one CUDA device, got {x.device}, {w_bits.device}")
-    if not (x.is_contiguous() and w_bits.is_contiguous()):
-        raise ValueError("x and w_bits must be contiguous")
+    out_wf, out_impl = out_format(out_fmt, encode_impl, N)
+    if _check_device(x, w_bits, "x and w_bits"):
+        return takum_matmul_plain(x, w_bits, wf, N, decode_impl=impl, out_fmt=out_wf,
+                                  encode_impl=out_impl)
     M, K = x.shape
-    if max(M, N, K) >= 2**31:
-        raise ValueError("matmul dims must fit in int32")
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if out.numel():
-        fn = _build.entry("repro_matmul")
-        _build.check(
-            fn(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), M, N, K,
-               int(x.dtype == torch.bfloat16), wf.code, IMPL_CODE[impl],
-               *table_ptrs(wf, impl, "decode", x.device), stream_of(x)),
-            "takum_matmul",
-        )
-        takum_matmul.launches[impl] += 1
-    return out
+    return _launch("repro_matmul", takum_matmul, x, w_bits,
+                   (M, N, K, int(x.dtype == torch.bfloat16)), wf, impl, out_wf, out_impl)
+
+
+def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
+                      out_fmt=None, encode_impl=None) -> torch.Tensor:
+    """K4: decode(x_bits [M, K]) @ decode(w_bits [K, N]) -> [M, N] float32,
+    or with ``out_fmt`` its packed encode.  Both operands are ``fmt``; for an
+    mx format x_bits is the payload [M, K/32*33] (w_bits then has K rows)
+    and w_bits [K, ceil(N/32)*33] with ``n`` its logical N."""
+    wf = kernel_format(fmt)
+    impl = lut.resolve_impl(decode_impl, wf)
+    if x_bits.dim() != 2 or w_bits.dim() != 2:
+        raise ValueError(f"bad dual_matmul shapes {tuple(x_bits.shape)} @ {tuple(w_bits.shape)}")
+    M, K = x_bits.shape
+    if wf.is_block_scaled:
+        K = blockscale.elems_len(K)
+    if K != w_bits.shape[0]:
+        raise ValueError(f"bad dual_matmul shapes {tuple(x_bits.shape)} @ {tuple(w_bits.shape)}")
+    if x_bits.dtype != wf.storage or w_bits.dtype != wf.storage:
+        raise TypeError(f"x_bits and w_bits must be {wf.storage} for {wf.name}")
+    N = _logical_n(w_bits, wf, n)
+    out_wf, out_impl = out_format(out_fmt, encode_impl, N)
+    if _check_device(x_bits, w_bits, "x_bits and w_bits"):
+        return takum_dual_matmul_plain(x_bits, w_bits, wf, N, decode_impl=impl, out_fmt=out_wf,
+                                       encode_impl=out_impl)
+    return _launch("repro_dual_matmul", takum_dual_matmul, x_bits, w_bits, (M, N, K), wf, impl,
+                   out_wf, out_impl)
 
 
 takum_matmul.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)
+takum_dual_matmul.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)

@@ -12,7 +12,10 @@ included.  K3 is held to 4e-6 * (|x| @ |w|), the limit of chip_smoke.py
 to 1e-5 * max|v|.  Each kernel has a "bits" and a "lut" instantiation (the
 codec inside it): the lut codecs must also equal the bits kernels bit for
 bit, and K3/K6 under lut must equal K3/K6 under bits bit for bit (the same
-decoded values summed in the same order).
+decoded values summed in the same order).  K4 (the dual matmul) is held to
+K3's limit of |decode(x)| @ |w|, and every fused ``out_fmt`` output of K3,
+K4 and K6 must equal K2's encode of the same kernel's unfused output bit
+for bit.
 """
 
 import pytest
@@ -24,7 +27,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
 from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
 from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
-from repro_torch.kernels.takum_matmul import takum_matmul, takum_matmul_plain
+from repro_torch.kernels.takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain,
+                                              takum_matmul, takum_matmul_plain)
 from repro_torch.quant import blockscale
 
 FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
@@ -155,6 +159,7 @@ def test_launch_counters_count_kernel_launches(cuda):
         bits = ops.encode(x, "t8", encode_impl=impl)
         ops.decode(bits, "t8", decode_impl=impl)
         ops.matmul(x, bits.t().contiguous(), "t8", decode_impl=impl)
+        ops.dual_matmul(bits, bits.t().contiguous(), "t8", decode_impl=impl)
         kv = bits.reshape(1, 1, 4, 32)
         ops.decode_attention(torch.zeros(1, 2, 32, device=cuda), kv, kv, "t8", decode_impl=impl)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
@@ -249,3 +254,97 @@ def test_lut_decode_attention_kernel_equals_bits_kernel(cuda, fmt):
             assert torch.equal(got, bits)
             want = decode_attention_plain(q, k, k, fmt, length, window, cap, decode_impl="lut")
             assert (got.cpu() - want).abs().max() <= 1e-5 * vmax
+
+
+# ---------------------------------------------------------------------------
+# the producers: fused out_fmt epilogues and K4
+# ---------------------------------------------------------------------------
+
+#: (out format, encode codec): every out format with each codec it has
+OUT_CASES = [(o, i) for o in FMTS + MX_FMTS for i in IMPLS
+             if i == "bits" or wire_format(o).supports_lut_encode]
+
+
+def _fused_cases(cuda, producer, fmt):
+    """(unfused output, fused(out, impl)) of one producer at an odd shape:
+    M = 37 (the 64 x 64 tile; M = 3, the 8 x 32 tile, runs beside it), K
+    not a multiple of the K tile, N = 96; K6 at S = 45, d = 64, g = 2."""
+    mx = wire_format(fmt).is_block_scaled
+    if producer == "K6":
+        x = _rand((2 * 45 * 2, 64), 41)
+        kv = takum_encode_2d(x, fmt).reshape(2, 45, 2, -1).permute(0, 2, 1, 3).to(cuda)
+        q = _rand((2, 4, 64), 42).to(cuda)
+        args = dict(length=40, window=30, softcap=5.0)
+        return [(takum_decode_attention(q, kv, kv, fmt, **args),
+                 lambda o, i: takum_decode_attention(q, kv, kv, fmt, out_fmt=o, encode_impl=i,
+                                                     **args))]
+    K = 96 if mx and producer == "K4" else 100
+    w = takum_encode_2d(_rand((K, 96), 43, 0.1), fmt).to(cuda)
+    out = []
+    for M in (3, 37):
+        if producer == "K3":
+            x = _rand((M, K), 44).to(cuda)
+            out.append((takum_matmul(x, w, fmt),
+                        lambda o, i, x=x: takum_matmul(x, w, fmt, out_fmt=o, encode_impl=i)))
+        else:
+            xb = takum_encode_2d(_rand((M, K), 45), fmt).to(cuda)
+            out.append((takum_dual_matmul(xb, w, fmt),
+                        lambda o, i, xb=xb: takum_dual_matmul(xb, w, fmt, out_fmt=o,
+                                                              encode_impl=i)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("producer,fmt", [("K3", "t16"), ("K3", "mxt8"), ("K4", "t8"),
+                                          ("K4", "mxe4m3"), ("K6", "e5m2"), ("K6", "mxt8")])
+def test_fused_output_equals_encode_of_unfused(cuda, producer, fmt):
+    """The out_fmt epilogue adds no rounding of its own: for every out format
+    and encode codec, the fused output is K2's encode of the unfused output,
+    bit for bit, at both tiles."""
+    for unfused, fused in _fused_cases(cuda, producer, fmt):
+        flat = unfused.reshape(-1, unfused.shape[-1])
+        for out, impl in OUT_CASES:
+            want = takum_encode_2d(flat, out, impl).reshape(*unfused.shape[:-1], -1)
+            got = fused(out, impl)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (out, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_dual_matmul_kernel_within_limit(cuda, fmt):
+    """K4 against its plain version within 4e-6 * (|decode(x)| @ |w|), each
+    codec, at both tiles; lut equals bits bit for bit."""
+    mx = wire_format(fmt).is_block_scaled
+    K, N = (96, 100) if mx else (130, 70)
+    w = _rand((K, N), 46, 0.3)
+    w = takum_encode_2d(blockscale.pad_block(w) if mx else w, fmt)
+    n = N if mx else None
+    wd = ref.codec_decode_ref(w, fmt)[:, :N]
+    for M in (4, 37):
+        xb = takum_encode_2d(_rand((M, K), 47), fmt)
+        scale = ref.codec_decode_ref(xb, fmt).abs() @ wd.abs()
+        bits = takum_dual_matmul(xb.to(cuda), w.to(cuda), fmt, n, "bits")
+        for impl in IMPLS:
+            got = takum_dual_matmul(xb.to(cuda), w.to(cuda), fmt, n, impl)
+            assert torch.equal(got, bits)
+            want = takum_dual_matmul_plain(xb, w, fmt, n, decode_impl=impl)
+            assert ((got.cpu() - want).abs() <= 4e-6 * scale).all()
+
+
+@pytest.mark.gpu
+def test_fused_launches_count_under_their_own_keys(cuda):
+    """A fused launch counts under wrapper[impl>out:encode_impl], never under
+    the unfused key, so a serving run's counts show no fused producer."""
+    ops.reset_launch_counts()
+    x = _rand((4, 32), 48).to(cuda)
+    w = ops.encode(_rand((32, 64), 49).to(cuda), "t8")
+    ops.matmul(x, w, "t8", decode_impl="lut", out_fmt="t8", encode_impl="lut")
+    ops.dual_matmul(ops.encode(x, "t8"), w, "t8", decode_impl="bits", out_fmt="mxt8")
+    kv = w.reshape(1, 2, 16, 64)
+    ops.decode_attention(torch.zeros(1, 4, 64, device=cuda), kv, kv, "t8", out_fmt="bf16")
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    assert got == {"takum_encode_2d[lut]": 2, "takum_matmul[lut>t8:lut]": 1,
+                   "takum_dual_matmul[bits>mxt8:lut]": 1,
+                   "takum_decode_attention[lut>bf16:bits]": 1}
+    ops.reset_launch_counts()
