@@ -21,8 +21,9 @@ Phases, each of which must pass:
       [8192, 128] and [4096, 14336], bit for bit; K3-mx at ragged N (100,
       4096) and, for mxt8, at the serving shapes; K6-mx at the serving shape
       and at head dims 16 and 80.  Each is timed with CUDA events, and the
-      lut gather's shared-memory bank conflicts are probed by timing K1 and
-      K3 under a broadcast, a random and an 8-way-conflict code pattern.
+      lut gather's shared-memory bank conflicts are probed by timing K1, K3
+      and the transposed K3 (K5's backward) under a broadcast, a random and
+      an 8-way-conflict code pattern.
   (d) serving: llama3-8b at full width and depth, random weights from a
       seed, B=4, a 256-token prompt and 32 greedy decode steps, with every
       kernel's launch count read around each run and held to the policy:
@@ -45,8 +46,19 @@ Phases, each of which must pass:
       producer path at llama3-8b's widths through ``ops.matmul`` /
       ``dual_matmul`` / ``decode_attention`` with out_fmt, counted, checked
       the same way and timed against the unfused pair (the producer, then K2)
-      and, for K4, ``torch.matmul`` on pre-decoded bf16 operands.  Phase (b)
-      prints each source's nvcc time and kernel count.
+      and, for K4, ``torch.matmul`` on pre-decoded bf16 operands.
+  (g) K5, ``takum_matmul_ad``: its backward, the transposed K3 (K3's loop
+      reading the stored weight transposed, csrc/takum_matmul_wt.cu), for
+      every flat format under each codec at both tiles and odd shapes,
+      within K3's limit of its plain version and bit for bit equal to K3
+      over a transposed copy; the forward equal to K3; a bf16 dx for a bf16
+      x; mx refused; one autograd step per format launching exactly one K3
+      and one transposed K3, x.grad against the plain path.  Then the
+      backward of llama3-8b's wi (M = 4 and 1024) and head (M = 4), t8 and
+      t16, through autograd, counted, and timed against its bound, its
+      plain version, ``torch.matmul(g, decode(w).T)`` and the copy
+      yardstick (the bits transposed into a copy, then K3).
+      Phase (b) prints each source's nvcc time and kernel count.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -552,9 +564,11 @@ def phase_bank_probe(torch, dev):
     shared-memory wavefront per warp), uniform random codes (NaR replaced),
     and codes 32 j + 1 for j = element index mod 8 (eight words of one
     bank: an 8-way conflict, the most a 256-entry table allows).  The bits
-    codec reads no table and is the control."""
+    codec reads no table and is the control.  K5's backward (the transposed
+    K3, g [4, 14336]) over the same weight decodes 32 consecutive codes of
+    one stored row per warp as K3 does, so it meets the same patterns."""
     from repro_torch.kernels.takum_codec import takum_decode_2d
-    from repro_torch.kernels.takum_matmul import takum_matmul
+    from repro_torch.kernels.takum_matmul import takum_matmul, takum_matmul_t
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
@@ -569,14 +583,18 @@ def phase_bank_probe(torch, dev):
 
     out = []
     xm = torch.randn((4, 4096), generator=gen, device=dev).to(torch.bfloat16)
-    for kname, shape in (("takum_decode_2d", (1024, 4096)), ("takum_matmul", (4096, 14336))):
+    g = torch.randn((4, 14336), generator=gen, device=dev)
+    for kname, shape in (("takum_decode_2d", (1024, 4096)), ("takum_matmul", (4096, 14336)),
+                         ("takum_matmul_t", (4096, 14336))):
         for pattern, codes in patterns(shape).items():
             bits = codes.to(torch.uint8).contiguous()
             for impl in ("bits", "lut"):
                 if kname == "takum_decode_2d":
                     fn = lambda: takum_decode_2d(bits, "t8", impl)
-                else:
+                elif kname == "takum_matmul":
                     fn = lambda: takum_matmul(xm, bits, "t8", decode_impl=impl)
+                else:
+                    fn = lambda: takum_matmul_t(g, bits, "t8", decode_impl=impl)
                 out.append(dict(kernel=kname, fmt="t8", shape=list(shape), pattern=pattern,
                                 impl=impl, ms=time_ms(torch, fn, flush=flush)))
             log(f"bank probe {kname} {pattern}: " + ", ".join(
@@ -906,6 +924,206 @@ def phase_producers_full(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase (g): K5, takum_matmul_ad (K3 forward, transposed-K3 backward)
+# ---------------------------------------------------------------------------
+
+
+def transposed_copy(torch, w):
+    """``w.T`` as a contiguous copy, 16-bit bits moved through their int16
+    view (CUDA torch copies few uint16 tensors)."""
+    signed = torch.int16 if w.dtype == torch.uint16 else w.dtype
+    return w.view(signed).T.contiguous().view(w.dtype)
+
+
+def phase_ad_exact(torch, dev):
+    """(g) 1-2: the transposed K3 (K5's backward) for every flat format under
+    each decode codec at M = 3 and 37 (both tiles) over a stored weight
+    [96, 1000] (the backward's reduction, 1000, a multiple of neither K
+    tile), within K3_LIMIT of |g| @ |decode(w)|.T of its plain version and
+    bit for bit equal to K3 over a transposed copy of the bits; the forward
+    of ``takum_matmul_ad`` bit for bit equal to ``takum_matmul``; a bf16 x
+    gets a bf16 dx; every mx format is refused.  Then one autograd step,
+    ``(takum_matmul_ad(x, w) ** 2).sum().backward()``, per flat format at
+    M = 37: exactly one K3 and one transposed K3 launched, and x.grad
+    against the plain path.  Returns the largest error ratio per format."""
+    from repro_torch.kernels import lut, ops
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
+    from repro_torch.kernels.takum_matmul import (takum_matmul, takum_matmul_ad, takum_matmul_t,
+                                                  takum_matmul_t_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(516)
+    K, N = 96, 1000
+    worst = {}
+    for fmt in FMTS:
+        w = encode_2d_plain(torch.randn((K, N), generator=gen, device=dev) * N ** -0.5, fmt)
+        wd = decode_2d_plain(w, fmt)
+        copy = transposed_copy(torch, w)
+        for M in (3, 37):
+            g = torch.randn((M, N), generator=gen, device=dev)
+            scale = torch.matmul(g.abs(), wd.abs().T)
+            for impl in impls_of(fmt, "decode"):
+                tag = f"K5 backward {fmt}[{impl}] M={M} stored {K}x{N}"
+                got = takum_matmul_t(g, w, fmt, impl)
+                want = takum_matmul_t_plain(g, w, fmt, decode_impl=impl)
+                ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+                check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |g|@|w|.T > {K3_LIMIT}")
+                check(same_bits_f32(torch, got, takum_matmul(g, copy, fmt, decode_impl=impl)),
+                      f"{tag}: differs from K3 over the transposed copy")
+                worst[fmt] = max(worst.get(fmt, 0.0), ratio)
+            x = torch.randn((M, K), generator=gen, device=dev)
+            check(same_bits_f32(torch, takum_matmul_ad(x, w, fmt), takum_matmul(x, w, fmt)),
+                  f"K5 forward {fmt} M={M}: differs from takum_matmul")
+            xb = x.to(torch.bfloat16).requires_grad_()
+            takum_matmul_ad(xb, w, fmt).sum().backward()
+            check(xb.grad.dtype == torch.bfloat16, f"K5 {fmt}: bf16 x got a {xb.grad.dtype} dx")
+        del w, wd, copy
+    for fmt in MX_FMTS:
+        try:
+            takum_matmul_ad(torch.zeros((8, 32), device=dev),
+                            torch.zeros((32, 33), dtype=torch.uint8, device=dev), fmt)
+        except ValueError as e:
+            check("block-scaled" in str(e), f"K5 {fmt}: refused with {e}")
+        else:
+            raise PhaseError(f"K5 {fmt}: a block-scaled weight was not refused")
+    log(f"(g) transposed K3 within {K3_LIMIT} of |g|@|w|.T at M=3 and 37, equal to K3 over the "
+        f"copy; forward == K3; bf16 dx; mx refused; worst {worst}")
+
+    # one autograd step per format, counted, against the plain path
+    M = 37
+    for fmt in FMTS:
+        impl = lut.resolve_impl(None, fmt)
+        w = encode_2d_plain(torch.randn((K, N), generator=gen, device=dev) * N ** -0.5, fmt)
+        wd = decode_2d_plain(w, fmt)
+        x0 = torch.randn((M, K), generator=gen, device=dev)
+        x = x0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        y = takum_matmul_ad(x, w, fmt)
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {f"takum_matmul[{impl}]": 1, f"takum_matmul[{impl}^T]": 1}
+        check(got == want, f"K5 {fmt} autograd step: launches {got}, want {want}")
+        xp = x0.clone().requires_grad_()
+        with ops.plain_path():
+            yp = takum_matmul_ad(xp, w, fmt)
+            (yp ** 2).sum().backward()
+        # the kernel's dx against the plain backward of the same cotangent,
+        # and against the whole plain path: its cotangent 2 y differs by the
+        # forward's own allowed error, 2 K3_LIMIT (|x| @ |w|), carried by |w|.T
+        g = 2 * y.detach()
+        own = takum_matmul_t_plain(g, w, fmt)
+        check(bool(((x.grad - own).abs() <= K3_LIMIT * (g.abs() @ wd.abs().T)).all()),
+              f"K5 {fmt} autograd step: x.grad off the plain backward of its cotangent")
+        path_limit = K3_LIMIT * (g.abs() @ wd.abs().T
+                                 + 2 * (x0.abs() @ wd.abs()) @ wd.abs().T)
+        check(bool(((x.grad - xp.grad).abs() <= path_limit).all()),
+              f"K5 {fmt} autograd step: x.grad off the plain path's")
+    ops.reset_launch_counts()
+    log("(g) one autograd step per flat format: one K3 and one transposed K3 each, x.grad "
+        "within K3_LIMIT of the plain path")
+    return worst
+
+
+#: (g) 3, the full-width rows: (weight, stored [K, N], M, format) for the
+#: backward of llama3-8b's wi and head; each format's default codec (t8 lut,
+#: t16 bits)
+AD_ROWS = ([("wi", 4096, 14336, M, fmt) for M in (4, 1024) for fmt in ("t8", "t16")]
+           + [("head", 4096, 128256, 4, fmt) for fmt in ("t8", "t16")])
+
+
+def phase_ad_full(torch, dev):
+    """(g) 3: K5 at llama3-8b's widths, driven once through
+    ``takum_matmul_ad`` (f32 x, ``(y ** 2).sum().backward()`` per row) with
+    the launch counts reset just before and read just after (the K5 path of
+    this phase), each step holding exactly one K3 and one transposed K3.
+    Then each row's backward checked against its plain version within
+    K3_LIMIT and timed: the transposed K3, its plain version, the library
+    call ``torch.matmul(g, decode(w).T)``, the copy yardstick (the bits
+    transposed into a copy, then K3) and, for comparison in the same call,
+    K3 alone over that copy and the forward K3.  Returns (rows, launch
+    counts of the K5 path)."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels import lut, ops
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
+    from repro_torch.kernels.takum_matmul import (takum_matmul, takum_matmul_ad, takum_matmul_t,
+                                                  takum_matmul_t_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2016)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    weights = {}
+    for name, K, N, _, fmt in AD_ROWS:
+        if (name, fmt) not in weights:
+            w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+            weights[name, fmt] = encode_2d_plain(w, fmt)
+            del w
+    xs = [torch.randn((M, K), generator=gen, device=dev).requires_grad_()
+          for _, K, _, M, _ in AD_ROWS]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    grads = []
+    for (name, K, N, M, fmt), x in zip(AD_ROWS, xs):
+        before = ops.launch_counts()
+        y = takum_matmul_ad(x, weights[name, fmt], fmt)
+        (y ** 2).sum().backward()
+        grads.append(2 * y.detach())
+        impl = lut.resolve_impl(None, fmt)
+        step = {k: v - before.get(k, 0) for k, v in ops.launch_counts().items()
+                if v != before.get(k, 0)}
+        want = {f"takum_matmul[{impl}]": 1, f"takum_matmul[{impl}^T]": 1}
+        check(step == want, f"K5 {name} {fmt} M={M}: step launches {step}, want {want}")
+        del y
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"(g) K5 path launches: { {k: v for k, v in counts.items() if v} }")
+
+    rows = []
+    for (name, K, N, M, fmt), x, g in zip(AD_ROWS, xs, grads):
+        wf = wire_format(fmt)
+        impl = lut.resolve_impl(None, fmt)
+        w = weights[name, fmt]
+        wd = decode_2d_plain(w, fmt)
+        tag = f"K5 backward {name} {fmt}[{impl}] M={M} stored {K}x{N}"
+        got = takum_matmul_t(g, w, fmt)
+        want = takum_matmul_t_plain(g, w, fmt)
+        scale = torch.matmul(g.abs(), wd.abs().T)
+        ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+        check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |g|@|w|.T > {K3_LIMIT}")
+        check(same_bits_f32(torch, got, x.grad), f"{tag}: differs from the autograd step's dx")
+        err = float((got - want).abs().max())
+        del got, want, scale
+        # bound: g, the weight bits and dx each moved once; the products at
+        # the f32 rate (g is f32)
+        b_ms, b_by = bound(M * N * 4 + K * N * wf.nbits // 8 + M * K * 4, 2.0 * M * N * K)
+        copy = transposed_copy(torch, w)
+        x_f = x.detach()
+        row = dict(
+            kernel="takum_matmul_ad", weight=name, fmt=fmt, impl=impl, shape=[M, K, N],
+            launch_key=f"takum_matmul[{impl}^T]", max_abs_err=err, err_over_absprod=ratio,
+            ms=time_ms(torch, lambda: takum_matmul_t(g, w, fmt), flush=flush),
+            plain_ms=time_ms(torch, lambda: takum_matmul_t_plain(g, w, fmt), flush=flush),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda: torch.matmul(g, wd.T), flush=flush),
+            copy_yardstick_ms=time_ms(torch, lambda: takum_matmul(
+                g, transposed_copy(torch, w), fmt), flush=flush),
+            k3_over_copy_ms=time_ms(torch, lambda: takum_matmul(g, copy, fmt), flush=flush),
+            forward_k3_ms=time_ms(torch, lambda: takum_matmul(x_f, w, fmt), flush=flush))
+        rows.append(row)
+        log(f"(g) {tag}: {row['ms']:.4f} ms (bound {b_ms:.4f}, {b_by}; plain "
+            f"{row['plain_ms']:.3f}; torch.matmul {row['library_ms']:.4f}; copy + K3 "
+            f"{row['copy_yardstick_ms']:.4f}; K3 over the copy {row['k3_over_copy_ms']:.4f}; "
+            f"forward K3 {row['forward_k3_ms']:.4f})")
+        del wd, copy
+    del flush, weights, xs, grads
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
 # phase (d): full-depth serving; phase (e): kernel path vs plain path
 # ---------------------------------------------------------------------------
 
@@ -1179,6 +1397,8 @@ KERNEL_INFO = {
                                "src/repro/kernels/takum_attention.py:56"),
     "takum_dual_matmul": ("K4", "src/repro_torch/kernels/csrc/takum_dual_matmul.cu",
                           "src/repro/kernels/takum_matmul.py:56"),
+    "takum_matmul_ad": ("K5", "src/repro_torch/kernels/csrc/takum_matmul_wt.cu",
+                        "src/repro/kernels/takum_matmul.py:190"),
 }
 
 #: (kernel, format, codec, shape, path) rows that stand for each kernel in
@@ -1292,6 +1512,11 @@ def main() -> int:
     producer_rows, producer_counts = phase_producers_full(torch, dev)
     log(f"(f) producers done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    ad_worst = phase_ad_exact(torch, dev)
+    ad_rows, ad_counts = phase_ad_full(torch, dev)
+    log(f"(g) K5 done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     for path in ("mxt8", "bf16"):
         launches[path] = next(r["launches"] for r in parity
@@ -1322,6 +1547,19 @@ def main() -> int:
             route="cuda", source=source, replaces=replaces, path="producers", launches=n,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # phase (g): K5's backward, launches from its autograd path
+    for row in ad_rows:
+        tag, source, replaces = KERNEL_INFO[row["kernel"]]
+        name = tag + ("-lut" if row["impl"] == "lut" else "")
+        n = ad_counts.get(row["launch_key"], 0)
+        check(n > 0, f"{name} was never launched on the K5 path")
+        summary.append(dict(
+            name=f"{name} {row['kernel']} backward {row['weight']} {row['fmt']} "
+                 f"{'x'.join(map(str, row['shape']))}",
+            route="cuda", source=source, replaces=replaces, path="ad", launches=n,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            copy_yardstick_ms=row["copy_yardstick_ms"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1329,6 +1567,8 @@ def main() -> int:
              kernel_rows=rows, bank_probe=bank_probe, serving=serving, parity=parity,
              producers=dict(differing_codes=differing, rows=producer_rows,
                             launches={k: v for k, v in producer_counts.items() if v}),
+             ad=dict(worst_err_over_absprod=ad_worst, rows=ad_rows,
+                     launches={k: v for k, v in ad_counts.items() if v}),
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -56,6 +56,7 @@ ENTRIES = {
                      [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, *_EPI, _P]),
     "repro_dual_matmul": ("takum_dual_matmul",
                           [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P, *_EPI, _P]),
+    "repro_matmul_wt": ("takum_matmul_wt", [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P, _P]),
     "repro_decode_attention": (
         "takum_attention",
         [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _LL, _LL, _LL, _LL, _LL, _LL,

@@ -93,10 +93,13 @@ def epilogue_args(out_wf, out_impl, device) -> tuple:
     return (out_wf.code, IMPL_CODE[out_impl], *table_ptrs(out_wf, out_impl, "encode", device))
 
 
-def launch_key(impl: str, out_name=None, out_impl=None) -> str:
+def launch_key(impl: str, out_name=None, out_impl=None, transposed=False) -> str:
     """Key of a launch in a wrapper's ``.launches``: the decode codec, and
     for a fused launch the out format and its encode codec
-    (``"lut>t8:lut"``)."""
+    (``"lut>t8:lut"``); a transposed-weight launch (K5's backward) is
+    ``"lut^T"``."""
+    if transposed:
+        return f"{impl}^T"
     return impl if out_name is None else f"{impl}>{out_name}:{out_impl}"
 
 

@@ -42,6 +42,17 @@
 // bits decode's and the k terms are added in the same order, so the two
 // codecs give the same output bit for bit.
 //
+// WT (K5's backward, takum_matmul_wt.cu): the weight is stored transposed,
+// w_bits[N, K] row-major, and the kernel computes X @ decode(w_bits)^T
+// without copying it: element (k, n) is read at w[n * K + k] (the index in
+// 64 bits).  The w tile is then filled with the thread index running along
+// k (kk = i % BK), so that neighbouring threads read neighbouring bytes of
+// one stored row; the shared tile's rows are padded by 32 / BK floats, which
+// spreads the column a warp stores (BK k's of 32 / BK n's) over all 32
+// banks.  The K loop, and so every output, is the same as the unfused
+// launch over a copy of w_bits^T; flat formats only (an mx payload's scale
+// bytes are bound to blocks of the stored last axis).
+//
 // FUSED (out_fmt): the same tile and the same K loop as the unfused launch
 // of the same shape; only the flush differs.  The unfused instantiation
 // (FUSED = false) stores the f32 accumulators; the fused one stages them in
@@ -74,14 +85,17 @@ __device__ __forceinline__ float load_x(const void* x, long long gm, int gk, int
   }
 }
 
-template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN>
+template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN,
+          bool WT = false>
 __global__ void __launch_bounds__(kThreads)
 mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* __restrict__ w,
           void* __restrict__ out, int M, int N, int K, const int* __restrict__ tab,
           repro::Epilogue ep) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "one thread per TM x TN sub-tile");
+  static_assert(!(WT && repro::kIsMx<FMT>), "an mx payload has no transposed load");
+  constexpr int kWPad = WT ? 32 / BK : 0;  // WT: rows padded off the banks of their k
   __shared__ float xs[BK][BM];  // x tile, transposed: xs[k][m]
-  __shared__ float ws[BK][BN];  // decoded weight tile
+  __shared__ float ws[BK][BN + kWPad];  // decoded weight tile
   __shared__ float ss[BK][BN / 32];  // mx: the tile's (k, group) scales
   __shared__ int tab_s[repro::kDecodeTabInts<FMT, IMPL>];  // lut: an 8-bit decode table
   const int* dtab = repro::stage_decode_table<FMT, IMPL>(tab, tab_s);
@@ -118,6 +132,14 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
         ws[kk][nn] = (gk < K && gn < N)
                          ? repro::mx_decode<FMT, IMPL>(dtab, w[gk * ldw + repro::mx_elem_at(gn)],
                                                        ss[kk][nn / 32])
+                         : 0.0f;
+      }
+    } else if constexpr (WT) {
+      for (int i = tid; i < BK * BN; i += kThreads) {
+        const int kk = i % BK, nn = i / BK;
+        const int gk = k0 + kk, gn = n0 + nn;
+        ws[kk][nn] = (gk < K && gn < N)
+                         ? repro::elem_decode<FMT, IMPL>(dtab, w[static_cast<long long>(gn) * K + gk])
                          : 0.0f;
       }
     } else {
@@ -168,27 +190,28 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
   }
 }
 
-template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN>
+template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN,
+          bool WT = false>
 int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, const int* tab,
                  const repro::Epilogue& ep, cudaStream_t stream) {
   using T = typename repro::Wire<FMT>::storage;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm_kernel<FMT, IMPL, XMODE, FUSED, BM, BN, BK, TM, TN><<<grid, kThreads, 0, stream>>>(
+  mm_kernel<FMT, IMPL, XMODE, FUSED, BM, BN, BK, TM, TN, WT><<<grid, kThreads, 0, stream>>>(
       x, static_cast<const T*>(w), out, M, N, K, tab, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile follows M alone (never the out format): M <= 16 takes the 8 x 32
-// tile, larger M the 64 x 64 tile.
-template <int FMT, int IMPL, int XMODE, bool FUSED>
+// The tile follows M alone (never the out format or the weight layout):
+// M <= 16 takes the 8 x 32 tile, larger M the 64 x 64 tile.
+template <int FMT, int IMPL, int XMODE, bool FUSED, bool WT = false>
 int launch_tile_for_m(const void* x, const void* w, void* out, int M, int N, int K,
                       const int* tab, const repro::Epilogue& ep, cudaStream_t stream) {
   if (M <= 16) {
-    return launch_tiled<FMT, IMPL, XMODE, FUSED, 8, 32, 32, 1, 1>(x, w, out, M, N, K, tab, ep,
-                                                                  stream);
+    return launch_tiled<FMT, IMPL, XMODE, FUSED, 8, 32, 32, 1, 1, WT>(x, w, out, M, N, K, tab,
+                                                                      ep, stream);
   }
-  return launch_tiled<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4>(x, w, out, M, N, K, tab, ep,
-                                                                 stream);
+  return launch_tiled<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4, WT>(x, w, out, M, N, K, tab, ep,
+                                                                     stream);
 }
 
 // The unfused or the fused instantiation of the same tile, as `ep` asks.

@@ -4,11 +4,12 @@
 
 Each op takes a wire-format handle (a registered name such as 't8', 'e4m3',
 'bf16', 'mxe4m3', a :class:`~repro_torch.core.formats.WireFormat`, or a bare
-takum width).  ``encode``/``decode`` take any rank >= 1 and flatten to 2-D
-for the K1/K2 kernels.  For the block-scaled mx formats the last axis is the
-interleaved payload (n elements <-> n/32*33 bytes); a malformed payload or an
-encode input that is not whole 32-element blocks raises here, before any
-kernel or plain version sees it.
+takum width).  ``encode``/``decode`` take any rank, empty tensors included,
+and view it as 2-D for the K1/K2 kernels (a 0-d tensor as [1, 1]); the
+result has the input's shape.  For the block-scaled mx formats the last axis
+is the interleaved payload (n elements <-> n/32*33 bytes); a malformed
+payload, a 0-d one, or an encode input that is not whole 32-element blocks
+raises here, before any kernel or plain version sees it.
 
 ``decode_impl`` / ``encode_impl`` pick the codec inside each kernel: "bits"
 (the format family's branch-free codec) or "lut" (a gather from the tables
@@ -35,6 +36,7 @@ an error.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -55,7 +57,9 @@ WRAPPERS = (takum_decode_2d, takum_encode_2d, takum_matmul, takum_dual_matmul,
 #: every unfused kernel, named ``wrapper[impl]`` (e.g. ``takum_matmul[lut]``):
 #: one per wrapper and codec, each a template instantiation of its own.  A
 #: fused producer launch counts under ``wrapper[impl>out_fmt:encode_impl]``
-#: (e.g. ``takum_matmul[lut>t8:lut]``), a key that exists once launched.
+#: (e.g. ``takum_matmul[lut>t8:lut]``), and K5's backward (K3 over the
+#: stored weight, transposed) under ``takum_matmul[impl^T]``: keys that exist
+#: once launched.
 KERNELS = {f"{fn.__name__}[{impl}]": (fn, impl) for fn in WRAPPERS for impl in DECODE_IMPLS}
 
 
@@ -73,9 +77,16 @@ def plain_path(acc: torch.dtype = torch.float32):
         _PLAIN_ACC = saved
 
 
+def plain_acc():
+    """The accumulation dtype of the plain versions inside
+    :func:`plain_path`, or None outside it (the kernels run)."""
+    return _PLAIN_ACC
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel of :data:`KERNELS`, and of each fused
-    producer launched, since the last :func:`reset_launch_counts`."""
+    producer or transposed K3 launched, since the last
+    :func:`reset_launch_counts`."""
     return {f"{fn.__name__}[{key}]": n for fn in WRAPPERS for key, n in fn.launches.items()}
 
 
@@ -86,27 +97,35 @@ def reset_launch_counts() -> None:
 
 def _as_2d(x: torch.Tensor):
     """ND -> 2-D view for the element-wise codec kernels.  Returns
-    ``(x2d, orig_shape_or_None)``; 1-D becomes one row, >= 3-D folds the
-    leading dims onto the rows."""
+    ``(x2d, orig_shape_or_None)``; 0-d becomes [1, 1], 1-D one row, >= 3-D
+    folds the leading dims onto the rows (counted, so that an empty tensor
+    such as [2, 3, 0] becomes [6, 0])."""
     if x.dim() == 2:
         return x, None
-    if x.dim() == 1:
-        return x.reshape(1, -1), x.shape
-    return x.reshape(-1, x.shape[-1]), x.shape
+    if x.dim() == 0:
+        return x.reshape(1, 1), x.shape
+    return x.reshape(math.prod(x.shape[:-1]), x.shape[-1]), x.shape
 
 
 def _reshape_back(out: torch.Tensor, shape) -> torch.Tensor:
     """Undo :func:`_as_2d`, keeping the codec's last axis (an mx encode
     grows it by 33/32, a decode shrinks it)."""
-    return out if shape is None else out.reshape(*shape[:-1], out.shape[-1])
+    if shape is None:
+        return out
+    if not shape:
+        return out.reshape(())
+    return out.reshape(*shape[:-1], out.shape[-1])
 
 
 def _check_mx_payload(bits: torch.Tensor, wf, what: str) -> None:
     """An mx payload is whole 33-byte ``[scale | 32 elems]`` groups on its
     last axis; anything else is truncated or misaligned and would shear
     scale bytes into element lanes, so it is rejected."""
-    if not wf.is_block_scaled or bits.dim() == 0:
+    if not wf.is_block_scaled:
         return
+    if bits.dim() == 0:
+        raise ValueError(f"{what} for block-scaled format {wf.name!r} is 0-d: a payload is "
+                         f"whole 33-byte groups along a last axis")
     L = bits.shape[-1]
     if L == 0 or L % 33:
         raise ValueError(
@@ -117,8 +136,11 @@ def _check_mx_payload(bits: torch.Tensor, wf, what: str) -> None:
 def _check_mx_encode_input(x: torch.Tensor, wf) -> None:
     """An mx encode quantises whole 32-element blocks of the last axis
     (callers that own the logical shape pad with ``blockscale.pad_block``)."""
-    if not wf.is_block_scaled or x.dim() == 0:
+    if not wf.is_block_scaled:
         return
+    if x.dim() == 0:
+        raise ValueError(f"encode to block-scaled format {wf.name!r} needs a last axis of "
+                         f"whole 32-element blocks, got a 0-d tensor")
     n = x.shape[-1]
     if n == 0 or n % 32:
         raise ValueError(
@@ -130,8 +152,6 @@ def encode(x: torch.Tensor, fmt, encode_impl=None) -> torch.Tensor:
     """float32 [...] -> packed wire bits of the same shape (K2); an mx format
     gives the payload, last dim n -> n/32*33."""
     wf = wire_format(fmt)
-    if x.dim() == 0:
-        raise ValueError("encode takes rank >= 1")
     _check_mx_encode_input(x, wf)
     impl = resolve_impl(encode_impl, wf, "encode")
     x2, shape = _as_2d(x.to(torch.float32).contiguous())
@@ -143,8 +163,6 @@ def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     """Packed wire bits [...] -> float32 of the same shape (K1); an mx
     payload's last dim L becomes L/33*32."""
     wf = wire_format(fmt)
-    if bits.dim() == 0:
-        raise ValueError("decode takes rank >= 1")
     _check_mx_payload(bits, wf, "decode payload")
     impl = resolve_impl(decode_impl, wf)
     b2, shape = _as_2d(bits.contiguous())

@@ -14,11 +14,18 @@ into the kernel's flush (``encode_impl`` picks its codec): the result is the
 out format's packed bits, [M, N] (an mx out: the payload [M, N/32*33], N a
 multiple of 32), equal bit for bit to ``ops.encode`` of the unfused output.
 
-``takum_matmul`` / ``takum_dual_matmul`` launch ``csrc/takum_matmul.cu`` /
-``csrc/takum_dual_matmul.cu`` for CUDA tensors and take the plain versions
-for CPU tensors; ``.launches`` counts the kernel launches per codec, fused
-launches under their own keys (``"lut>t8:lut"``, see
-:func:`~.common.launch_key`).
+K5, ``takum_matmul_ad``, is K3 under autograd: its backward ``dx = g @
+decode(w_bits).T`` is :func:`takum_matmul_t`, K3's loop reading the stored
+weight transposed in place (``csrc/takum_matmul_wt.cu``); the bits get no
+gradient, and an mx weight is refused (its scale bytes are bound to blocks
+of the stored last axis).
+
+``takum_matmul`` / ``takum_dual_matmul`` / ``takum_matmul_t`` launch
+``csrc/takum_matmul.cu`` / ``csrc/takum_dual_matmul.cu`` /
+``csrc/takum_matmul_wt.cu`` for CUDA tensors and take the plain versions for
+CPU tensors; ``.launches`` counts the kernel launches per codec, fused
+launches under their own keys (``"lut>t8:lut"``) and the transposed launches
+on ``takum_matmul`` under ``"lut^T"`` (see :func:`~.common.launch_key`).
 """
 
 from __future__ import annotations
@@ -70,6 +77,14 @@ def takum_dual_matmul_plain(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=N
     :func:`takum_matmul_plain`."""
     x = decode_2d_plain(x_bits, fmt, decode_impl)
     return takum_matmul_plain(x, w_bits, fmt, n, acc, decode_impl, out_fmt, encode_impl)
+
+
+def takum_matmul_t_plain(g: torch.Tensor, w_bits: torch.Tensor, fmt,
+                         acc: torch.dtype = torch.float32, decode_impl=None) -> torch.Tensor:
+    """Plain PyTorch transposed K3: decode the whole weight (through
+    ``decode_impl``), then ``g @ w.T`` in ``acc``, returned as float32."""
+    w = decode_2d_plain(w_bits, fmt, decode_impl)
+    return torch.matmul(g.to(acc), w.to(acc).T).to(torch.float32)
 
 
 def _check_device(a: torch.Tensor, b: torch.Tensor, names: str) -> bool:
@@ -150,6 +165,84 @@ def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, d
                                        encode_impl=out_impl)
     return _launch("repro_dual_matmul", takum_dual_matmul, x_bits, w_bits, (M, N, K), wf, impl,
                    out_wf, out_impl)
+
+
+def _flat_format(fmt):
+    """``fmt`` resolved for K5, which refuses a block-scaled format as
+    ``repro`` does."""
+    wf = kernel_format(fmt)
+    if wf.is_block_scaled:
+        raise ValueError("takum_matmul_ad: block-scaled weights have no bit-transposed "
+                         "backward payload; dequantize mx weights at the use site")
+    return wf
+
+
+def takum_matmul_t(g: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
+    """Transposed K3, K5's backward: g [M, N] float32 @ decode(w_bits [K, N]).T
+    -> [M, K] float32, the stored weight read in place (no transposed copy);
+    flat formats only.  Counts on ``takum_matmul`` under ``"impl^T"``."""
+    wf = _flat_format(fmt)
+    impl = lut.resolve_impl(decode_impl, wf)
+    if g.dim() != 2 or w_bits.dim() != 2 or g.shape[1] != w_bits.shape[1]:
+        raise ValueError(f"bad transposed matmul shapes {tuple(g.shape)} @ "
+                         f"{tuple(w_bits.shape)}.T")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g.dtype}")
+    if w_bits.dtype != wf.storage:
+        raise TypeError(f"w_bits must be {wf.storage} for {wf.name}, got {w_bits.dtype}")
+    if _check_device(g, w_bits, "g and w_bits"):
+        return takum_matmul_t_plain(g, w_bits, wf, decode_impl=impl)
+    # the kernel's out[M, N] = g[M, K] @ decode(w[N, K])^T, in its own names
+    (M, K), N = g.shape, w_bits.shape[0]
+    if max(M, N, K) >= 2**31:
+        raise ValueError("matmul dims must fit in int32")
+    out = torch.empty((M, N), dtype=torch.float32, device=g.device)
+    if out.numel():
+        _build.check(
+            _build.entry("repro_matmul_wt")(g.data_ptr(), w_bits.data_ptr(), out.data_ptr(), M, N,
+                                            K, wf.code, IMPL_CODE[impl],
+                                            *table_ptrs(wf, impl, "decode", g.device),
+                                            stream_of(g)),
+            "takum_matmul_t",
+        )
+        count_launch(takum_matmul, launch_key(impl, transposed=True))
+    return out
+
+
+class _TakumMatmulAD(torch.autograd.Function):
+    """K3 forward, transposed-K3 backward to x; ``w_bits`` and the format
+    get no gradient.  Inside ``ops.plain_path(acc)`` (read at the forward)
+    both directions take their plain versions, accumulating in ``acc``."""
+
+    @staticmethod
+    def forward(ctx, x, w_bits, wf):
+        from .ops import plain_acc  # ops imports this module
+
+        acc = plain_acc()
+        ctx.save_for_backward(w_bits)
+        ctx.wf, ctx.x_dtype, ctx.acc = wf, x.dtype, acc
+        if acc is None:
+            return takum_matmul(x.contiguous(), w_bits.contiguous(), wf)
+        return takum_matmul_plain(x, w_bits, wf, acc=acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w_bits,) = ctx.saved_tensors
+        g = g.contiguous().float()
+        if ctx.acc is None:
+            dx = takum_matmul_t(g, w_bits.contiguous(), ctx.wf)
+        else:
+            dx = takum_matmul_t_plain(g, w_bits, ctx.wf, ctx.acc)
+        return dx.to(ctx.x_dtype), None, None
+
+
+def takum_matmul_ad(x: torch.Tensor, w_bits: torch.Tensor, fmt) -> torch.Tensor:
+    """K5: ``takum_matmul(x, w_bits, fmt)`` (x [M, K] float32/bfloat16, w_bits
+    [K, N] a flat format's bits, the format's default codec) under autograd.
+    The backward propagates to x only, ``dx = g @ decode(w_bits).T`` in x's
+    dtype, through :func:`takum_matmul_t`; the packed weight is storage and
+    gets no gradient.  A block-scaled ``fmt`` raises ValueError."""
+    return _TakumMatmulAD.apply(x, w_bits, _flat_format(fmt))
 
 
 takum_matmul.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)

@@ -15,7 +15,9 @@ bit, and K3/K6 under lut must equal K3/K6 under bits bit for bit (the same
 decoded values summed in the same order).  K4 (the dual matmul) is held to
 K3's limit of |decode(x)| @ |w|, and every fused ``out_fmt`` output of K3,
 K4 and K6 must equal K2's encode of the same kernel's unfused output bit
-for bit.
+for bit.  K5's backward, the transposed K3, is held to K3's limit of
+|g| @ |decode(w)|.T and must equal K3 over a transposed copy of the bits bit
+for bit; one autograd step launches one K3 and one transposed K3.
 """
 
 import pytest
@@ -28,7 +30,8 @@ from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
 from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
 from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
 from repro_torch.kernels.takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain,
-                                              takum_matmul, takum_matmul_plain)
+                                              takum_matmul, takum_matmul_ad, takum_matmul_plain,
+                                              takum_matmul_t, takum_matmul_t_plain)
 from repro_torch.quant import blockscale
 
 FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
@@ -347,4 +350,68 @@ def test_fused_launches_count_under_their_own_keys(cuda):
     assert got == {"takum_encode_2d[lut]": 2, "takum_matmul[lut>t8:lut]": 1,
                    "takum_dual_matmul[bits>mxt8:lut]": 1,
                    "takum_decode_attention[lut>bf16:bits]": 1}
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16", "e4m3", "bf16"))
+def test_codec_ops_0d_and_empty_nd_launch_like_2d(cuda, fmt):
+    """``ops.encode`` / ``decode`` of a 0-d tensor run the kernels (one
+    launch each, never the plain version) and give a 0-d result; an empty
+    [2, 3, 0] keeps its shape and launches nothing."""
+    wf = wire_format(fmt)
+    for shape, launches in (((), 1), ((2, 3, 0), 0)):
+        x = _rand(shape, 50) if shape else torch.tensor(-1.375)
+        ops.reset_launch_counts()
+        bits = ops.encode(x.to(cuda), fmt)
+        out = ops.decode(bits, fmt)
+        assert tuple(bits.shape) == shape and tuple(out.shape) == shape
+        assert sum(ops.launch_counts().values()) == 2 * launches
+        want = ops.encode(x, fmt)
+        assert torch.equal(bits.cpu().view(wf.signed_storage), want.view(wf.signed_storage))
+        assert _same_f32(out.cpu(), ops.decode(want, fmt))
+    ops.reset_launch_counts()
+
+
+def _transposed_copy(w):
+    """w.T as a contiguous copy; 16-bit bits move through their int16 view."""
+    wf = wire_format({torch.uint8: "t8", torch.uint16: "t16"}[w.dtype])
+    return w.view(wf.signed_storage).T.contiguous().view(w.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("fmt", FMTS)
+def test_transposed_matmul_kernel_within_limit(cuda, fmt, impl):
+    """K5's backward at both tiles (M = 3 and 37) over a stored weight
+    [96, 1000]: the reduction (1000) is a multiple of neither K tile, the
+    output (96) of neither N tile."""
+    w = takum_encode_2d(_rand((96, 1000), 51, 1000 ** -0.5), fmt)
+    wd = ref.codec_decode_ref(w, fmt)
+    for M in (3, 37):
+        g = _rand((M, 1000), 52 + M)
+        got = takum_matmul_t(g.to(cuda), w.to(cuda), fmt, impl)
+        want = takum_matmul_t_plain(g, w, fmt, decode_impl=impl)
+        assert ((got.cpu() - want).abs() <= 4e-6 * (g.abs() @ wd.abs().T)).all()
+        copy = takum_matmul(g.to(cuda), _transposed_copy(w.to(cuda)), fmt, decode_impl=impl)
+        assert _same_f32(got, copy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16"))
+def test_matmul_ad_launches_one_forward_and_one_transposed(cuda, fmt):
+    w = takum_encode_2d(_rand((64, 96), 53, 0.1), fmt).to(cuda)
+    x = _rand((4, 64), 54).to(cuda).requires_grad_()
+    ops.reset_launch_counts()
+    y = takum_matmul_ad(x, w, fmt)
+    (y ** 2).sum().backward()
+    impl = "lut" if fmt == "t8" else "bits"
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    assert got == {f"takum_matmul[{impl}]": 1, f"takum_matmul[{impl}^T]": 1}
+    assert torch.equal(y.detach(), takum_matmul(x.detach(), w, fmt))
+    want = takum_matmul_t_plain(2 * y.detach().cpu(), w.cpu(), fmt)
+    wd = ref.codec_decode_ref(w.cpu(), fmt)
+    assert ((x.grad.cpu() - want).abs() <= 4e-6 * ((2 * y.detach().cpu()).abs() @ wd.abs().T)).all()
+    with pytest.raises(ValueError, match="block-scaled"):
+        takum_matmul_ad(x, torch.zeros(64, 99, dtype=torch.uint8, device=cuda), "mxt8")
     ops.reset_launch_counts()

@@ -84,6 +84,35 @@ def test_codec_ops_flatten_nd(fmt):
     assert np.array_equal(flat.numpy(), want.reshape(-1))
 
 
+@pytest.mark.parametrize("fmt", ("t8", "t16", "e4m3", "bf16"))
+def test_ops_codec_nd_degenerate_shapes(fmt):
+    """Twin of tests/test_kernels.py::test_ops_codec_nd_degenerate_2d_shapes,
+    with a 0-d input and an empty [2, 3, 0] added: bit equality with
+    ``repro``'s ops and the exact shape, both directions."""
+    shapes = [(1, 7), (1, 513), (7, 1), (513, 1), (1, 1), (0, 5), (5, 0), (0, 0), (3, 0, 4),
+              (0,), (), (2, 3, 0)]
+    for i, shape in enumerate(shapes):
+        x = np.asarray(_rand(shape, 23 + i))  # a 0-d draw comes back as a scalar
+        want = np.array(jops.encode(jnp.asarray(x), fmt))
+        enc = ops.encode(torch.from_numpy(x), fmt)
+        assert tuple(enc.shape) == shape == want.shape, (fmt, shape)
+        assert enc.dtype == wire_format(fmt).storage
+        assert np.array_equal(enc.numpy(), want), (fmt, shape)
+        dec = ops.decode(enc, fmt)
+        assert tuple(dec.shape) == shape and dec.dtype == torch.float32, (fmt, shape)
+        assert _same_f32(dec.numpy(), np.asarray(jops.decode(jnp.asarray(want), fmt))), shape
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_mx_codec_ops_refuse_0d(fmt):
+    """A 0-d tensor has no last axis of whole mx blocks: both ops raise
+    ValueError (``repro`` has no answer there: it fails with IndexError)."""
+    with pytest.raises(ValueError, match="0-d"):
+        ops.encode(torch.tensor(1.5), fmt)
+    with pytest.raises(ValueError, match="0-d"):
+        ops.decode(torch.tensor(3, dtype=torch.uint8), fmt)
+
+
 @pytest.mark.parametrize("M,K,N,x_dtype", [(4, 64, 48, "f32"), (37, 130, 70, "bf16")])
 @pytest.mark.parametrize("fmt", FMTS)
 def test_matmul_matches_pallas(fmt, M, K, N, x_dtype):
