@@ -12,9 +12,10 @@ Phases, each of which must pass:
       codec, and every lut kernel bit for bit against the bits kernel.  For
       t8, t16, e4m3, e5m2 and bf16: K1 over every code and K2 over an f32
       sweep, both also at the serving shapes and over one packed weight
-      (all bit for bit); K3 at the serving shapes and ragged shapes, within
-      4e-6 of |x| @ |w| (a limit two lossy t16 controls must exceed); K6 at
-      the serving shape with length < S.  Then the mx containers mxe4m3,
+      (all bit for bit); K3 at the serving shapes (M = 4: every linear of
+      the decode step, the split-K matvec; M = 1024: the tile) and ragged
+      shapes, within 4e-6 of |x| @ |w| (a limit two lossy t16 controls must
+      exceed); K6 (split S) at the serving shape with length < S.  Then the mx containers mxe4m3,
       mxe5m2 and mxt8: K1-mx over every element code under every scale byte
       and K2-mx over a block sweep (zero, NaN, Inf and subnormal blocks,
       absmax near 2^-126 and 2^127, values above the cap), both again at
@@ -23,7 +24,11 @@ Phases, each of which must pass:
       and at head dims 16 and 80.  Each is timed with CUDA events, and the
       lut gather's shared-memory bank conflicts are probed by timing K1, K3
       and the transposed K3 (K5's backward) under a broadcast, a random and
-      an 8-way-conflict code pattern.
+      an 8-way-conflict code pattern.  The K3 rows at M = 4 and the K6 rows
+      also carry their device time (calls replayed from a CUDA graph) beside
+      the library call's, since their CUDA-event time is mostly the host's
+      launch path; and per policy the decode step's K3 total, launches x
+      time over the five shapes.
   (d) serving: llama3-8b at full width and depth, random weights from a
       seed, B=4, a 256-token prompt and 32 greedy decode steps, with every
       kernel's launch count read around each run and held to the policy:
@@ -125,6 +130,58 @@ def time_ms(torch, fn, reps=20, warmup=3, flush=None):
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(torch, fn, reps=20, flush=None):
+    """Median ms of one call of ``fn`` on the device with the host out of the
+    way: ``reps`` calls, each after writing ``flush`` (the L2 flush of
+    ``time_ms``), captured in a CUDA graph and replayed between CUDA events,
+    less the same graph of flushes alone; five replays of each.  One side
+    stream serves every warm-up and capture of the process: each stream a
+    ``torch.matmul`` runs on keeps a cuBLAS workspace (about 33 MB)
+    allocated for good."""
+    if not hasattr(device_ms, "stream"):
+        device_ms.stream = torch.cuda.Stream()
+    side = device_ms.stream
+
+    def graph(body):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up on the capture stream
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(reps):
+                body()
+        return g
+
+    def replay_ms(g):
+        g.replay()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(5):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        return statistics.median(out)
+
+    def flushed():
+        if flush is not None:
+            flush.zero_()
+        fn()
+
+    both = replay_ms(graph(flushed))
+    alone = replay_ms(graph(lambda: flush.zero_())) if flush is not None else 0.0
+    return max(both - alone, 0.0) / reps
+
+
+#: the linears of one llama3-8b decode step, (K, N): launches per step
+DECODE_LINEARS = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64, (14336, 4096): 32,
+                  (4096, 128256): 1}
 
 
 def tf32(torch, t):
@@ -315,6 +372,7 @@ def phase_kernels(torch, dev, rows):
         # K3[bits] bit for bit: the same decoded values summed in the same order.
         K = 4096
         shapes = [(M, K, N, torch.bfloat16) for M in (4, 1024) for N in (1024, 4096, 14336, 128256)]
+        shapes += [(4, 14336, 4096, torch.bfloat16)]
         shapes += [(M, 1000, 777, dt) for M in (5, 37) for dt in (torch.float32, torch.bfloat16)]
         for M, K_, N, xdt in shapes:
             xm = torch.randn((M, K_), generator=gen, device=dev).to(xdt)
@@ -345,12 +403,16 @@ def phase_kernels(torch, dev, rows):
                 xb = xm.element_size()
                 b_ms, b_by = bound(M * K_ * xb + K_ * N * wf.nbits // 8 + M * N * 4, 2.0 * M * N * K_,
                                    matmul_rate(torch, fmt, xdt))
+                kern = lambda: takum_matmul(xm, w, fmt, decode_impl=impl)
+                lib = lambda: torch.matmul(xm.float(), wd)
                 row.update(
-                    ms=time_ms(torch, lambda: takum_matmul(xm, w, fmt, decode_impl=impl), flush=flush),
+                    ms=time_ms(torch, kern, flush=flush),
                     plain_ms=time_ms(torch, lambda: takum_matmul_plain(xm, w, fmt, decode_impl=impl),
                                      flush=flush),
-                    bound_ms=b_ms, bound_by=b_by,
-                    library_ms=time_ms(torch, lambda: torch.matmul(xm.float(), wd), flush=flush))
+                    bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib, flush=flush))
+                if M == 4:
+                    row.update(device_ms=device_ms(torch, kern, flush=flush),
+                               library_device_ms=device_ms(torch, lib, flush=flush))
                 rows.append(row)
             del wd, scale, got_bits
         log(f"K3 {fmt}: {len(shapes)} shapes within {K3_LIMIT} of |x|@|w|, lut == bits")
@@ -368,8 +430,10 @@ def phase_kernels(torch, dev, rows):
         kf = kf.repeat_interleave(H // Kv, dim=1).contiguous()
         vf = vf.repeat_interleave(H // Kv, dim=1).contiguous()
         q4 = q[:, :, None, :]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, kf, vf), flush=flush)
-        del kf, vf
+        sdpa = lambda: F.scaled_dot_product_attention(q4, kf, vf)
+        lib_ms = time_ms(torch, sdpa, flush=flush)
+        lib_device_ms = device_ms(torch, sdpa, flush=flush)
+        del kf, vf, sdpa
         for length, window, cap in ((270, 0, 0.0), (S, 0, 0.0), (200, 64, 30.0)):
             args = dict(length=length, window=window, softcap=cap)
             got_bits = takum_decode_attention(q, kc, vc, fmt, decode_impl="bits", **args)
@@ -384,14 +448,16 @@ def phase_kernels(torch, dev, rows):
                     continue
                 nbytes = q.numel() * 4 * 2 + 2 * B * Kv * length * hd * wf.nbits // 8
                 b_ms, b_by = bound(nbytes, 4.0 * B * H * length * hd)
+                kern = lambda: takum_decode_attention(q, kc, vc, fmt, length=length,
+                                                      decode_impl=impl)
                 rows.append(dict(
                     kernel="takum_decode_attention", fmt=fmt, impl=impl, shape=[B, H, Kv, S, hd],
-                    length=length, max_abs_err=err,
-                    ms=time_ms(torch, lambda: takum_decode_attention(
-                        q, kc, vc, fmt, length=length, decode_impl=impl), flush=flush),
+                    length=length, max_abs_err=err, ms=time_ms(torch, kern, flush=flush),
                     plain_ms=time_ms(torch, lambda: decode_attention_plain(
                         q, kc, vc, fmt, length, decode_impl=impl), flush=flush),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    device_ms=device_ms(torch, kern, flush=flush),
+                    library_device_ms=lib_device_ms))
         log(f"K6 {fmt}: within 1e-5 max|v| at length 270, 288 and a window of 64, lut == bits")
     del flush
 
@@ -494,13 +560,16 @@ def phase_mx_kernels(torch, dev, rows):
                 if K_ == 4096:
                     b_ms, b_by = bound(M * K_ * xm.element_size() + K_ * plen(N) + M * N * 4,
                                        2.0 * M * N * K_, matmul_rate(torch, fmt, xdt))
+                    kern = lambda: takum_matmul(xm, w, fmt, n=N, decode_impl=impl)
+                    lib = lambda: torch.matmul(xm.float(), wd)
                     row.update(
-                        ms=time_ms(torch, lambda: takum_matmul(xm, w, fmt, n=N, decode_impl=impl),
-                                   flush=flush),
+                        ms=time_ms(torch, kern, flush=flush),
                         plain_ms=time_ms(torch, lambda: takum_matmul_plain(
                             xm, w, fmt, n=N, decode_impl=impl), flush=flush),
-                        bound_ms=b_ms, bound_by=b_by,
-                        library_ms=time_ms(torch, lambda: torch.matmul(xm.float(), wd), flush=flush))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib, flush=flush))
+                    if M == 4:
+                        row.update(device_ms=device_ms(torch, kern, flush=flush),
+                                   library_device_ms=device_ms(torch, lib, flush=flush))
                 rows.append(row)
             del wd, w, scale, got_bits
         log(f"K3-mx {fmt}: {len(shapes)} shapes within {K3_LIMIT} of |x|@|w|, lut == bits")
@@ -518,16 +587,17 @@ def phase_mx_kernels(torch, dev, rows):
             vc = vcache.reshape(B, S, Kv, -1).permute(0, 2, 1, 3)
             q = torch.randn((B, H, hd), generator=gen, device=dev)
             vmax = float(decode_2d_plain(vcache, fmt)[:, :hd].abs().max())
-            lib_ms = None
+            lib_ms = lib_device_ms = None
             if hd == 128:
                 kf = decode_2d_plain(kcache, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
                 vf = decode_2d_plain(vcache, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
                 kf = kf.repeat_interleave(H // Kv, dim=1).contiguous()
                 vf = vf.repeat_interleave(H // Kv, dim=1).contiguous()
                 q4 = q[:, :, None, :]
-                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, kf, vf),
-                                 flush=flush)
-                del kf, vf
+                sdpa = lambda: F.scaled_dot_product_attention(q4, kf, vf)
+                lib_ms = time_ms(torch, sdpa, flush=flush)
+                lib_device_ms = device_ms(torch, sdpa, flush=flush)
+                del kf, vf, sdpa
             for length, window, cap in ((270, 0, 0.0), (S, 0, 0.0), (270, 64, 30.0)):
                 args = dict(length=length, window=window, softcap=cap)
                 got_bits = takum_decode_attention(q, kc, vc, fmt, decode_impl="bits", **args)
@@ -543,14 +613,17 @@ def phase_mx_kernels(torch, dev, rows):
                         continue
                     nbytes = q.numel() * 4 * 2 + 2 * B * Kv * length * plen(hd)
                     b_ms, b_by = bound(nbytes, 4.0 * B * H * length * hd)
+                    kern = lambda: takum_decode_attention(q, kc, vc, fmt, length=length,
+                                                          decode_impl=impl)
                     rows.append(dict(
                         kernel="takum_decode_attention", fmt=fmt, impl=impl,
                         shape=[B, H, Kv, S, hd], length=length, max_abs_err=err,
-                        ms=time_ms(torch, lambda: takum_decode_attention(
-                            q, kc, vc, fmt, length=length, decode_impl=impl), flush=flush),
+                        ms=time_ms(torch, kern, flush=flush),
                         plain_ms=time_ms(torch, lambda: decode_attention_plain(
                             q, kc, vc, fmt, length, decode_impl=impl), flush=flush),
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        device_ms=device_ms(torch, kern, flush=flush),
+                        library_device_ms=lib_device_ms))
         log(f"K6-mx {fmt}: within 1e-5 max|v| at hd 128, 16 and 80, length 270 and 288, "
             f"a window of 64 with a softcap, lut == bits")
     del flush
@@ -1141,11 +1214,14 @@ def packed_params(torch, cfg, seed):
 
 def phase_serving(torch, dev, policy):
     """Full-depth serving under ``policy``, counted: launches reset just
-    before the prefill and read just after the last decode step."""
+    before the prefill and read just after the last decode step.  What
+    earlier phases of the process still hold allocated (it counts in the
+    peak) is recorded beside the peak."""
     from repro_torch import configs, serve
     from repro_torch.kernels import ops
     from repro_torch.quant.policy import POLICIES
 
+    held_before = torch.cuda.memory_allocated()
     cfg = configs.get("llama3_8b").with_(quant=POLICIES[policy])
     B, S0, STEPS = 4, 256, 32
     t0 = time.perf_counter()
@@ -1192,6 +1268,7 @@ def phase_serving(torch, dev, policy):
         init_and_pack_s=init_s, prefill_ms=(t1 - t0) * 1e3,
         decode_ms_per_token=decode_s / STEPS * 1e3, decode_tokens_per_s=B * STEPS / decode_s,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        allocated_before_gb=held_before / 1e9,
         weight_bytes=sum(_nbytes(v) for v in _leaves(qp)),
         kv_cache_bytes=cache.k.numel() * cache.k.element_size() * 2,
         launches=counts, first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
@@ -1291,9 +1368,12 @@ def phase_parity(torch, dev):
     limits instead: under mxt8 the plain path moved 1.3e-3 against its f64
     twin; under takum8 1.44e-3, and the kernel path read 2.58e-3 against
     either plain run, its t8 KV cache differing from the plain path's in
-    6.7e-4 of its bytes against 1.9e-4 between the two plain runs (K3 adds
-    each output's k terms one by one in f32, an order that moves more of
-    the projected K/V values across a t8 rounding boundary).
+    6.7e-4 of its bytes against 1.9e-4 between the two plain runs.  The
+    prompt's K/V come from the prefill (M = B * 64 rows: K3's tile, which
+    adds each output's k terms one by one in f32, an order that moves more
+    of the projected K/V values across a t8 rounding boundary); the decode
+    steps' split-K matvec, whose order is a tree over warps and splits,
+    leaves both readings where they were.
 
     The kernel path's launches are counted (reset just before it, read just
     after) and held to the policy (``check_launches``): under mxt8 this is
@@ -1411,13 +1491,19 @@ KERNEL_INFO = {
 SUMMARY = [
     ("takum_decode_2d", "t16", "bits", [1024, 4096], "takum"),
     ("takum_encode_2d", "t8", "lut", [8192, 128], "takum"),
+    ("takum_matmul", "t16", "bits", [4, 4096, 4096], "takum"),
+    ("takum_matmul", "t16", "bits", [4, 4096, 1024], "takum"),
     ("takum_matmul", "t16", "bits", [4, 4096, 14336], "takum"),
+    ("takum_matmul", "t16", "bits", [4, 14336, 4096], "takum"),
     ("takum_matmul", "t16", "bits", [1024, 4096, 14336], "takum"),
     ("takum_matmul", "t16", "bits", [4, 4096, 128256], "takum"),
     ("takum_decode_attention", "t8", "lut", [4, 32, 8, 288, 128], "takum"),
     ("takum_decode_2d", "t8", "lut", [1024, 4096], "takum8"),
     ("takum_encode_2d", "t8", "lut", [8192, 128], "takum8"),
+    ("takum_matmul", "t8", "lut", [4, 4096, 4096], "takum8"),
+    ("takum_matmul", "t8", "lut", [4, 4096, 1024], "takum8"),
     ("takum_matmul", "t8", "lut", [4, 4096, 14336], "takum8"),
+    ("takum_matmul", "t8", "lut", [4, 14336, 4096], "takum8"),
     ("takum_matmul", "t8", "lut", [1024, 4096, 14336], "takum8"),
     ("takum_matmul", "t8", "lut", [4, 4096, 128256], "takum8"),
     ("takum_decode_attention", "t8", "lut", [4, 32, 8, 288, 128], "takum8"),
@@ -1432,6 +1518,22 @@ SUMMARY = [
     ("takum_encode_2d", "bf16", "bits", [8192, 128], "bf16"),
     ("takum_decode_attention", "bf16", "bits", [4, 32, 8, 288, 128], "bf16"),
 ]
+
+
+def k3_decode_step(rows):
+    """The K3 time of one llama3-8b decode step under the weights of takum
+    (t16, bits) and takum8 (t8, lut): launches x time of phase (c)'s M = 4
+    rows, summed over ``DECODE_LINEARS``, for each timing the rows carry."""
+    out = {}
+    for fmt, impl in (("t16", "bits"), ("t8", "lut")):
+        tot = dict.fromkeys(("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms"), 0.0)
+        for (K, N), n in DECODE_LINEARS.items():
+            row = next(r for r in rows if r["kernel"] == "takum_matmul"
+                       and (r["fmt"], r["impl"], r["shape"]) == (fmt, impl, [4, K, N]))
+            for key, val in tot.items():
+                tot[key] = None if val is None or row.get(key) is None else val + n * row[key]
+        out[f"{fmt}[{impl}]"] = tot
+    return out
 
 
 def kernel_census(build_mod):
@@ -1494,6 +1596,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_mx_kernels(torch, dev, rows)
     log(f"(c) mx kernels match their plain versions ({time.perf_counter() - t0:.1f} s)")
+    k3_step = k3_decode_step(rows)
+    log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
 
     serving = {}
@@ -1533,7 +1637,8 @@ def main() -> int:
             name=f"{name} {kname} {fmt} {'x'.join(map(str, shape))}", route="cuda",
             source=source, replaces=replaces, path=path, launches=n,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            **{k: row[k] for k in ("device_ms", "library_device_ms") if k in row}))
     # phase (f): K4 and every fused variant, launches from its producer path
     for row in producer_rows:
         tag, source, replaces = KERNEL_INFO[row["kernel"]]
@@ -1564,7 +1669,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, torch=torch.__version__, build_s=build_s, build=build,
-             kernel_rows=rows, bank_probe=bank_probe, serving=serving, parity=parity,
+             kernel_rows=rows, k3_decode_step=k3_step, bank_probe=bank_probe, serving=serving,
+             parity=parity,
              producers=dict(differing_codes=differing, rows=producer_rows,
                             launches={k: v for k, v in producer_counts.items() if v}),
              ad=dict(worst_err_over_absprod=ad_worst, rows=ad_rows,

@@ -103,5 +103,10 @@ def launch_key(impl: str, out_name=None, out_impl=None, transposed=False) -> str
     return impl if out_name is None else f"{impl}>{out_name}:{out_impl}"
 
 
+#: blocks a split plan aims for (K3 at small M, K6): two per SM of the
+#: H100's 132, so that every SM has a second block to run while one waits
+TARGET_BLOCKS = 2 * 132
+
+
 def count_launch(fn, key: str) -> None:
     fn.launches[key] = fn.launches.get(key, 0) + 1

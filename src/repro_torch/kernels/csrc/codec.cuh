@@ -65,6 +65,57 @@ __device__ __forceinline__ float takum_decode(uint32_t bits) {
   return __uint_as_float(out | (neg << 31));
 }
 
+// t16 through a table of its regime headers (D, R): the same bits as
+// takum_decode<16>, for a loop that decodes many elements and keeps the table
+// in shared memory.  Entry h = |code| >> 11 holds x = (c + 127 - C) << 23
+// (mod 2^32: the characteristic C then lands on the exponent field by the
+// same shift that places the fraction) and y = 23 - p = 12 + r, then the
+// saturation bound z and the sign mask w, so the decode is the magnitude,
+// one table read, a shift, an add, an unsigned min, a flush-to-zero multiply
+// and the sign: about half the integer work of takum_decode<16>, and no
+// per-element special case.  body < 2^23 only where c < -126 (D = 0,
+// r = 6, C = 0), and header 0 (D = 0, r = 7: c < -126 always) is entry
+// (0, 0), whose body rem_v < 2^11 is flushed too; body > max-finite only
+// where c > 127 (D = 1, r = 7).  Entry 16 is NaR's (|code| = 0x8000): body 0, and a "sign mask"
+// that takes the canonical NaN's bits from the code's sign-extended bits
+// (no float operation sees a NaN, so no payload is changed).
+constexpr int kT16Regimes = 17;
+
+__host__ __device__ inline uint4 t16_regime(uint32_t h) {
+  const uint32_t D = (h >> 3) & 1u, R = h & 7u;
+  const uint32_t r = D ? R : 7u - R;
+  const uint32_t t = 1u << r;
+  if (h >= 16u) return uint4{0u, 0u, 0u, 0x7FC00000u};  // NaR: the code's bits give the NaN
+  if (h == 0u) return uint4{0u, 0u, 0x7F7FFFFFu, 0x80000000u};
+  return uint4{(D ? t + 126u : 128u - 2u * t) << 23, 12u + r, 0x7F7FFFFFu, 0x80000000u};
+}
+
+// every thread of the block calls it; ends in __syncthreads
+__device__ __forceinline__ const uint4* stage_t16_regimes(uint4* smem) {
+  for (int h = threadIdx.x; h < kT16Regimes; h += blockDim.x) smem[h] = t16_regime(h);
+  __syncthreads();
+  return smem;
+}
+
+// f32 bits u with a subnormal flushed to (signed) zero
+__device__ __forceinline__ uint32_t ftz_bits(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  float f;
+  asm("mul.ftz.f32 %0, %1, 0f3F800000;" : "=f"(f) : "f"(__uint_as_float(u)));
+  return __float_as_uint(f);
+#else
+  return (u & 0x7F800000u) == 0u ? (u & 0x80000000u) : u;
+#endif
+}
+
+__device__ __forceinline__ float t16_decode_regime(const uint4* regimes, uint32_t bits) {
+  const int code = static_cast<int16_t>(bits & 0xFFFFu);
+  const uint32_t mag = static_cast<uint32_t>(abs(code));  // 0x8000 for NaR
+  const uint4 e = regimes[mag >> 11];
+  const uint32_t body = min(e.x + ((mag & 0x7FFu) << e.y), e.z);
+  return __uint_as_float(ftz_bits(body) | (static_cast<uint32_t>(code) & e.w));
+}
+
 // RNE on the left-aligned header|fraction body with guard and sticky bits,
 // DAZ (|x| < 2^-126 -> 0), saturation to [1, 2^(N-1) - 1], NaN/Inf -> NaR.
 template <int N>
@@ -464,6 +515,45 @@ __device__ __forceinline__ uint32_t mx_encode(float x, uint32_t byte, const uint
   const float cap = Wire<FMT>::cap();
   xs = xs > cap ? cap : (xs < -cap ? -cap : xs);
   return elem_encode<FMT, IMPL>(xs, meta, aux);
+}
+
+// ---- staging byte spans in shared memory (K3's small-M loop, K6) -----------------
+//
+// A span [p, p + len) of global bytes is staged as the aligned 16-byte chunks
+// that cover it, each one cp.async (asynchronous, cached in L2 only); its
+// first byte then sits at span_offset(p) in the staged copy.  A whole aligned
+// chunk that holds one byte of the span never leaves that byte's page, so
+// every alignment of p (a ragged N, an mx row of 33-byte groups) takes the
+// same 16-byte path.
+
+// chunks a staged span of len bytes may need, at its worst alignment
+__host__ __device__ constexpr int span_chunks(int len) { return (len + 30) / 16; }
+
+__device__ __forceinline__ int span_offset(const void* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15u);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Chunk c of the span [p, p + len) into dst + 16 c (dst: 16-byte aligned
+// shared memory), if the span reaches chunk c
+__device__ __forceinline__ void stage_chunk(uint8_t* dst, const void* p, int len, int c) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t chunk = (a & ~static_cast<uintptr_t>(15)) + 16u * static_cast<uintptr_t>(c);
+  if (len > 0 && chunk < a + static_cast<uintptr_t>(len)) {
+    cp_async16(dst + 16 * c, reinterpret_cast<const void*>(chunk));
+  }
 }
 
 // ---- the fused out_fmt epilogue of K3, K4 and K6 (lut.py:355 encode_epilogue) ----

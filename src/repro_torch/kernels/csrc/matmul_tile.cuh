@@ -1,6 +1,8 @@
-// The tiled K loop of K3 (takum_matmul.cu) and K4 (takum_dual_matmul.cu):
+// The tiled K loop of K4 (takum_dual_matmul.cu) at every M and of K3
+// (takum_matmul.cu, and its transposed twin takum_matmul_wt.cu) above M = 16:
 //   out[M, N] = X[M, K] @ decode(w_bits[K, N]), f32 accumulation, where X is
 //   x itself (K3: f32, or bf16 widened to f32) or decode(x_bits) (K4).
+// K3 at M <= 16 runs the split-K matvec of matvec_splitk.cuh instead.
 //
 // Replaces the Pallas kernel src/repro/kernels/takum_matmul.py:56 _mm_kernel
 // (dual=False: entry takum_matmul :166; dual=True: entry takum_dual_matmul
@@ -21,12 +23,13 @@
 // never meet a 0.  No tensor cores: decoded t16 values carry up to 11
 // fraction bits and TF32 holds 10, so TF32 would round the weights.
 //
-// Bound on the H100: at the decode step's M = 4 the weight bytes (K*N*1 or
-// 2 bytes at 3.35 TB/s); at the prefill's M = 1024 the products (67 TFLOP/s
+// Bound on the H100: at the prefill's M = 1024 the products (67 TFLOP/s
 // f32 outside the tensor cores; 989 bf16 where both operands are exact in
-// bf16).  Two tilings: a 64 x 64 tile for large M and an 8 x 32 tile for
-// small M, which keeps more blocks in flight over N when a 64-row tile would
-// be mostly padding.  Both add the k terms of each output in the same
+// bf16); at K4's M = 4 the weight bytes (K*N*1 or 2 bytes at 3.35 TB/s),
+// which this loop does not reach (one 1 KiB w tile in flight per block).
+// Two tilings: a 64 x 64 tile for large M and an 8 x 32 tile for K4's small
+// M, which keeps more blocks in flight over N when a 64-row tile would be
+// mostly padding.  Both add the k terms of each output in the same
 // ascending order, so every output is the same either way.
 //
 // An mx weight is the payload [K, ceil(N/32)*33], blocked along N: row k
@@ -42,9 +45,9 @@
 // bits decode's and the k terms are added in the same order, so the two
 // codecs give the same output bit for bit.
 //
-// WT (K5's backward, takum_matmul_wt.cu): the weight is stored transposed,
-// w_bits[N, K] row-major, and the kernel computes X @ decode(w_bits)^T
-// without copying it: element (k, n) is read at w[n * K + k] (the index in
+// WT (K5's backward above M = 16, takum_matmul_wt.cu): the weight is stored
+// transposed, w_bits[N, K] row-major, and the kernel computes
+// X @ decode(w_bits)^T without copying it: element (k, n) is read at w[n * K + k] (the index in
 // 64 bits).  The w tile is then filled with the thread index running along
 // k (kk = i % BK), so that neighbouring threads read neighbouring bytes of
 // one stored row; the shared tile's rows are padded by 32 / BK floats, which
@@ -201,20 +204,21 @@ int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile follows M alone (never the out format or the weight layout):
-// M <= 16 takes the 8 x 32 tile, larger M the 64 x 64 tile.
-template <int FMT, int IMPL, int XMODE, bool FUSED, bool WT = false>
+// K4's tile follows M alone (never the out format): M <= 16 takes the
+// 8 x 32 tile, larger M the 64 x 64 tile.
+template <int FMT, int IMPL, int XMODE, bool FUSED>
 int launch_tile_for_m(const void* x, const void* w, void* out, int M, int N, int K,
                       const int* tab, const repro::Epilogue& ep, cudaStream_t stream) {
   if (M <= 16) {
-    return launch_tiled<FMT, IMPL, XMODE, FUSED, 8, 32, 32, 1, 1, WT>(x, w, out, M, N, K, tab,
-                                                                      ep, stream);
+    return launch_tiled<FMT, IMPL, XMODE, FUSED, 8, 32, 32, 1, 1>(x, w, out, M, N, K, tab, ep,
+                                                                  stream);
   }
-  return launch_tiled<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4, WT>(x, w, out, M, N, K, tab, ep,
-                                                                     stream);
+  return launch_tiled<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4>(x, w, out, M, N, K, tab, ep,
+                                                                 stream);
 }
 
-// The unfused or the fused instantiation of the same tile, as `ep` asks.
+// K4's launch: the unfused or the fused instantiation of its tile, as `ep`
+// asks.
 template <int FMT, int IMPL, int XMODE>
 int launch_mm_x(const void* x, const void* w, void* out, int M, int N, int K, const void* tab,
                 const repro::Epilogue& ep, cudaStream_t stream) {

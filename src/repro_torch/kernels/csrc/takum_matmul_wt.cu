@@ -5,47 +5,50 @@
 // Replaces the backward rule of the Pallas entry
 // src/repro/kernels/takum_matmul.py:190 takum_matmul_ad (_takum_matmul_bwd
 // :211), which runs the Pallas kernel _mm_kernel(dual=False) (:56) on
-// w_bits.T.  Here K3's K loop (matmul_tile.cuh) reads the stored weight
-// through its WT load mode instead: no transposed copy of the bits (the t8
-// llama3-8b head alone would be 525 MB per backward).  g is the f32
-// cotangent of K3's f32 output, so x is f32 only (XMODE kXF32); the formats
-// are the flat ones (t8, t16, e4m3, e5m2, bf16), each under either codec and
-// in either tile: 20 kernels, no fused twin.  Bound: as K3 (matmul_tile.cuh):
-// the weight bytes at small M, the f32 products at large M.
-#include "matmul_tile.cuh"
+// w_bits.T.  Here K3's loops read the stored weight through their WT load
+// mode instead: no transposed copy of the bits (the t8 llama3-8b head alone
+// would be 525 MB per backward).  At M <= 16 that is the split-K matvec of
+// matvec_splitk.cuh (same plan and order as K3 over a copy, bound by the
+// weight bytes), above it the 64 x 64 tile of matmul_tile.cuh (bound by the
+// f32 products).  g is the f32 cotangent of K3's f32 output, so x is f32
+// only (XMODE kXF32); the formats are the flat ones (t8, t16, e4m3, e5m2,
+// bf16), each under either codec: 5 x 2 x (two matvec kernels and the tile),
+// plus the combine pass; no fused twin.
+#include "matvec_splitk.cuh"
 
 namespace {
 
 template <int FMT, int IMPL>
-int launch_wt_as(const void* x, const void* w, void* out, int M, int N, int K, const void* tab,
-                 cudaStream_t stream) {
-  const int* t = static_cast<const int*>(tab);
-  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+int launch_wt_as(const void* x, const void* w, void* out, float* ws, int M, int N, int K,
+                 int chunk, const void* tab, cudaStream_t stream) {
   const repro::Epilogue f32_out{repro::kOutF32, repro::kBits, nullptr, nullptr, N};
-  return repro_mm::launch_tile_for_m<FMT, IMPL, repro_mm::kXF32, false, true>(
-      x, w, out, M, N, K, t, f32_out, stream);
+  return repro_mv::launch_k3<FMT, IMPL, repro_mm::kXF32, true>(x, w, out, ws, M, N, K, chunk,
+                                                               tab, f32_out, stream);
 }
 
 template <int FMT>
-int launch_wt(const void* x, const void* w, void* out, int M, int N, int K, int impl,
-              const void* tab, cudaStream_t stream) {
-  REPRO_IMPL_DISPATCH(impl, true, launch_wt_as, FMT, x, w, out, M, N, K, tab, stream)
+int launch_wt(const void* x, const void* w, void* out, float* ws, int M, int N, int K, int chunk,
+              int impl, const void* tab, cudaStream_t stream) {
+  REPRO_IMPL_DISPATCH(impl, true, launch_wt_as, FMT, x, w, out, ws, M, N, K, chunk, tab, stream)
 }
 
 }  // namespace
 
 // out[M, N] = x[M, K] @ decode(w[N, K])^T: x f32 [M, K], w the flat
-// format's bits [N, K] row-major, out f32 [M, N]; impl is repro::Impl, tab
-// the decode table (null for kBits).  An mx format id is refused.
-extern "C" int repro_matmul_wt(const void* x, const void* w, void* out, int M, int N, int K,
-                               int fmt, int impl, const void* tab, void* stream) {
+// format's bits [N, K] row-major, out f32 [M, N]; at M <= 16 ws and chunk
+// as repro_matmul's; impl is repro::Impl, tab the decode table (null for
+// kBits).  An mx format id is refused.
+extern "C" int repro_matmul_wt(const void* x, const void* w, void* out, void* ws, int M, int N,
+                               int K, int chunk, int fmt, int impl, const void* tab,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* wsf = static_cast<float*>(ws);
   switch (fmt) {
-    case repro::kT8: return launch_wt<repro::kT8>(x, w, out, M, N, K, impl, tab, s);
-    case repro::kT16: return launch_wt<repro::kT16>(x, w, out, M, N, K, impl, tab, s);
-    case repro::kE4M3: return launch_wt<repro::kE4M3>(x, w, out, M, N, K, impl, tab, s);
-    case repro::kE5M2: return launch_wt<repro::kE5M2>(x, w, out, M, N, K, impl, tab, s);
-    case repro::kBF16: return launch_wt<repro::kBF16>(x, w, out, M, N, K, impl, tab, s);
+    case repro::kT8: return launch_wt<repro::kT8>(x, w, out, wsf, M, N, K, chunk, impl, tab, s);
+    case repro::kT16: return launch_wt<repro::kT16>(x, w, out, wsf, M, N, K, chunk, impl, tab, s);
+    case repro::kE4M3: return launch_wt<repro::kE4M3>(x, w, out, wsf, M, N, K, chunk, impl, tab, s);
+    case repro::kE5M2: return launch_wt<repro::kE5M2>(x, w, out, wsf, M, N, K, chunk, impl, tab, s);
+    case repro::kBF16: return launch_wt<repro::kBF16>(x, w, out, wsf, M, N, K, chunk, impl, tab, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,21 +12,61 @@ dropped (d need not be a multiple of 32).
 None is the format's default).  ``out_fmt`` fuses the output's wire encode
 into the kernel's flush (``encode_impl`` picks its codec): the result is the
 packed [B, H, d] (an mx out: [B, H, d/32*33], d a multiple of 32), equal bit
-for bit to ``ops.encode`` of the unfused output.  ``takum_decode_attention``
-launches ``csrc/takum_attention.cu`` for CUDA tensors and takes
-``decode_attention_plain`` for CPU tensors; ``.launches`` counts the kernel
-launches per codec, fused launches under their own keys (``"lut>t8:lut"``).
+for bit to ``ops.encode`` of the unfused output.
+
+On the card S is split across blocks: :func:`attention_plan` cuts the keys
+into tile-aligned chunks so that the grid (kv head, batch row, chunk) fills
+the H100, each block writes its partial softmax state to an f32 workspace
+the wrapper allocates, and a second pass combines the chunks in order.
+``takum_decode_attention`` launches ``csrc/takum_attention.cu`` for CUDA
+tensors and takes ``decode_attention_plain`` for CPU tensors; ``.launches``
+counts the kernel launches per codec, fused launches under their own keys
+(``"lut>t8:lut"``).
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.quant import blockscale
 from . import _build, lut
-from .common import (IMPL_CODE, count_launch, empty_out, epilogue_args, kernel_format, launch_key,
-                     out_format, stream_of, table_ptrs)
+from .common import (IMPL_CODE, TARGET_BLOCKS, count_launch, empty_out, epilogue_args,
+                     kernel_format, launch_key, out_format, stream_of, table_ptrs)
 from .takum_codec import encode_2d_plain
+
+#: keys per tile of the kernel (``kTileS`` of csrc/takum_attention.cu)
+KV_TILE = 32
+
+
+class AttentionPlan(NamedTuple):
+    """The split of the keys: chunk i covers positions [begin + i * chunk,
+    min(begin + (i + 1) * chunk, length)), i < splits."""
+
+    begin: int
+    chunk: int
+    splits: int
+
+    def workspace_numel(self, B: int, H: int, Hkv: int, d: int) -> int:
+        """f32 elements of the partials [B, Hkv, splits, g, d + 2]: each
+        query row's unnormalised acc[d], its max and its denominator."""
+        return B * Hkv * self.splits * (H // Hkv) * (d + 2)
+
+
+def attention_plan(B: int, Hkv: int, length: int, window: int = 0) -> AttentionPlan:
+    """K6's split of S: the valid keys [lo, length) (lo = length - window
+    with a window, else 0) from ``begin``, lo rounded down to a tile, in
+    chunks of whole tiles, as long as they can be while the grid
+    (Hkv, B, splits) still holds ``TARGET_BLOCKS`` blocks.  The head count
+    and head dim change no chunk's length, only each block's work."""
+    lo = max(0, length - window) if window > 0 else 0
+    begin = lo // KV_TILE * KV_TILE
+    keys = length - begin
+    need = math.ceil(TARGET_BLOCKS / (B * Hkv))
+    chunk = max(KV_TILE, keys // need // KV_TILE * KV_TILE)
+    return AttentionPlan(begin, chunk, math.ceil(keys / chunk))
 
 
 def _valid_keys(S: int, length: int, window: int, device) -> torch.Tensor:
@@ -108,12 +148,15 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
     if not q.is_contiguous() or k_bits.stride(3) != 1 or v_bits.stride(3) != 1:
         raise ValueError("q must be contiguous and k/v unit-stride along their last axis")
     out = empty_out((B, H), d, out_wf, q.device)
+    plan = attention_plan(B, Hkv, length, int(window))
+    ws = torch.empty(plan.workspace_numel(B, H, Hkv, d), dtype=torch.float32, device=q.device)
     fn = _build.entry("repro_decode_attention")
     _build.check(
-        fn(q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(), out.data_ptr(), B, H, Hkv, d,
-           *k_bits.stride()[:3], *v_bits.stride()[:3], length, int(window), scale,
-           float(softcap), wf.code, IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", q.device),
-           *epilogue_args(out_wf, out_impl, q.device), stream_of(q)),
+        fn(q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(), out.data_ptr(), ws.data_ptr(), B,
+           H, Hkv, d, *k_bits.stride()[:3], *v_bits.stride()[:3], length, int(window), *plan,
+           scale, float(softcap), wf.code, IMPL_CODE[impl],
+           *table_ptrs(wf, impl, "decode", q.device), *epilogue_args(out_wf, out_impl, q.device),
+           stream_of(q)),
         "takum_decode_attention",
     )
     count_launch(takum_decode_attention, launch_key(impl, out_wf and out_wf.name, out_impl))

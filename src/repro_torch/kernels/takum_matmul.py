@@ -20,6 +20,13 @@ weight transposed in place (``csrc/takum_matmul_wt.cu``); the bits get no
 gradient, and an mx weight is refused (its scale bytes are bound to blocks
 of the stored last axis).
 
+At M <= 16 (the decode step) K3 and its transposed launch run the split-K
+matvec of ``csrc/matvec_splitk.cuh``: :func:`matvec_plan` cuts K into
+chunks, one column of blocks each, and the wrapper allocates the f32
+workspace [splits, M, N] that the kernel's second pass adds up in split
+order.  Above M = 16 they run the 64 x 64 tile of ``csrc/matmul_tile.cuh``,
+as K4 does at every M.
+
 ``takum_matmul`` / ``takum_dual_matmul`` / ``takum_matmul_t`` launch
 ``csrc/takum_matmul.cu`` / ``csrc/takum_dual_matmul.cu`` /
 ``csrc/takum_matmul_wt.cu`` for CUDA tensors and take the plain versions for
@@ -30,14 +37,59 @@ on ``takum_matmul`` under ``"lut^T"`` (see :func:`~.common.launch_key`).
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.formats import wire_format
 from repro_torch.quant import blockscale
 from . import _build, lut
-from .common import (IMPL_CODE, count_launch, empty_out, epilogue_args, kernel_format, launch_key,
-                     out_format, stream_of, table_ptrs)
+from .common import (IMPL_CODE, TARGET_BLOCKS, count_launch, empty_out, epilogue_args,
+                     kernel_format, launch_key, out_format, stream_of, table_ptrs)
 from .takum_codec import decode_2d_plain, encode_2d_plain
+
+#: the largest M the split-K matvec takes (``kMaxM`` of csrc/matvec_splitk.cuh)
+MATVEC_MAX_M = 16
+#: output columns per matvec block (``kBN``)
+MATVEC_BN = 128
+#: x floats a matvec block stages for its chunk (``kXFloats``)
+MATVEC_X_FLOATS = 4096
+
+
+class MatvecPlan(NamedTuple):
+    """The split of K for the matvec: blocks ``n_tiles`` x ``splits``, split
+    s covering k in [s * chunk, min((s + 1) * chunk, K)); ``rows_per_stage``
+    is the kernel's stage depth, of which ``chunk`` is a multiple."""
+
+    chunk: int
+    splits: int
+    n_tiles: int
+    rows_per_stage: int
+
+    def workspace_shape(self, M: int, N: int) -> tuple[int, int, int]:
+        """The f32 partial sums the kernel writes: [splits, M, N]."""
+        return (self.splits, M, N)
+
+
+def matvec_plan(M: int, N: int, K: int, fmt) -> MatvecPlan:
+    """The split-K plan of K3 (and of its transposed launch) at M <= 16, from
+    (M, N, K, format) alone, never the codec: chunks as long as they can be
+    while the grid still holds ``TARGET_BLOCKS`` blocks (two per SM), a
+    multiple of the stage depth (64 rows of 8-bit elements, 32 of 16-bit:
+    64 bytes, four 16-byte copies, of a stored row under the transposed
+    launch) and at most ``MATVEC_X_FLOATS / MB`` rows (MB = 4 for M <= 4,
+    else 16: the x the block stages)."""
+    if not 1 <= M <= MATVEC_MAX_M:
+        raise ValueError(f"the matvec takes 1 <= M <= {MATVEC_MAX_M}, got {M}")
+    wf = wire_format(fmt)
+    elem_bits = 8 if wf.is_block_scaled else wf.nbits
+    ks = 64 if elem_bits == 8 else 32
+    cap = MATVEC_X_FLOATS // (4 if M <= 4 else MATVEC_MAX_M)
+    n_tiles = math.ceil(N / MATVEC_BN)
+    need = math.ceil(TARGET_BLOCKS / max(n_tiles, 1))
+    chunk = max(ks, min(cap, K // need) // ks * ks)
+    return MatvecPlan(chunk, max(1, math.ceil(K / chunk)), n_tiles, ks)
 
 
 def _logical_n(w_bits: torch.Tensor, wf, n) -> int:
@@ -99,18 +151,42 @@ def _check_device(a: torch.Tensor, b: torch.Tensor, names: str) -> bool:
     return False
 
 
-def _launch(entry: str, fn, x, w_bits, dims: tuple, wf, impl, out_wf, out_impl):
-    """Allocate the output ([M, N] f32, or the out format's packed [M, N] or
-    payload), run the C entry ``entry`` on (x, w_bits, out, *dims, format,
-    codec, tables, epilogue, stream) and count the launch on ``fn``."""
-    M, N, K = dims[:3]
+def _check_dims(M: int, N: int, K: int) -> None:
     if max(M, N, K) >= 2**31:
         raise ValueError("matmul dims must fit in int32")
+
+
+def _workspace(M: int, N: int, K: int, wf, device):
+    """(workspace, chunk) of a K3 launch: at M <= 16 the matvec plan's chunk
+    and its f32 workspace; (None, 0) for the tiled loop."""
+    if M > MATVEC_MAX_M:
+        return None, 0
+    plan = matvec_plan(M, N, K, wf)
+    return torch.empty(plan.workspace_shape(M, N), dtype=torch.float32, device=device), plan.chunk
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch(entry: str, fn, x, w_bits, dims: tuple, wf, impl, out_wf, out_impl, split=False):
+    """Allocate the output ([M, N] f32, or the out format's packed [M, N] or
+    payload), run the C entry ``entry`` on (x, w_bits, out, *dims, format,
+    codec, tables, epilogue, stream) and count the launch on ``fn``.  With
+    ``split`` (K3) the entry also takes the workspace after the output and
+    the plan's chunk after (M, N, K)."""
+    M, N, K = dims[:3]
+    _check_dims(M, N, K)
     out = empty_out((M,), N, out_wf, x.device)
     if out.numel():
+        lead, args = (), dims
+        if split:
+            ws, chunk = _workspace(M, N, K, wf, x.device)
+            lead, args = (_ptr(ws),), (M, N, K, chunk, *dims[3:])
         _build.check(
-            _build.entry(entry)(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), *dims, wf.code,
-                                IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", x.device),
+            _build.entry(entry)(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), *lead, *args,
+                                wf.code, IMPL_CODE[impl],
+                                *table_ptrs(wf, impl, "decode", x.device),
                                 *epilogue_args(out_wf, out_impl, x.device), stream_of(x)),
             fn.__name__,
         )
@@ -138,7 +214,8 @@ def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl
                                   encode_impl=out_impl)
     M, K = x.shape
     return _launch("repro_matmul", takum_matmul, x, w_bits,
-                   (M, N, K, int(x.dtype == torch.bfloat16)), wf, impl, out_wf, out_impl)
+                   (M, N, K, int(x.dtype == torch.bfloat16)), wf, impl, out_wf, out_impl,
+                   split=True)
 
 
 def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
@@ -193,16 +270,16 @@ def takum_matmul_t(g: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None)
     if _check_device(g, w_bits, "g and w_bits"):
         return takum_matmul_t_plain(g, w_bits, wf, decode_impl=impl)
     # the kernel's out[M, N] = g[M, K] @ decode(w[N, K])^T, in its own names
+    # (at M <= 16 the plan of K3 over a transposed copy: the same order)
     (M, K), N = g.shape, w_bits.shape[0]
-    if max(M, N, K) >= 2**31:
-        raise ValueError("matmul dims must fit in int32")
+    _check_dims(M, N, K)
     out = torch.empty((M, N), dtype=torch.float32, device=g.device)
     if out.numel():
+        ws, chunk = _workspace(M, N, K, wf, g.device)
+        fn = _build.entry("repro_matmul_wt")
         _build.check(
-            _build.entry("repro_matmul_wt")(g.data_ptr(), w_bits.data_ptr(), out.data_ptr(), M, N,
-                                            K, wf.code, IMPL_CODE[impl],
-                                            *table_ptrs(wf, impl, "decode", g.device),
-                                            stream_of(g)),
+            fn(g.data_ptr(), w_bits.data_ptr(), out.data_ptr(), _ptr(ws), M, N, K, chunk, wf.code,
+               IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", g.device), stream_of(g)),
             "takum_matmul_t",
         )
         count_launch(takum_matmul, launch_key(impl, transposed=True))

@@ -17,7 +17,9 @@ K3's limit of |decode(x)| @ |w|, and every fused ``out_fmt`` output of K3,
 K4 and K6 must equal K2's encode of the same kernel's unfused output bit
 for bit.  K5's backward, the transposed K3, is held to K3's limit of
 |g| @ |decode(w)|.T and must equal K3 over a transposed copy of the bits bit
-for bit; one autograd step launches one K3 and one transposed K3.
+for bit; one autograd step launches one K3 and one transposed K3.  K3 at
+M <= 16 (the split-K matvec) and K6 (split S with an ordered combine) must
+also give the same bits on a second launch.
 """
 
 import pytest
@@ -27,11 +29,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.formats import wire_format
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
-from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
+from repro_torch.kernels.takum_attention import (attention_plan, decode_attention_plain,
+                                                 takum_decode_attention)
 from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
 from repro_torch.kernels.takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain,
                                               takum_matmul, takum_matmul_ad, takum_matmul_plain,
-                                              takum_matmul_t, takum_matmul_t_plain)
+                                              takum_matmul_t, takum_matmul_t_plain, matvec_plan)
 from repro_torch.quant import blockscale
 
 FMTS = ("t8", "t16", "e4m3", "e5m2", "bf16")
@@ -415,3 +418,105 @@ def test_matmul_ad_launches_one_forward_and_one_transposed(cuda, fmt):
     with pytest.raises(ValueError, match="block-scaled"):
         takum_matmul_ad(x, torch.zeros(64, 99, dtype=torch.uint8, device=cuda), "mxt8")
     ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_matvec_small_m_within_limit_and_deterministic(cuda, fmt):
+    """K3 at M in {1, 3, 4, 5, 16} (the split-K matvec, both of its row
+    blocks) over K = 1000, a multiple of no plan's chunk, and N = 100, 777
+    (ragged) and 1024, f32 and bf16 x: within 4e-6 * (|x| @ |w|) of the plain
+    version under each codec, lut equal to bits, and a second launch equal
+    to the first, bit for bit."""
+    mx = wire_format(fmt).is_block_scaled
+    K = 1000
+    for N in (100, 777, 1024):
+        w = _rand((K, N), 60 + N, K ** -0.5)
+        w = takum_encode_2d(blockscale.pad_block(w) if mx else w, fmt)
+        n = N if mx else None
+        wd = ref.codec_decode_ref(w, fmt)[:, :N]
+        wc = w.to(cuda)
+        for M in (1, 3, 4, 5, 16):
+            assert K % matvec_plan(M, N, K, fmt).chunk
+            for dt in (torch.float32, torch.bfloat16):
+                x = _rand((M, K), 70 + M).to(dt)
+                bound = 4e-6 * (x.float().abs() @ wd.abs())
+                bits = takum_matmul(x.to(cuda), wc, fmt, n, "bits")
+                for impl in IMPLS:
+                    got = takum_matmul(x.to(cuda), wc, fmt, n, impl)
+                    assert _same_f32(got, bits), (N, M, dt, impl)
+                    assert _same_f32(got, takum_matmul(x.to(cuda), wc, fmt, n, impl))
+                    want = takum_matmul_plain(x, w, fmt, n, decode_impl=impl)
+                    assert ((got.cpu() - want).abs() <= bound).all(), (N, M, dt, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS)
+def test_transposed_matvec_equals_matvec_over_a_copy(cuda, fmt):
+    """The transposed launch at M in {1, 3, 16} runs the matvec's plan and
+    order over the stored rows: equal to K3 over a transposed copy bit for
+    bit, stored [N, K] with N = 100, 777 and K = 1000."""
+    K = 1000
+    for N in (100, 777):
+        w = takum_encode_2d(_rand((N, K), 80 + N, K ** -0.5), fmt)
+        wd = ref.codec_decode_ref(w, fmt)
+        wc = w.to(cuda)
+        copy = _transposed_copy(wc)
+        for M in (1, 3, 16):
+            g = _rand((M, K), 90 + M)
+            for impl in IMPLS:
+                got = takum_matmul_t(g.to(cuda), wc, fmt, impl)
+                assert _same_f32(got, takum_matmul(g.to(cuda), copy, fmt, decode_impl=impl))
+                want = takum_matmul_t_plain(g, w, fmt, decode_impl=impl)
+                assert ((got.cpu() - want).abs() <= 4e-6 * (g.abs() @ wd.abs().T)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16", "bf16", "mxe4m3", "mxt8"))
+def test_split_attention_edges(cuda, fmt):
+    """K6's split S at the serving shape (B 4, H 32, Hkv 8, S 288, hd 128):
+    one key in all (length 1), a last chunk of one key (length 33), a window
+    of 16 whose first tile holds masked keys, a softcap, and the full cache;
+    within 1e-5 max|v| of the plain version, lut equal to bits, a second
+    launch equal to the first, and every fused output K2's encode of the
+    unfused one."""
+    B, H, Kv, S, hd = 4, 32, 8, 288, 128
+    kv = takum_encode_2d(_rand((B * S * Kv, hd), 100), fmt).reshape(B, S, Kv, -1)
+    vv = takum_encode_2d(_rand((B * S * Kv, hd), 101), fmt).reshape(B, S, Kv, -1)
+    k, v = kv.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3)
+    kc, vc = k.to(cuda), v.to(cuda)
+    q = _rand((B, H, hd), 102)
+    vmax = ref.codec_decode_ref(vv.reshape(-1, vv.shape[-1]), fmt)[:, :hd].abs().max()
+    for length, window, cap in ((1, 0, 0.0), (33, 0, 0.0), (288, 16, 0.0), (288, 0, 30.0),
+                                (270, 64, 5.0)):
+        assert attention_plan(B, Kv, length, window).splits >= 1
+        args = dict(length=length, window=window, softcap=cap)
+        bits = takum_decode_attention(q.to(cuda), kc, vc, fmt, decode_impl="bits", **args)
+        for impl in IMPLS:
+            got = takum_decode_attention(q.to(cuda), kc, vc, fmt, decode_impl=impl, **args)
+            assert _same_f32(got, bits)
+            assert _same_f32(got, takum_decode_attention(q.to(cuda), kc, vc, fmt, decode_impl=impl,
+                                                         **args))
+            want = decode_attention_plain(q, k, v, fmt, length, window, cap, decode_impl=impl)
+            assert (got.cpu() - want).abs().max() <= 1e-5 * vmax, (length, window, cap, impl)
+        flat = bits.reshape(B * H, hd)
+        for out, oimpl in (("t8", "lut"), ("mxe4m3", "bits"), ("bf16", "bits")):
+            fused = takum_decode_attention(q.to(cuda), kc, vc, fmt, decode_impl="bits",
+                                           out_fmt=out, encode_impl=oimpl, **args)
+            want = takum_encode_2d(flat, out, oimpl).reshape(B, H, -1)
+            assert torch.equal(fused.view(torch.uint8), want.view(torch.uint8)), (length, out)
+
+
+@pytest.mark.gpu
+def test_matvec_t16_bits_decodes_every_code_like_the_lut(cuda):
+    """The split-K matvec decodes t16 under bits through its regime table
+    (``codec.cuh`` ``t16_decode_regime``): x = [[1]] over a weight [1, 65536]
+    holding every t16 code gives each decoded value, which must equal the
+    lut codec's (the decode table of ``core/tables.py``) bit for bit, and so
+    must the transposed launch over the stored [65536, 1]."""
+    codes = _all_codes(wire_format("t16")).reshape(1, -1).to(cuda)
+    x = torch.ones((1, 1), device=cuda)
+    bits = takum_matmul(x, codes, "t16", decode_impl="bits")
+    assert _same_f32(bits, takum_matmul(x, codes, "t16", decode_impl="lut"))
+    t = takum_matmul_t(x, codes.reshape(-1, 1), "t16", decode_impl="bits")
+    assert _same_f32(t, bits)
