@@ -13,9 +13,18 @@ Phases, each of which must pass:
       t8, t16, e4m3, e5m2 and bf16: K1 over every code and K2 over an f32
       sweep, both also at the serving shapes and over one packed weight
       (all bit for bit); K3 at the serving shapes (M = 4: every linear of
-      the decode step, the split-K matvec; M = 1024: the tile) and ragged
-      shapes, within 4e-6 of |x| @ |w| (a limit two lossy t16 controls must
-      exceed); K6 (split S) at the serving shape with length < S.  Then the mx containers mxe4m3,
+      the decode step, the split-K matvec; M = 1024: the bf16 tensor-core
+      tile, t16 through its hi/lo split) and ragged shapes (M = 37 with bf16
+      x: the tensor-core tile; with f32 x: the FMA tile), within 4e-6 of
+      |x| @ |w| (a limit two lossy t16 controls must exceed), each row
+      holding the loop it ran (the wrapper's ``last_loop``: the loop
+      ``takum_matmul.tile_for`` named, which the C entry runs or refuses)
+      and, at M = 1024, a bf16-output ``torch.matmul`` as a second yardstick
+      of speed; for t8 and t16 also all-positive inputs at M = 1024 and the
+      prefill's deepest sums (K = 4096 and 14336), within the same limit of
+      the exact product (``k3_exact_reading``): there every partial sum is
+      the whole |x| @ |w|, so an accumulation that truncates shows; K6
+      (split S) at the serving shape with length < S.  Then the mx containers mxe4m3,
       mxe5m2 and mxt8: K1-mx over every element code under every scale byte
       and K2-mx over a block sweep (zero, NaN, Inf and subnormal blocks,
       absmax near 2^-126 and 2^127, values above the cap), both again at
@@ -34,7 +43,12 @@ Phases, each of which must pass:
       kernel's launch count read around each run and held to the policy:
       takum (t16 weights, t8 KV cache), takum8 (t8 weights and KV cache:
       every kernel through its lut codec), then mxfp8 (bf16 weights, mxe4m3
-      KV cache: K2-mx appends, K6-mx reads).
+      KV cache: K2-mx appends, K6-mx reads).  One uncounted prefill first
+      (its time kept as ``first_prefill_ms``), so that the counted one is
+      warm whatever earlier phases ran.  After the counted run, two decode
+      steps on its cache, then one prefill, under torch.profiler: device
+      busy ms, K3's share of the prefill and the other top device
+      operations.
   (e) model parity: full width, 2 layers, takum, takum8, ofp8, mxfp8, mxt8
       (mxt8 weights and KV cache: K1-mx, K2-mx, K3-mx and K6-mx) and bf16
       (bf16 KV cache: K2 and K6 with the bits codec), kernel path against
@@ -44,17 +58,21 @@ Phases, each of which must pass:
       K4 (the dual matmul): every producer (K3, K4, K6, flat and mx) under
       each decode codec and every out format (t8, t16, e4m3, e5m2, bf16,
       mxe4m3, mxe5m2, mxt8) with each encode codec it has, at odd shapes
-      that reach both matmul tiles, bit for bit against K2's encode of the
+      that reach the matvec (M = 3) and the tiles (M = 37), bit for bit
+      against K2's encode of the
       same kernel's unfused output (the count of differing codes is
       printed); K4 unfused within K3's limit of its plain version; NaN/Inf
       rows and overflow mapped to each out family's specials.  Then the
       producer path at llama3-8b's widths through ``ops.matmul`` /
       ``dual_matmul`` / ``decode_attention`` with out_fmt, counted, checked
       the same way and timed against the unfused pair (the producer, then K2)
-      and, for K4, ``torch.matmul`` on pre-decoded bf16 operands.
+      and, for K4, ``torch.matmul`` on the decoded operands in f32 (the
+      library call) and in bf16 (a yardstick of speed that rounds its
+      output to bf16).
   (g) K5, ``takum_matmul_ad``: its backward, the transposed K3 (K3's loop
       reading the stored weight transposed, csrc/takum_matmul_wt.cu), for
-      every flat format under each codec at both tiles and odd shapes,
+      every flat format under each codec at both loops (M = 3: the matvec,
+      M = 37: the FMA tile) and odd shapes,
       within K3's limit of its plain version and bit for bit equal to K3
       over a transposed copy; the forward equal to K3; a bf16 dx for a bf16
       x; mx refused; one autograd step per format launching exactly one K3
@@ -198,13 +216,57 @@ def bound(nbytes, flops, rate=F32_FLOPS):
 
 
 def matmul_rate(torch, fmt, xdt):
-    """The card's peak for K3's products: bf16 tensor cores where x is bf16
-    and every decoded weight is exact in bf16, i.e. every format but t16
-    (8-bit elements carry at most 4 significant bits, and a decoded product
-    is a normal f32 or flushed, inside bf16's exponent range); else f32 FMA
-    (t16's 12 significant bits fit neither bf16 nor TF32, an f32 x fits no
-    tensor-core type)."""
-    return BF16_FLOPS if xdt == torch.bfloat16 and fmt != "t16" else F32_FLOPS
+    """The card's peak for K3's products.  With bf16 x, bf16 tensor cores:
+    every decoded weight of the 8-bit formats, bf16 and the mx containers
+    is exact in bf16 (8-bit elements carry at most 4 significant bits, a
+    decoded mx product is a normal f32 or flushed; f32's largest finite
+    value, from saturating codes no encode produces, aside), so one MMA per
+    product; a t16 weight (12 significant bits) is the exact sum of two bf16
+    parts (hi, its low 16 bits cleared, and lo = w - hi), so two MMAs per
+    product, BF16_FLOPS / 2.  With f32 x, which fits no bf16 tensor-core
+    type exactly, the f32 FMA rate."""
+    if xdt != torch.bfloat16:
+        return F32_FLOPS
+    return BF16_FLOPS / 2 if fmt == "t16" else BF16_FLOPS
+
+
+#: formats whose decoded weights are exact in bf16 (t16 is not), for the bf16
+#: yardstick of the M = 1024 rows
+BF16_EXACT = ("t8", "e4m3", "e5m2", "bf16", "mxe4m3", "mxe5m2", "mxt8")
+#: (M, K, N) of K3's all-positive rows: the prefill's M = B * S0 at its two
+#: depths of sum (K = 4096: every linear but w2; 14336: w2)
+POSITIVE_SHAPES = ((1024, 4096, 4096), (1024, 14336, 4096))
+
+
+def k3_exact_reading(torch, dev, fmt, M, K, N, positive):
+    """K3 over bf16 x [M, K] and ``fmt`` weights [K, N], drawn from N(0, 1)
+    and N(0, 1/4) (``positive``: both in absolute value) by a generator
+    seeded from the shape alone, so that a run of one row draws the same
+    inputs (tools/tile_variants.py): ({codec: largest |kernel - exact| /
+    (|x| @ |w|)}, the loop run), exact being the decoded operands' product
+    summed in f64.  Raises where lut and bits differ."""
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
+    from repro_torch.kernels.takum_matmul import takum_matmul
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(M * K * N)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    w = torch.randn((K, N), generator=gen, device=dev) * 0.5
+    if positive:
+        x, w = x.abs(), w.abs()
+    x, w = x.to(torch.bfloat16), encode_2d_plain(w, fmt)
+    wd = decode_2d_plain(w, fmt).double()
+    exact = torch.matmul(x.double(), wd)
+    scale = exact if positive else torch.matmul(x.double().abs(), wd.abs())
+    del wd
+    reading, first = {}, None
+    for impl in impls_of(fmt, "decode"):
+        got = takum_matmul(x, w, fmt, decode_impl=impl)
+        check(first is None or same_bits_f32(torch, got, first),
+              f"K3[{impl}] {fmt} {M}x{K}x{N}: differs from K3[bits]")
+        first = got if first is None else first
+        reading[impl] = float(((got.double() - exact).abs() / scale.clamp(min=1e-300)).max())
+    return reading, takum_matmul.last_loop
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +434,7 @@ def phase_kernels(torch, dev, rows):
         # K3[bits] bit for bit: the same decoded values summed in the same order.
         K = 4096
         shapes = [(M, K, N, torch.bfloat16) for M in (4, 1024) for N in (1024, 4096, 14336, 128256)]
-        shapes += [(4, 14336, 4096, torch.bfloat16)]
+        shapes += [(M, 14336, 4096, torch.bfloat16) for M in (4, 1024)]
         shapes += [(M, 1000, 777, dt) for M in (5, 37) for dt in (torch.float32, torch.bfloat16)]
         for M, K_, N, xdt in shapes:
             xm = torch.randn((M, K_), generator=gen, device=dev).to(xdt)
@@ -380,6 +442,7 @@ def phase_kernels(torch, dev, rows):
             wd = decode_2d_plain(w, fmt)
             scale = torch.matmul(xm.float().abs(), wd.abs())
             got_bits = takum_matmul(xm, w, fmt, decode_impl="bits")
+            loop = takum_matmul.last_loop
             for impl in dec_impls:
                 tag = f"K3[{impl}] {fmt} {M}x{K_}x{N} x {str(xdt)[6:]}"
                 got = got_bits if impl == "bits" else takum_matmul(xm, w, fmt, decode_impl=impl)
@@ -389,7 +452,7 @@ def phase_kernels(torch, dev, rows):
                 check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|w| > {K3_LIMIT}")
                 check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from K3[bits]")
                 row = dict(kernel="takum_matmul", fmt=fmt, impl=impl, shape=[M, K_, N],
-                           x=str(xdt)[6:], max_abs_err=float((got - want).abs().max()),
+                           x=str(xdt)[6:], loop=loop, max_abs_err=float((got - want).abs().max()),
                            err_over_absprod=ratio)
                 del got
                 if fmt == "t16" and K_ == K and impl == "bits":
@@ -413,9 +476,24 @@ def phase_kernels(torch, dev, rows):
                 if M == 4:
                     row.update(device_ms=device_ms(torch, kern, flush=flush),
                                library_device_ms=device_ms(torch, lib, flush=flush))
+                if M == 1024 and fmt in BF16_EXACT:
+                    # a yardstick of speed only: it rounds its output to bf16
+                    wb = wd.bfloat16()
+                    row["library_bf16_out_ms"] = time_ms(torch, lambda: torch.matmul(xm, wb),
+                                                         flush=flush)
+                    del wb
                 rows.append(row)
             del wd, scale, got_bits
         log(f"K3 {fmt}: {len(shapes)} shapes within {K3_LIMIT} of |x|@|w|, lut == bits")
+        for M, K_, N in POSITIVE_SHAPES if fmt in ("t8", "t16") else ():
+            reading, loop = k3_exact_reading(torch, dev, fmt, M, K_, N, positive=True)
+            for impl, ratio in reading.items():
+                tag = f"K3[{impl}] {fmt} {M}x{K_}x{N} all-positive"
+                check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of the exact sum > {K3_LIMIT}")
+                rows.append(dict(kernel="takum_matmul", fmt=fmt, impl=impl, shape=[M, K_, N],
+                                 x="bfloat16", loop=loop, inputs="all-positive",
+                                 reference="exact", err_over_absprod=ratio))
+            log(f"K3 {fmt} {M}x{K_}x{N} all-positive ({loop}): {reading} of the exact sum")
 
         # K6: B=4, H=32, Kv=8, hd=128 over the cache's [B, S, Kv, hd] layout, S=288
         B, H, Kv, hd, S = 4, 32, 8, 128, 288
@@ -544,6 +622,7 @@ def phase_mx_kernels(torch, dev, rows):
             wd = decode_2d_plain(w, fmt)[:, :N]
             scale = torch.matmul(xm.float().abs(), wd.abs())
             got_bits = takum_matmul(xm, w, fmt, n=N, decode_impl="bits")
+            loop = takum_matmul.last_loop
             for impl in dec_impls:
                 tag = f"K3-mx[{impl}] {fmt} {M}x{K_}x{N} x {str(xdt)[6:]}"
                 got = got_bits if impl == "bits" else takum_matmul(xm, w, fmt, n=N, decode_impl=impl)
@@ -554,7 +633,7 @@ def phase_mx_kernels(torch, dev, rows):
                 check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|w| > {K3_LIMIT}")
                 check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from K3-mx[bits]")
                 row = dict(kernel="takum_matmul", fmt=fmt, impl=impl, shape=[M, K_, N],
-                           x=str(xdt)[6:], max_abs_err=float((got - want).abs().max()),
+                           x=str(xdt)[6:], loop=loop, max_abs_err=float((got - want).abs().max()),
                            err_over_absprod=ratio)
                 del got, want
                 if K_ == 4096:
@@ -570,6 +649,12 @@ def phase_mx_kernels(torch, dev, rows):
                     if M == 4:
                         row.update(device_ms=device_ms(torch, kern, flush=flush),
                                    library_device_ms=device_ms(torch, lib, flush=flush))
+                    if M == 1024:
+                        # a yardstick of speed only: it rounds its output to bf16
+                        wb = wd.bfloat16()
+                        row["library_bf16_out_ms"] = time_ms(torch, lambda: torch.matmul(xm, wb),
+                                                             flush=flush)
+                        del wb
                 rows.append(row)
             del wd, w, scale, got_bits
         log(f"K3-mx {fmt}: {len(shapes)} shapes within {K3_LIMIT} of |x|@|w|, lut == bits")
@@ -706,7 +791,8 @@ def dual_rate(fmt):
 def phase_producers_exact(torch, dev):
     """(f) 1-3: every producer (K3, K3-mx, K4, K4-mx, K6, K6-mx) under each
     decode codec and each (out_fmt, encode codec) of ``out_cases``, at both
-    K3/K4 tiles (M = 3 and 37), K not a multiple of the K tile (flat x: K =
+    K3/K4 loops (M = 3: the matvec; M = 37: the tiles), K not a multiple of
+    the K tile (flat x: K =
     1000; an mx x is whole 32-blocks, K = 992), N = 96 (whole mx blocks, not a
     multiple of the 64-column tile), K6 at S = 100, d = 64 and 128, g = 4,
     and with length, window and softcap: the fused output must equal, bit
@@ -872,6 +958,7 @@ def phase_producers_full(torch, dev):
     from repro_torch.kernels import lut, ops
     from repro_torch.kernels.takum_attention import decode_attention_plain
     from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain, takum_encode_2d
+    from repro_torch.kernels import takum_matmul as tm
     from repro_torch.kernels.takum_matmul import takum_dual_matmul_plain, takum_matmul_plain
     from repro_torch.quant import blockscale
 
@@ -928,7 +1015,10 @@ def phase_producers_full(torch, dev):
         tag = f"{prod} {fmt}[{impl}] M={M} K={K} N={N}" + (f" -> {out_name}:{out_impl}" if out
                                                             else "")
         unfused = call(prod, fmt, M, K, N, None, None)
-        row = dict(kernel=kname[prod], producer=prod, fmt=fmt, impl=impl, out_fmt=out_name,
+        loop = None
+        if prod != "K6":
+            loop = (tm.takum_matmul if prod == "K3" else tm.takum_dual_matmul).last_loop
+        row = dict(kernel=kname[prod], producer=prod, fmt=fmt, impl=impl, loop=loop, out_fmt=out_name,
                    encode_impl=out_impl, shape=[M, K, N] if prod != "K6" else [4, 32, 8, 288, K],
                    launch_key=f"{kname[prod]}[{impl}" + (f">{out_name}:{out_impl}]" if out
                                                           else "]"))
@@ -954,7 +1044,8 @@ def phase_producers_full(torch, dev):
             row.update(err_over_absprod=ratio)
             if out is None:
                 row["max_abs_err"] = float((unfused - want).abs().max())
-            del xd, wd, want, scale, lib
+            lib_f32 = (xd, wd)
+            del want, scale, lib
         # bound: inputs read once, output written once; products at the
         # operands' peak rate
         out_wf = wire_format(out_name) if out else None
@@ -985,11 +1076,17 @@ def phase_producers_full(torch, dev):
                 call(prod, fmt, M, K, N, None, None).reshape(-1, flat.shape[-1]), out_name,
                 out_impl), flush=flush)
         if prod == "K4" and out is None:
-            row["library_ms"] = time_ms(torch, lambda: torch.matmul(*lib_in), flush=flush)
+            # the same function on the pre-decoded operands (f32), and as a
+            # yardstick of speed only the bf16 product, which rounds its
+            # output to bf16
+            row["library_ms"] = time_ms(torch, lambda: torch.matmul(*lib_f32), flush=flush)
+            row["library_bf16_out_ms"] = time_ms(torch, lambda: torch.matmul(*lib_in), flush=flush)
+        if prod == "K4":
+            del lib_f32, lib_in
         rows.append(row)
-        log(f"(f) {tag}: {row['ms']:.4f} ms (bound {b_ms:.4f}, {b_by}; plain "
+        log(f"(f) {tag}: {row['ms']:.4f} ms, loop {loop} (bound {b_ms:.4f}, {b_by}; plain "
             f"{row['plain_ms']:.3f}; pair {row.get('unfused_pair_ms')}; torch.matmul "
-            f"{row['library_ms']})")
+            f"{row['library_ms']}, bf16 out {row.get('library_bf16_out_ms')})")
         del unfused, flat
     del flush, inputs
     torch.cuda.empty_cache()
@@ -1010,7 +1107,8 @@ def transposed_copy(torch, w):
 
 def phase_ad_exact(torch, dev):
     """(g) 1-2: the transposed K3 (K5's backward) for every flat format under
-    each decode codec at M = 3 and 37 (both tiles) over a stored weight
+    each decode codec at M = 3 and 37 (the matvec and the FMA tile) over a
+    stored weight
     [96, 1000] (the backward's reduction, 1000, a multiple of neither K
     tile), within K3_LIMIT of |g| @ |decode(w)|.T of its plain version and
     bit for bit equal to K3 over a transposed copy of the bits; the forward
@@ -1161,6 +1259,7 @@ def phase_ad_full(torch, dev):
         wd = decode_2d_plain(w, fmt)
         tag = f"K5 backward {name} {fmt}[{impl}] M={M} stored {K}x{N}"
         got = takum_matmul_t(g, w, fmt)
+        loop = takum_matmul_t.last_loop
         want = takum_matmul_t_plain(g, w, fmt)
         scale = torch.matmul(g.abs(), wd.abs().T)
         ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
@@ -1175,7 +1274,7 @@ def phase_ad_full(torch, dev):
         copy = transposed_copy(torch, w)
         x_f = x.detach()
         row = dict(
-            kernel="takum_matmul_ad", weight=name, fmt=fmt, impl=impl, shape=[M, K, N],
+            kernel="takum_matmul_ad", weight=name, fmt=fmt, impl=impl, shape=[M, K, N], loop=loop,
             launch_key=f"takum_matmul[{impl}^T]", max_abs_err=err, err_over_absprod=ratio,
             ms=time_ms(torch, lambda: takum_matmul_t(g, w, fmt), flush=flush),
             plain_ms=time_ms(torch, lambda: takum_matmul_t_plain(g, w, fmt), flush=flush),
@@ -1234,6 +1333,13 @@ def phase_serving(torch, dev, policy):
     prefill = serve.make_prefill_step(cfg, cache_len=S0 + STEPS + 2)
     step = serve.make_serve_step(cfg)
 
+    # an uncounted prefill first: the counted one then finds every kernel of
+    # its shapes loaded (cuBLAS's among them), whatever earlier phases ran
+    t0 = time.perf_counter()
+    prefill(qp, {"tokens": prompt})
+    torch.cuda.synchronize()
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1256,7 +1362,11 @@ def phase_serving(torch, dev, policy):
     check_launches(counts, cfg, 1 + STEPS, STEPS, policy)
     check(cache.pos == S0 + STEPS, f"{policy}: cache.pos {cache.pos}")
     decode_s = t2 - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kv_cache_bytes = cache.k.numel() * cache.k.element_size() * 2
     trace = profile_decode(torch, step, qp, logits, cache)
+    del cache
+    prefill_trace = profile_prefill(torch, prefill, qp, prompt)
     if trace["device_busy_ms"]:
         # the profiler's host overhead stretches its own wall; the counted
         # decode window above ran unprofiled
@@ -1265,16 +1375,16 @@ def phase_serving(torch, dev, policy):
     out = dict(
         arch=cfg.name, policy=policy, weights=cfg.quant.weights, kv_cache=cfg.quant.kv_cache,
         layers=L, batch=B, prompt=S0, decode_steps=STEPS,
-        init_and_pack_s=init_s, prefill_ms=(t1 - t0) * 1e3,
+        init_and_pack_s=init_s, first_prefill_ms=first_prefill_ms, prefill_ms=(t1 - t0) * 1e3,
         decode_ms_per_token=decode_s / STEPS * 1e3, decode_tokens_per_s=B * STEPS / decode_s,
-        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        max_memory_allocated_gb=peak_gb,
         allocated_before_gb=held_before / 1e9,
         weight_bytes=sum(_nbytes(v) for v in _leaves(qp)),
-        kv_cache_bytes=cache.k.numel() * cache.k.element_size() * 2,
+        kv_cache_bytes=kv_cache_bytes,
         launches=counts, first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
-        profile_two_decode_steps=trace,
+        profile_prefill=prefill_trace, profile_two_decode_steps=trace,
     )
-    del qp, cache, logits
+    del qp, logits
     torch.cuda.empty_cache()
     return out
 
@@ -1301,6 +1411,18 @@ def check_launches(counts, cfg, calls, steps, tag, gains_loaded=False):
     check(got == want, f"{tag}: launches {got}, want {want}")
 
 
+def device_ms_by_name(prof):
+    """Device ms per kernel name of a finished torch.profiler run."""
+    by_name = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t and getattr(ev, "device_type", None) is not None and "CUDA" in str(ev.device_type):
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3
+    return by_name
+
+
 def profile_decode(torch, step, qp, logits, cache):
     """Two more decode steps under torch.profiler (outside the counted run):
     device time by kernel and the device's idle share of the profiled wall
@@ -1314,18 +1436,40 @@ def profile_decode(torch, step, qp, logits, cache):
             logits, cache = step(qp, {"token": torch.argmax(logits, -1)}, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if t and getattr(ev, "device_type", None) is not None and "CUDA" in str(ev.device_type):
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3
+    by_name = device_ms_by_name(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_ms=wall_ms, device_busy_ms=busy if busy else None,
                 idle_share=(1 - busy / wall_ms) if busy else None,
                 top_kernels_ms=[[k[:80], v] for k, v in top])
+
+
+#: the namespaces of K3's kernels (the tensor-core tile, the FMA tile, the
+#: matvec and its combine pass) in the profiler's kernel names
+K3_NAMESPACES = ("repro_mma::", "repro_mm::", "repro_mv::")
+
+
+def profile_prefill(torch, prefill, qp, prompt):
+    """One more prefill under torch.profiler (outside the counted run):
+    device busy ms, K3's share of it (every kernel of K3's loops), and the
+    five other device operations that took most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = prefill(qp, {"tokens": prompt})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    by_name = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    k3 = {k: v for k, v in by_name.items() if any(ns in k for ns in K3_NAMESPACES)}
+    others = sorted(((k, v) for k, v in by_name.items() if k not in k3), key=lambda kv: -kv[1])
+    return dict(wall_ms=wall_ms, device_busy_ms=busy if busy else None,
+                k3_ms=sum(k3.values()), k3_share=sum(k3.values()) / busy if busy else None,
+                k3_kernels_ms=[[k[:100], v] for k, v in sorted(k3.items(), key=lambda kv: -kv[1])],
+                top_other_ms=[[k[:80], v] for k, v in others[:5]])
 
 
 def _leaves(tree):
@@ -1376,7 +1520,8 @@ def phase_parity(torch, dev):
     leaves both readings where they were.
 
     The kernel path's launches are counted (reset just before it, read just
-    after) and held to the policy (``check_launches``): under mxt8 this is
+    after) and held to the policy (``check_launches``), then one more
+    kernel-path prefill is timed (warm, uncounted: ``kernel_prefill_ms``): under mxt8 this is
     the path that drives K1-mx and K3-mx, under bf16 (bf16 weights and KV
     cache) the one that drives the bits codec of K2 and K6.  Every reading
     (per-step errors, the control, the share of KV-cache bytes in which the
@@ -1421,6 +1566,12 @@ def phase_parity(torch, dev):
                     torch.cuda.synchronize()
                 if path == "kernel":
                     counts = ops.launch_counts()
+                    # one more prefill on the kernel path, warm and uncounted
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    serve.make_prefill_step(cfg, S0 + STEPS)(lp, {"tokens": prompt})
+                    torch.cuda.synchronize()
+                    prefill_ms = (time.perf_counter() - t0) * 1e3
                 fed = toks
                 runs[path] = torch.stack(outs)
                 caches[path] = torch.stack([cache.k, cache.v]).view(torch.uint8)
@@ -1437,6 +1588,7 @@ def phase_parity(torch, dev):
             agree = float((k.argmax(-1) == p.argmax(-1)).float().mean())
             res = dict(policy=policy, activations=act, tol=tol, max_rel_err=max(errs),
                        rel_err_per_step=errs, greedy_agreement=agree, launches=counts,
+                       kernel_prefill_ms=prefill_ms,
                        kv_bytes_differing_kernel_vs_plain=kv_diff("kernel", "plain"))
             log(f"parity {policy}/{act}: max rel err {max(errs):.3e} (tol {tol}), per step "
                 f"{[float(f'{e:.2e}') for e in errs]}, greedy agreement {agree:.3f}, KV bytes "
@@ -1479,6 +1631,15 @@ KERNEL_INFO = {
                           "src/repro/kernels/takum_matmul.py:56"),
     "takum_matmul_ad": ("K5", "src/repro_torch/kernels/csrc/takum_matmul_wt.cu",
                         "src/repro/kernels/takum_matmul.py:190"),
+}
+
+#: the header that holds each loop of K3, K4 and the transposed K3: a row
+#: with a loop names it as its source, and its C entry's .cu as "entry"
+LOOP_SOURCE = {
+    "matvec": "src/repro_torch/kernels/csrc/matvec_splitk.cuh",
+    "fma": "src/repro_torch/kernels/csrc/matmul_tile.cuh",
+    "mma": "src/repro_torch/kernels/csrc/matmul_mma.cuh",
+    "mma_split": "src/repro_torch/kernels/csrc/matmul_mma.cuh",
 }
 
 #: (kernel, format, codec, shape, path) rows that stand for each kernel in
@@ -1633,12 +1794,15 @@ def main() -> int:
         name = tag + ("-mx" if fmt.startswith("mx") else "") + ("-lut" if impl == "lut" else "")
         n = launches[path][f"{kname}[{impl}]"]
         check(n > 0, f"{name} was never launched on the {path} path")
+        loop = row.get("loop")
         summary.append(dict(
-            name=f"{name} {kname} {fmt} {'x'.join(map(str, shape))}", route="cuda",
-            source=source, replaces=replaces, path=path, launches=n,
+            name=f"{name} {kname} {fmt} {'x'.join(map(str, shape))}" + (f" {loop}" if loop else ""),
+            route="cuda", source=LOOP_SOURCE.get(loop, source), entry=source, replaces=replaces,
+            path=path, launches=n, loop=loop,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
-            **{k: row[k] for k in ("device_ms", "library_device_ms") if k in row}))
+            **{k: row[k] for k in ("device_ms", "library_device_ms", "library_bf16_out_ms")
+               if k in row}))
     # phase (f): K4 and every fused variant, launches from its producer path
     for row in producer_rows:
         tag, source, replaces = KERNEL_INFO[row["kernel"]]
@@ -1647,11 +1811,15 @@ def main() -> int:
                 + (f"+{row['out_fmt']}:{row['encode_impl']}" if row["out_fmt"] else ""))
         n = producer_counts.get(row["launch_key"], 0)
         check(n > 0, f"{name} was never launched on the producer path")
+        loop = row.get("loop")
         summary.append(dict(
-            name=f"{name} {row['kernel']} {row['fmt']} {'x'.join(map(str, row['shape']))}",
-            route="cuda", source=source, replaces=replaces, path="producers", launches=n,
+            name=f"{name} {row['kernel']} {row['fmt']} {'x'.join(map(str, row['shape']))}"
+                 + (f" {loop}" if loop else ""),
+            route="cuda", source=LOOP_SOURCE.get(loop, source), entry=source, replaces=replaces,
+            path="producers", launches=n, loop=loop,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            **{k: row[k] for k in ("library_bf16_out_ms",) if k in row}))
     # phase (g): K5's backward, launches from its autograd path
     for row in ad_rows:
         tag, source, replaces = KERNEL_INFO[row["kernel"]]
@@ -1660,8 +1828,9 @@ def main() -> int:
         check(n > 0, f"{name} was never launched on the K5 path")
         summary.append(dict(
             name=f"{name} {row['kernel']} backward {row['weight']} {row['fmt']} "
-                 f"{'x'.join(map(str, row['shape']))}",
-            route="cuda", source=source, replaces=replaces, path="ad", launches=n,
+                 f"{'x'.join(map(str, row['shape']))} {row['loop']}",
+            route="cuda", source=LOOP_SOURCE[row["loop"]], entry=source, replaces=replaces, path="ad",
+            launches=n, loop=row["loop"],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             copy_yardstick_ms=row["copy_yardstick_ms"]))

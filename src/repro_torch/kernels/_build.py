@@ -49,17 +49,21 @@ _EPI = [_INT, _INT, _P, _P]
 #: Each takes the format id and the codec id, then the table pointers (null
 #: for "bits"): the decode table, or the encode pair (meta, thr | sub); a
 #: producer then takes its epilogue arguments; the stream comes last.  K3,
-#: its transposed twin and K6 also take the f32 workspace of their split
-#: plan after the output, and the plan's numbers after the shapes.
+#: K4, K3's transposed twin and K6 also take the f32 workspace of their
+#: split plan after the output, and the plan's numbers after the shapes;
+#: K3, K4 and the transposed twin then the loop (``takum_matmul.LOOPS``),
+#: and K3 and K4 the tensor-core tile's block edge.
 ENTRIES = {
     "repro_decode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P]),
     "repro_encode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P, _P]),
     "repro_matmul": ("takum_matmul",
-                     [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P, *_EPI, _P]),
+                     [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P,
+                      *_EPI, _P]),
     "repro_dual_matmul": ("takum_dual_matmul",
-                          [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P, *_EPI, _P]),
+                          [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P,
+                           *_EPI, _P]),
     "repro_matmul_wt": ("takum_matmul_wt",
-                        [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P]),
+                        [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P]),
     "repro_decode_attention": (
         "takum_attention",
         [_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _LL, _LL, _LL, _LL, _LL, _LL,

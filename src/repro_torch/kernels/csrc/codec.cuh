@@ -565,8 +565,9 @@ __device__ __forceinline__ void stage_chunk(uint8_t* dst, const void* p, int len
 // format one warp per 32-element group, its E8M0 byte from the group's
 // absmax (__reduce_max_sync over the |x| bits, as K2-mx), lane 0 writing
 // the scale byte and lane i element byte 1 + i.  A group spans the
-// registers of several threads (8 in K3's 64 x 64 tile, 32 in its 8 x 32
-// tile), which is why the tile goes through shared memory first.
+// registers of several threads (8 in the FMA tile, 4 in the tensor-core
+// tile's 32 x 32 warp tiles, 32 in the matvec's combine pass), which is
+// why the tile goes through shared memory first.
 //
 // The out format and its codec are runtime values: store_encoded_tile is
 // compiled once per translation unit (__noinline__) and switches on them

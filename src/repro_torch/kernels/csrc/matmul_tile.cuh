@@ -1,43 +1,48 @@
-// The tiled K loop of K4 (takum_dual_matmul.cu) at every M and of K3
-// (takum_matmul.cu, and its transposed twin takum_matmul_wt.cu) above M = 16:
-//   out[M, N] = X[M, K] @ decode(w_bits[K, N]), f32 accumulation, where X is
-//   x itself (K3: f32, or bf16 widened to f32) or decode(x_bits) (K4).
-// K3 at M <= 16 runs the split-K matvec of matvec_splitk.cuh instead.
+// The FMA tile: out[M, N] = X[M, K] @ decode(w_bits[K, N]) with f32 FMAs,
+// for the launches above M = 16 that the bf16 tensor cores cannot carry
+// exactly: K3 with f32 x (takum_matmul.cu), K3's transposed launch (K5's
+// backward, takum_matmul_wt.cu, always f32) and K4 over t16
+// (takum_dual_matmul.cu, whose two split operands would need four products
+// per pair); X is x itself (f32) or decode(x_bits) (K4).  Also the fallback
+// of the tensor-core tile (matmul_mma.cuh) for a block that meets a value
+// its bf16 parts do not carry exactly.  The loop a launch runs is the
+// wrapper's choice (kernels/takum_matmul.py tile_for); M <= 16 runs the
+// split-K matvec of matvec_splitk.cuh, bf16 x above it the tensor-core tile.
 //
-// Replaces the Pallas kernel src/repro/kernels/takum_matmul.py:56 _mm_kernel
-// (dual=False: entry takum_matmul :166; dual=True: entry takum_dual_matmul
-// :227) for the flat formats and the mx payloads (its `mx` branch, :61-80,
-// :111-132), with either codec (IMPL kBits, or kLut: its `lut` branch,
-// :139-142), and its out_fmt epilogue (:96-106).  The TPU kernel carries an
-// f32 accumulator tile in VMEM across a sequential K grid axis; here each
-// block owns one output tile and loops over K itself, keeping the
-// accumulators in registers.
+// Replaces, for those launches, the Pallas kernel
+// src/repro/kernels/takum_matmul.py:56 _mm_kernel (dual=False: entry
+// takum_matmul :166; dual=True: entry takum_dual_matmul :227) for the flat
+// formats and the mx payloads (its `mx` branch, :61-80, :111-132), with
+// either codec (IMPL kBits, or kLut: its `lut` branch, :139-142), and its
+// out_fmt epilogue (:96-106).  The TPU kernel carries an f32 accumulator
+// tile in VMEM across a sequential K grid axis; here each block owns one
+// 64 x 64 output tile and loops over K itself, keeping the accumulators in
+// registers.
 //
-// Per K step a block stages an X tile and a w-bits tile, decoded by K0 into
-// shared memory, then every thread runs TM x TN f32 FMAs per k.  XMODE says
-// how X loads: kXF32, kXBF16 (K3) or kXWire (K4: the bits of FMT, decoded by
-// the same elem_decode<FMT, IMPL> as the w tile; an mx x is a payload
+// Per K step (BK = 16) a block stages an X tile and a w-bits tile, decoded
+// by K0 into shared memory, then every thread runs 4 x 4 f32 FMAs per k
+// into a fresh partial, added to its running sums once per step: a blocked
+// order, K / 16 adds per output in series rather than K (the serial order
+// moved more of takum8's prefill K/V across a t8 rounding boundary than the
+// plain path's).  XMODE says how X loads: kXF32, kXBF16 (the tensor-core
+// tile's fallback) or kXWire (K4: the bits of FMT, decoded by the same
+// elem_decode<FMT, IMPL> as the w tile; an mx x is a payload
 // [M, K/32*33] blocked along K, element k scaled by its group's byte at
 // (k/32)*33, as K3-mx reads w along N).  Out-of-range M/N lanes are never
 // stored; K-edge lanes are zero on BOTH operands, so a NaN in padding can
-// never meet a 0.  No tensor cores: decoded t16 values carry up to 11
-// fraction bits and TF32 holds 10, so TF32 would round the weights.
+// never meet a 0.  No tensor cores here: an f32 x fits no bf16 tensor-core
+// type exactly (a three-way split would), and TF32 keeps 10 fraction bits.
 //
-// Bound on the H100: at the prefill's M = 1024 the products (67 TFLOP/s
-// f32 outside the tensor cores; 989 bf16 where both operands are exact in
-// bf16); at K4's M = 4 the weight bytes (K*N*1 or 2 bytes at 3.35 TB/s),
-// which this loop does not reach (one 1 KiB w tile in flight per block).
-// Two tilings: a 64 x 64 tile for large M and an 8 x 32 tile for K4's small
-// M, which keeps more blocks in flight over N when a 64-row tile would be
-// mostly padding.  Both add the k terms of each output in the same
-// ascending order, so every output is the same either way.
+// Bound on the H100: the products at 67 TFLOP/s f32 outside the tensor
+// cores (at M = 1024 over 4096 x 14336: 1.795 ms).  The loop issues 8
+// shared loads per 16 FMAs per k and reaches about 30 % of that rate.
 //
 // An mx weight is the payload [K, ceil(N/32)*33], blocked along N: row k
 // holds the groups [s, e0..e31] of columns 32g..32g+31.  N need not be a
 // multiple of 32; the padded columns of the last group are never decoded or
 // stored.  Each K step first stages the tile's (k, group) scales in shared
-// memory, one load per pair (BN = 32: one group per weight row; BN = 64:
-// two), then decodes every element byte under its staged scale.
+// memory, one load per pair (two groups per weight row), then decodes every
+// element byte under its staged scale.
 //
 // lut: an 8-bit decode table (1 KiB) is copied into shared memory once,
 // before the K loop (one more __syncthreads); the t16/bf16 tables (256 KiB)
@@ -88,26 +93,32 @@ __device__ __forceinline__ float load_x(const void* x, long long gm, int gk, int
   }
 }
 
-template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN,
-          bool WT = false>
-__global__ void __launch_bounds__(kThreads)
-mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* __restrict__ w,
-          void* __restrict__ out, int M, int N, int K, const int* __restrict__ tab,
-          repro::Epilogue ep) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "one thread per TM x TN sub-tile");
+// The shared memory of one fma_tile pass.
+template <int BM, int BN, int BK, bool WT>
+struct FmaSmem {
+  static constexpr int kWPad = WT ? 32 / BK : 0;  // WT: rows padded off the banks of their k
+  float xs[BK][BM];                                // x tile, transposed: xs[k][m]
+  float ws[BK][BN + kWPad];                        // decoded weight tile
+  float ss[BK][BN / 32];                           // mx: the tile's (k, group) scales
+};
+
+// acc[i][j] = output (m0 + ty * TM + i, n0 + tx * TN + j) of X @ decode(w),
+// for thread (tx, ty) = (tid % (BN / TN), tid / (BN / TN)).  Each BK step's
+// k terms are summed, ascending, into a fresh partial that is then added to
+// acc: a blocked order, K / BK adds per output in series rather than K.
+// Every one of the block's NT threads calls it (it holds __syncthreads).
+template <int FMT, int IMPL, int XMODE, int BM, int BN, int BK, int TM, int TN, bool WT,
+          int NT = kThreads>
+__device__ __forceinline__ void fma_tile(const void* __restrict__ x,
+                                         const typename repro::Wire<FMT>::storage* __restrict__ w,
+                                         int M, int N, int K, const int* dtab, int m0, int n0,
+                                         FmaSmem<BM, BN, BK, WT>& sm, float (&acc)[TM][TN]) {
+  static_assert((BM / TM) * (BN / TN) == NT, "one thread per TM x TN sub-tile");
   static_assert(!(WT && repro::kIsMx<FMT>), "an mx payload has no transposed load");
-  constexpr int kWPad = WT ? 32 / BK : 0;  // WT: rows padded off the banks of their k
-  __shared__ float xs[BK][BM];  // x tile, transposed: xs[k][m]
-  __shared__ float ws[BK][BN + kWPad];  // decoded weight tile
-  __shared__ float ss[BK][BN / 32];  // mx: the tile's (k, group) scales
-  __shared__ int tab_s[repro::kDecodeTabInts<FMT, IMPL>];  // lut: an 8-bit decode table
-  const int* dtab = repro::stage_decode_table<FMT, IMPL>(tab, tab_s);
+  constexpr int kThreads = NT;
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -117,122 +128,120 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
     for (int i = tid; i < BM * BK; i += kThreads) {
       const int mm = i / BK, kk = i % BK;
       const int gm = m0 + mm, gk = k0 + kk;
-      xs[kk][mm] = (gm < M && gk < K) ? load_x<FMT, IMPL, XMODE>(x, gm, gk, K, dtab) : 0.0f;
+      sm.xs[kk][mm] = (gm < M && gk < K) ? load_x<FMT, IMPL, XMODE>(x, gm, gk, K, dtab) : 0.0f;
     }
     if constexpr (repro::kIsMx<FMT>) {
       const long long ldw = static_cast<long long>((N + 31) / 32) * repro::kMxGroup;
       for (int i = tid; i < BK * (BN / 32); i += kThreads) {
         const int kk = i / (BN / 32), gg = i % (BN / 32);
         const int gk = k0 + kk, gn = n0 + gg * 32;
-        ss[kk][gg] = (gk < K && gn < N)
-                         ? repro::e8m0_decode(w[gk * ldw + repro::mx_scale_at(gn)])
-                         : 0.0f;
+        sm.ss[kk][gg] = (gk < K && gn < N)
+                            ? repro::e8m0_decode(w[gk * ldw + repro::mx_scale_at(gn)])
+                            : 0.0f;
       }
       __syncthreads();
       for (int i = tid; i < BK * BN; i += kThreads) {
         const int kk = i / BN, nn = i % BN;
         const int gk = k0 + kk, gn = n0 + nn;
-        ws[kk][nn] = (gk < K && gn < N)
-                         ? repro::mx_decode<FMT, IMPL>(dtab, w[gk * ldw + repro::mx_elem_at(gn)],
-                                                       ss[kk][nn / 32])
-                         : 0.0f;
+        sm.ws[kk][nn] = (gk < K && gn < N)
+                            ? repro::mx_decode<FMT, IMPL>(dtab, w[gk * ldw + repro::mx_elem_at(gn)],
+                                                          sm.ss[kk][nn / 32])
+                            : 0.0f;
       }
     } else if constexpr (WT) {
       for (int i = tid; i < BK * BN; i += kThreads) {
         const int kk = i % BK, nn = i / BK;
         const int gk = k0 + kk, gn = n0 + nn;
-        ws[kk][nn] = (gk < K && gn < N)
-                         ? repro::elem_decode<FMT, IMPL>(dtab, w[static_cast<long long>(gn) * K + gk])
-                         : 0.0f;
+        sm.ws[kk][nn] =
+            (gk < K && gn < N)
+                ? repro::elem_decode<FMT, IMPL>(dtab, w[static_cast<long long>(gn) * K + gk])
+                : 0.0f;
       }
     } else {
       for (int i = tid; i < BK * BN; i += kThreads) {
         const int kk = i / BN, nn = i % BN;
         const int gk = k0 + kk, gn = n0 + nn;
-        ws[kk][nn] = (gk < K && gn < N)
-                         ? repro::elem_decode<FMT, IMPL>(dtab, w[static_cast<long long>(gk) * N + gn])
-                         : 0.0f;
+        sm.ws[kk][nn] =
+            (gk < K && gn < N)
+                ? repro::elem_decode<FMT, IMPL>(dtab, w[static_cast<long long>(gk) * N + gn])
+                : 0.0f;
       }
     }
     __syncthreads();
+    float part[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
+      for (int i = 0; i < TM; ++i) a[i] = sm.xs[kk][ty * TM + i];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx * TN + j];
+      for (int j = 0; j < TN; ++j) b[j] = sm.ws[kk][tx * TN + j];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
     }
-    __syncthreads();
-  }
-
-  if constexpr (FUSED) {
-    __shared__ float os[BM][BN];  // the finished tile, for the epilogue
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) os[ty * TM + i][tx * TN + j] = acc[i][j];
+      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
     __syncthreads();
-    repro::store_encoded_tile(&os[0][0], BN, min(BM, M - m0), min(BN, N - n0), out, m0, n0, ep);
-  } else {
-    float* o = static_cast<float*>(out);
+  }
+}
+
+// The thread's TM x TN sub-tile at (r0, c0) of a row-major f32 tile `o`
+// (row stride ldo), rows < rows and columns < cols only.
+template <int TM, int TN>
+__device__ __forceinline__ void put_sub_tile(const float (&acc)[TM][TN], float* o, long long ldo,
+                                             int r0, int c0, int rows, int cols) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = m0 + ty * TM + i;
-      if (gm >= M) continue;
+  for (int i = 0; i < TM; ++i) {
+    if (r0 + i >= rows) continue;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int gn = n0 + tx * TN + j;
-        if (gn < N) o[static_cast<long long>(gm) * N + gn] = acc[i][j];
-      }
+    for (int j = 0; j < TN; ++j) {
+      if (c0 + j < cols) o[(r0 + i) * ldo + c0 + j] = acc[i][j];
     }
   }
 }
 
 template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN,
           bool WT = false>
+__global__ void __launch_bounds__(kThreads)
+mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* __restrict__ w,
+          void* __restrict__ out, int M, int N, int K, const int* __restrict__ tab,
+          repro::Epilogue ep) {
+  __shared__ FmaSmem<BM, BN, BK, WT> sm;
+  __shared__ int tab_s[repro::kDecodeTabInts<FMT, IMPL>];  // lut: an 8-bit decode table
+  const int* dtab = repro::stage_decode_table<FMT, IMPL>(tab, tab_s);
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  float acc[TM][TN];
+  fma_tile<FMT, IMPL, XMODE, BM, BN, BK, TM, TN, WT>(x, w, M, N, K, dtab, m0, n0, sm, acc);
+  if constexpr (FUSED) {
+    __shared__ float os[BM][BN];  // the finished tile, for the epilogue
+    put_sub_tile(acc, &os[0][0], BN, ty * TM, tx * TN, BM, BN);
+    __syncthreads();
+    repro::store_encoded_tile(&os[0][0], BN, min(BM, M - m0), min(BN, N - n0), out, m0, n0, ep);
+  } else {
+    put_sub_tile(acc, static_cast<float*>(out) + static_cast<long long>(m0) * N + n0, N,
+                 ty * TM, tx * TN, M - m0, N - n0);
+  }
+}
+
+// The 64 x 64 tile's launch, unfused or (FUSED) with the out_fmt flush.
+template <int FMT, int IMPL, int XMODE, bool FUSED, bool WT = false>
 int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, const int* tab,
                  const repro::Epilogue& ep, cudaStream_t stream) {
   using T = typename repro::Wire<FMT>::storage;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm_kernel<FMT, IMPL, XMODE, FUSED, BM, BN, BK, TM, TN, WT><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid((N + 63) / 64, (M + 63) / 64);
+  mm_kernel<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4, WT><<<grid, kThreads, 0, stream>>>(
       x, static_cast<const T*>(w), out, M, N, K, tab, ep);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K4's tile follows M alone (never the out format): M <= 16 takes the
-// 8 x 32 tile, larger M the 64 x 64 tile.
-template <int FMT, int IMPL, int XMODE, bool FUSED>
-int launch_tile_for_m(const void* x, const void* w, void* out, int M, int N, int K,
-                      const int* tab, const repro::Epilogue& ep, cudaStream_t stream) {
-  if (M <= 16) {
-    return launch_tiled<FMT, IMPL, XMODE, FUSED, 8, 32, 32, 1, 1>(x, w, out, M, N, K, tab, ep,
-                                                                  stream);
-  }
-  return launch_tiled<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4>(x, w, out, M, N, K, tab, ep,
-                                                                 stream);
-}
-
-// K4's launch: the unfused or the fused instantiation of its tile, as `ep`
-// asks.
-template <int FMT, int IMPL, int XMODE>
-int launch_mm_x(const void* x, const void* w, void* out, int M, int N, int K, const void* tab,
-                const repro::Epilogue& ep, cudaStream_t stream) {
-  const int* t = static_cast<const int*>(tab);
-  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (!repro::epilogue_ok(ep)) return static_cast<int>(cudaErrorInvalidValue);
-  if (ep.code == repro::kOutF32) {
-    return launch_tile_for_m<FMT, IMPL, XMODE, false>(x, w, out, M, N, K, t, ep, stream);
-  }
-  // mx out: whole 32-element groups, which the tiles (BN 32, 64) never split
-  if (ep.code >= repro::kMXE4M3 && N % repro::kMxBlock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_tile_for_m<FMT, IMPL, XMODE, true>(x, w, out, M, N, K, t, ep, stream);
 }
 
 }  // namespace repro_mm

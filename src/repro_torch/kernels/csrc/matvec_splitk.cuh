@@ -1,11 +1,13 @@
-// K3 at M <= 16 (the decode step) and its transposed launch (K5's backward):
-// a split-K matrix-vector product that streams the weight at the card's
-// bandwidth.
+// K3 and K4 at M <= 16 (the decode step) and K3's transposed launch (K5's
+// backward): a split-K matrix-vector product that streams the weight at the
+// card's bandwidth.
 //   out[M, N] = X[M, K] @ decode(w_bits[K, N])      (WT: decode(w_bits[N, K])^T)
+// where X is x (f32, or bf16 widened) or, for K4 (XMODE kXWire), decode(x_bits).
 //
 // Replaces, at small M, the Pallas kernel src/repro/kernels/takum_matmul.py:56
-// _mm_kernel(dual=False) (entry takum_matmul :166, and the backward of
-// takum_matmul_ad :190, _takum_matmul_bwd :211).  At M <= 16 a weight
+// _mm_kernel (dual=False: entry takum_matmul :166, and the backward of
+// takum_matmul_ad :190, _takum_matmul_bwd :211; dual=True: entry
+// takum_dual_matmul :227).  At M <= 16 a weight
 // element feeds 2 M flops, far below the card's flops per byte (about 20 in
 // f32, 300 on bf16 tensor cores), so the bound is the weight bytes at
 // 3.35 TB/s (t8 wi 4096 x 14336: 0.0176 ms, t16 0.035 ms) and tensor cores
@@ -24,8 +26,9 @@
 //   in flight while the third is decoded.  Each warp copies and waits for
 //   its own rows only (KS / 8 of each stage), so warps run their rings
 //   apart, with no block barrier in the loop.
-// - x for the block's chunk (f32, or bf16 widened) is staged once as [k][MB],
-//   rows M..MB-1 zero (MB = 4 for M <= 4, else 16).
+// - x for the block's chunk (f32, bf16 widened, or K4's bits decoded by the
+//   elem_decode<FMT, IMPL> of the weight, an mx x along K) is staged once as
+//   [k][MB], rows M..MB-1 zero (MB = 4 for M <= 4, else 16).
 // - The 8 warps split each stage's rows, KS / 8 each.  A lane owns four
 //   columns: 4 lane .. 4 lane + 3 of a flat row, read as one 4- or 8-byte
 //   word where the row's span is aligned (else element by element), or
@@ -378,32 +381,6 @@ int launch_matvec(const void* x, const void* w, void* out, float* ws, int M, int
     combine_kernel<true><<<cgrid, kThreads, 0, stream>>>(ws, out, M, N, splits, ep);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// K3's launch (WT: its transposed twin): the split-K matvec at M <= 16, the
-// 64 x 64 tile of matmul_tile.cuh above; unfused or fused as ep asks.
-template <int FMT, int IMPL, int XMODE, bool WT = false>
-int launch_k3(const void* x, const void* w, void* out, float* ws, int M, int N, int K, int chunk,
-              const void* tab, const repro::Epilogue& ep, cudaStream_t stream) {
-  const int* t = static_cast<const int*>(tab);
-  if (IMPL == repro::kLut && t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (!repro::epilogue_ok(ep)) return static_cast<int>(cudaErrorInvalidValue);
-  // mx out: whole 32-element groups, which no tile or combine block splits
-  if (ep.code >= repro::kMXE4M3 && N % repro::kMxBlock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (M <= kMaxM) {
-    return launch_matvec<FMT, IMPL, XMODE, WT>(x, w, out, ws, M, N, K, chunk, t, ep, stream);
-  }
-  if (ep.code == repro::kOutF32) {
-    return repro_mm::launch_tiled<FMT, IMPL, XMODE, false, 64, 64, 16, 4, 4, WT>(x, w, out, M, N,
-                                                                                K, t, ep, stream);
-  }
-  if constexpr (!WT) {
-    return repro_mm::launch_tiled<FMT, IMPL, XMODE, true, 64, 64, 16, 4, 4>(x, w, out, M, N, K, t,
-                                                                           ep, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace repro_mv

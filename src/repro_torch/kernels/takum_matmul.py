@@ -20,12 +20,25 @@ weight transposed in place (``csrc/takum_matmul_wt.cu``); the bits get no
 gradient, and an mx weight is refused (its scale bytes are bound to blocks
 of the stored last axis).
 
-At M <= 16 (the decode step) K3 and its transposed launch run the split-K
-matvec of ``csrc/matvec_splitk.cuh``: :func:`matvec_plan` cuts K into
-chunks, one column of blocks each, and the wrapper allocates the f32
-workspace [splits, M, N] that the kernel's second pass adds up in split
-order.  Above M = 16 they run the 64 x 64 tile of ``csrc/matmul_tile.cuh``,
-as K4 does at every M.
+Which loop a launch runs is :func:`tile_for`'s choice, from (M, x type,
+format) alone, passed to the C entry as an int (``LOOPS``):
+
+- M <= 16 (the decode step): the split-K matvec of
+  ``csrc/matvec_splitk.cuh``, for K3, K4 and K3's transposed launch.
+  :func:`matvec_plan` cuts K into chunks, one column of blocks each, and the
+  wrapper allocates the f32 workspace [splits, M, N] that the kernel's
+  second pass adds up in split order.
+- M > 16 with bf16 x (K3), or K4 over any format but t16: the bf16
+  tensor-core tile of ``csrc/matmul_mma.cuh`` (``"mma"``; t16 weights under
+  K3 through the exact hi/lo split, ``"mma_split"``), its block shape from
+  :func:`mma_plan`.  A block that meets a value its bf16 parts cannot carry
+  exactly (f32's largest finite value, from a saturating t8 / t16 code; an
+  infinite x under the split) recomputes its tile on the FMA loop inside
+  the same kernel.
+- M > 16 with f32 x (K3, and every transposed launch), or K4 over t16: the
+  64 x 64 FMA tile of ``csrc/matmul_tile.cuh`` (``"fma"``).
+
+The C entry refuses a loop it has no kernel for; nothing falls back.
 
 ``takum_matmul`` / ``takum_dual_matmul`` / ``takum_matmul_t`` launch
 ``csrc/takum_matmul.cu`` / ``csrc/takum_dual_matmul.cu`` /
@@ -55,6 +68,15 @@ MATVEC_MAX_M = 16
 MATVEC_BN = 128
 #: x floats a matvec block stages for its chunk (``kXFloats``)
 MATVEC_X_FLOATS = 4096
+#: the loops of K3, K4 and the transposed K3, by their C code
+#: (``repro_mma::Loop`` of csrc/matmul_mma.cuh)
+LOOPS = ("matvec", "fma", "mma", "mma_split")
+#: the tensor-core tile's block shapes (rows, columns), largest first
+#: (csrc/matmul_mma.cuh); the C entries take the rows as ``tile``
+MMA_TILES = ((128, 128), (64, 64))
+#: streaming multiprocessors of the H100: 128 x 128 blocks of the tensor-core
+#: tile run one per SM, so a grid of fewer leaves SMs idle
+SM_COUNT = 132
 
 
 class MatvecPlan(NamedTuple):
@@ -90,6 +112,57 @@ def matvec_plan(M: int, N: int, K: int, fmt) -> MatvecPlan:
     need = math.ceil(TARGET_BLOCKS / max(n_tiles, 1))
     chunk = max(ks, min(cap, K // need) // ks * ks)
     return MatvecPlan(chunk, max(1, math.ceil(K / chunk)), n_tiles, ks)
+
+
+def tile_for(M: int, x_kind: str, fmt) -> str:
+    """The loop of one K3 / K4 / transposed-K3 launch, from M, the kind of
+    x (``"f32"``, ``"bf16"``, or ``"wire"``: K4's bits of ``fmt``) and the
+    format alone (never the codec):
+
+    - M <= 16: ``"matvec"``, the split-K matvec;
+    - bf16 x: ``"mma"``, the bf16 tensor-core tile, whose products are exact
+      because every decoded value but f32's largest finite one is exact in
+      bf16; t16 (12 significant bits) takes ``"mma_split"``, its weights
+      split into two bf16 parts;
+    - K4 (``"wire"``): ``"mma"``, but t16 ``"fma"`` (both operands would need
+      the split: four products per pair);
+    - f32 x (K3 and its transposed launch): ``"fma"``, the FMA tile (an f32
+      x fits no bf16 tensor-core type exactly)."""
+    if x_kind not in ("f32", "bf16", "wire"):
+        raise ValueError(f"x_kind must be 'f32', 'bf16' or 'wire', got {x_kind!r}")
+    if M <= MATVEC_MAX_M:
+        return "matvec"
+    t16 = kernel_format(fmt).name == "t16"
+    if x_kind == "f32" or (x_kind == "wire" and t16):
+        return "fma"
+    return "mma_split" if t16 else "mma"
+
+
+class MmaPlan(NamedTuple):
+    """The tensor-core tile's grid: blocks of ``rows`` x ``cols`` outputs,
+    ``m_tiles`` x ``n_tiles`` of them; ``rows`` is what the C entry takes as
+    its ``tile``."""
+
+    rows: int
+    cols: int
+    m_tiles: int
+    n_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def mma_plan(M: int, N: int) -> MmaPlan:
+    """The tensor-core tile's block shape from (M, N) alone: 128 x 128 where
+    that gives at least one block per SM, else 64 x 64 (at llama3-8b's
+    prefill, M = 1024: wq, wo and the MLP take 128 x 128, wk and wv, N =
+    1024, 64 x 64)."""
+    for rows, cols in MMA_TILES:
+        plan = MmaPlan(rows, cols, math.ceil(M / rows), math.ceil(N / cols))
+        if plan.blocks >= SM_COUNT:
+            return plan
+    return plan
 
 
 def _logical_n(w_bits: torch.Tensor, wf, n) -> int:
@@ -156,41 +229,45 @@ def _check_dims(M: int, N: int, K: int) -> None:
         raise ValueError("matmul dims must fit in int32")
 
 
-def _workspace(M: int, N: int, K: int, wf, device):
-    """(workspace, chunk) of a K3 launch: at M <= 16 the matvec plan's chunk
-    and its f32 workspace; (None, 0) for the tiled loop."""
-    if M > MATVEC_MAX_M:
-        return None, 0
-    plan = matvec_plan(M, N, K, wf)
-    return torch.empty(plan.workspace_shape(M, N), dtype=torch.float32, device=device), plan.chunk
+def _loop_args(M: int, N: int, K: int, x_kind: str, wf, device):
+    """(loop name, workspace, chunk, tile) of one launch: the matvec plan's
+    f32 workspace and chunk on the matvec (else None, 0) and the
+    tensor-core tile's block rows on it (else 0)."""
+    loop = tile_for(M, x_kind, wf)
+    ws, chunk, tile = None, 0, 0
+    if loop == "matvec":
+        plan = matvec_plan(M, N, K, wf)
+        ws = torch.empty(plan.workspace_shape(M, N), dtype=torch.float32, device=device)
+        chunk = plan.chunk
+    elif loop.startswith("mma"):
+        tile = mma_plan(M, N).rows
+    return loop, ws, chunk, tile
 
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _launch(entry: str, fn, x, w_bits, dims: tuple, wf, impl, out_wf, out_impl, split=False):
+def _launch(entry: str, fn, x, w_bits, dims: tuple, x_kind: str, wf, impl, out_wf, out_impl):
     """Allocate the output ([M, N] f32, or the out format's packed [M, N] or
-    payload), run the C entry ``entry`` on (x, w_bits, out, *dims, format,
-    codec, tables, epilogue, stream) and count the launch on ``fn``.  With
-    ``split`` (K3) the entry also takes the workspace after the output and
-    the plan's chunk after (M, N, K)."""
+    payload), run the C entry ``entry`` on (x, w_bits, out, workspace, M, N,
+    K, chunk, loop, tile, *dims[3:], format, codec, tables, epilogue,
+    stream), count the launch on ``fn`` and note its loop in
+    ``fn.last_loop``."""
     M, N, K = dims[:3]
     _check_dims(M, N, K)
     out = empty_out((M,), N, out_wf, x.device)
     if out.numel():
-        lead, args = (), dims
-        if split:
-            ws, chunk = _workspace(M, N, K, wf, x.device)
-            lead, args = (_ptr(ws),), (M, N, K, chunk, *dims[3:])
+        loop, ws, chunk, tile = _loop_args(M, N, K, x_kind, wf, x.device)
         _build.check(
-            _build.entry(entry)(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), *lead, *args,
-                                wf.code, IMPL_CODE[impl],
+            _build.entry(entry)(x.data_ptr(), w_bits.data_ptr(), out.data_ptr(), _ptr(ws), M, N, K,
+                                chunk, LOOPS.index(loop), tile, *dims[3:], wf.code, IMPL_CODE[impl],
                                 *table_ptrs(wf, impl, "decode", x.device),
                                 *epilogue_args(out_wf, out_impl, x.device), stream_of(x)),
             fn.__name__,
         )
         count_launch(fn, launch_key(impl, out_wf and out_wf.name, out_impl))
+        fn.last_loop = loop
     return out
 
 
@@ -213,9 +290,9 @@ def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl
         return takum_matmul_plain(x, w_bits, wf, N, decode_impl=impl, out_fmt=out_wf,
                                   encode_impl=out_impl)
     M, K = x.shape
-    return _launch("repro_matmul", takum_matmul, x, w_bits,
-                   (M, N, K, int(x.dtype == torch.bfloat16)), wf, impl, out_wf, out_impl,
-                   split=True)
+    bf16 = x.dtype == torch.bfloat16
+    return _launch("repro_matmul", takum_matmul, x, w_bits, (M, N, K, int(bf16)),
+                   "bf16" if bf16 else "f32", wf, impl, out_wf, out_impl)
 
 
 def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
@@ -240,8 +317,8 @@ def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, d
     if _check_device(x_bits, w_bits, "x_bits and w_bits"):
         return takum_dual_matmul_plain(x_bits, w_bits, wf, N, decode_impl=impl, out_fmt=out_wf,
                                        encode_impl=out_impl)
-    return _launch("repro_dual_matmul", takum_dual_matmul, x_bits, w_bits, (M, N, K), wf, impl,
-                   out_wf, out_impl)
+    return _launch("repro_dual_matmul", takum_dual_matmul, x_bits, w_bits, (M, N, K), "wire", wf,
+                   impl, out_wf, out_impl)
 
 
 def _flat_format(fmt):
@@ -275,14 +352,15 @@ def takum_matmul_t(g: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None)
     _check_dims(M, N, K)
     out = torch.empty((M, N), dtype=torch.float32, device=g.device)
     if out.numel():
-        ws, chunk = _workspace(M, N, K, wf, g.device)
+        loop, ws, chunk, _ = _loop_args(M, N, K, "f32", wf, g.device)
         fn = _build.entry("repro_matmul_wt")
         _build.check(
-            fn(g.data_ptr(), w_bits.data_ptr(), out.data_ptr(), _ptr(ws), M, N, K, chunk, wf.code,
-               IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", g.device), stream_of(g)),
+            fn(g.data_ptr(), w_bits.data_ptr(), out.data_ptr(), _ptr(ws), M, N, K, chunk,
+               LOOPS.index(loop), wf.code, IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", g.device), stream_of(g)),
             "takum_matmul_t",
         )
         count_launch(takum_matmul, launch_key(impl, transposed=True))
+        takum_matmul_t.last_loop = loop
     return out
 
 
@@ -324,3 +402,5 @@ def takum_matmul_ad(x: torch.Tensor, w_bits: torch.Tensor, fmt) -> torch.Tensor:
 
 takum_matmul.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)
 takum_dual_matmul.launches = dict.fromkeys(lut.DECODE_IMPLS, 0)
+#: the loop (``LOOPS``) of each wrapper's last kernel launch (None before one)
+takum_matmul.last_loop = takum_dual_matmul.last_loop = takum_matmul_t.last_loop = None

@@ -19,7 +19,10 @@ for bit.  K5's backward, the transposed K3, is held to K3's limit of
 |g| @ |decode(w)|.T and must equal K3 over a transposed copy of the bits bit
 for bit; one autograd step launches one K3 and one transposed K3.  K3 at
 M <= 16 (the split-K matvec) and K6 (split S with an ordered combine) must
-also give the same bits on a second launch.
+also give the same bits on a second launch.  The tensor-core tile (K3 with
+bf16 x above M = 16, K4 above M = 16) is held to the same limit at M = 17,
+37 and 1024, with specials, NaN bits past the operands' ends, and every
+code of every format carried exactly; K4 at M <= 16 runs the matvec.
 """
 
 import pytest
@@ -273,7 +276,8 @@ OUT_CASES = [(o, i) for o in FMTS + MX_FMTS for i in IMPLS
 
 def _fused_cases(cuda, producer, fmt):
     """(unfused output, fused(out, impl)) of one producer at an odd shape:
-    M = 37 (the 64 x 64 tile; M = 3, the 8 x 32 tile, runs beside it), K
+    M = 37 (K3 with f32 x: the FMA tile; K4: the tensor-core tile; M = 3,
+    the matvec, runs beside it), K
     not a multiple of the K tile, N = 96; K6 at S = 45, d = 64, g = 2."""
     mx = wire_format(fmt).is_block_scaled
     if producer == "K6":
@@ -306,7 +310,7 @@ def _fused_cases(cuda, producer, fmt):
 def test_fused_output_equals_encode_of_unfused(cuda, producer, fmt):
     """The out_fmt epilogue adds no rounding of its own: for every out format
     and encode codec, the fused output is K2's encode of the unfused output,
-    bit for bit, at both tiles."""
+    bit for bit, at both loops."""
     for unfused, fused in _fused_cases(cuda, producer, fmt):
         flat = unfused.reshape(-1, unfused.shape[-1])
         for out, impl in OUT_CASES:
@@ -320,7 +324,8 @@ def test_fused_output_equals_encode_of_unfused(cuda, producer, fmt):
 @pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
 def test_dual_matmul_kernel_within_limit(cuda, fmt):
     """K4 against its plain version within 4e-6 * (|decode(x)| @ |w|), each
-    codec, at both tiles; lut equals bits bit for bit."""
+    codec, at M = 4 (the matvec) and 37 (the tensor-core tile; t16: the FMA
+    tile); lut equals bits bit for bit."""
     mx = wire_format(fmt).is_block_scaled
     K, N = (96, 100) if mx else (130, 70)
     w = _rand((K, N), 46, 0.3)
@@ -386,8 +391,8 @@ def _transposed_copy(w):
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("fmt", FMTS)
 def test_transposed_matmul_kernel_within_limit(cuda, fmt, impl):
-    """K5's backward at both tiles (M = 3 and 37) over a stored weight
-    [96, 1000]: the reduction (1000) is a multiple of neither K tile, the
+    """K5's backward at both loops (M = 3: the matvec; 37: the FMA tile) over
+    a stored weight [96, 1000]: the reduction (1000) is a multiple of neither K tile, the
     output (96) of neither N tile."""
     w = takum_encode_2d(_rand((96, 1000), 51, 1000 ** -0.5), fmt)
     wd = ref.codec_decode_ref(w, fmt)
@@ -520,3 +525,212 @@ def test_matvec_t16_bits_decodes_every_code_like_the_lut(cuda):
     assert _same_f32(bits, takum_matmul(x, codes, "t16", decode_impl="lut"))
     t = takum_matmul_t(x, codes.reshape(-1, 1), "t16", decode_impl="bits")
     assert _same_f32(t, bits)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core tile (K3 with bf16 x above M = 16, K4 above M = 16) and K4
+# on the split-K matvec
+# ---------------------------------------------------------------------------
+
+
+def _finite_within(got, want, bound):
+    """NaN where ``want`` is NaN, the same infinities, and the finite outputs
+    within ``bound``."""
+    got = got.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
+    fin = ~(nan | inf)
+    return bool(((got[fin] - want[fin]).abs() <= bound[fin]).all())
+
+
+def _weight(fmt, K, N, seed, positive=False):
+    """(bits, n, decoded [K, N]) of a random weight; an mx N pads its last group."""
+    mx = wire_format(fmt).is_block_scaled
+    w = _rand((K, N), seed, K ** -0.5)
+    if positive:
+        w = w.abs()
+    w = takum_encode_2d(blockscale.pad_block(w) if mx else w, fmt)
+    return w, (N if mx else None), ref.codec_decode_ref(w, fmt)[:, :N]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_mma_tile_within_limit_and_deterministic(cuda, fmt):
+    """K3 with bf16 x at M in {17, 37, 1024} runs the tensor-core tile
+    (t16: its hi/lo split) over K = 1000 and N = 777 (mx: a padded last
+    group): within 4e-6 * (|x| @ |w|) of the plain version under each
+    codec, lut equal to bits and a second launch equal to the first, bit for
+    bit; all-positive inputs (the partial sum is then the whole |x| @ |w|)
+    at M = 1024 too.  f32 x at M = 37 keeps the FMA tile."""
+    K, N = 1000, 777
+    loop = "mma_split" if fmt == "t16" else "mma"
+    for positive in (False, True):
+        w, n, wd = _weight(fmt, K, N, 200, positive)
+        wc = w.to(cuda)
+        for M in ((1024,) if positive else (17, 37, 1024)):
+            x = _rand((M, K), 201 + M).to(torch.bfloat16)
+            if positive:
+                x = x.abs()
+            bound = 4e-6 * (x.float().abs() @ wd.abs())
+            bits = takum_matmul(x.to(cuda), wc, fmt, n, "bits")
+            assert takum_matmul.last_loop == loop
+            for impl in IMPLS:
+                got = takum_matmul(x.to(cuda), wc, fmt, n, impl)
+                assert _same_f32(got, bits), (M, impl)
+                assert _same_f32(got, takum_matmul(x.to(cuda), wc, fmt, n, impl))
+                want = takum_matmul_plain(x, w, fmt, n, decode_impl=impl)
+                assert ((got.cpu() - want).abs() <= bound).all(), (M, impl, positive)
+    x = _rand((37, K), 209)
+    got = takum_matmul(x.to(cuda), wc, fmt, n, "bits")
+    assert takum_matmul.last_loop == "fma"
+    assert ((got.cpu() - takum_matmul_plain(x, w, fmt, n)).abs()
+            <= 4e-6 * (x.abs() @ wd.abs())).all()
+
+
+#: per format, codes of NaN / NaR and of infinity (None: the format has none)
+_SPECIAL_CODES = {"t8": (0x80, None), "t16": (0x8000, None), "e4m3": (0x7F, None),
+                  "e5m2": (0x7F, 0x7C), "bf16": (0x7FC0, 0x7F80)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + ("mxe4m3", "mxt8"))
+def test_mma_tile_specials(cuda, fmt):
+    """The tensor-core tile (M = 37, 1024) against the plain version with
+    NaN and +-inf in rows of x; NaR / NaN and inf codes in w (an mx NaN
+    scale byte); and NaN bits right after the operands' ends, in the row of
+    x past M and in weight rows past K (K = 1000, not a multiple of the
+    32-row stage), which must not reach the output: NaN and inf exactly
+    where the plain version has them, every other output within 4e-6 *
+    (|x| @ |w|), lut equal to bits."""
+    K, N = 1000, 160
+    mx = wire_format(fmt).is_block_scaled
+    wf = wire_format(fmt)
+    w = _rand((K + 24, N), 210, K ** -0.5)
+    w = takum_encode_2d(blockscale.pad_block(w) if mx else w, fmt)
+    if mx:
+        w[K:, ::33] = 255  # NaN scale bytes past K
+        w[5, 33] = 255     # a NaN group inside: row 5, columns 32..63
+    else:
+        nan_code, inf_code = _SPECIAL_CODES[fmt]
+        wv = w.view(torch.int16) if wf.nbits == 16 else w
+        signed = (lambda c: c - (1 << 16) if c >= 1 << 15 else c) if wf.nbits == 16 else int
+        wv[K:] = signed(nan_code)
+        wv[7, 3] = signed(nan_code)
+        if inf_code is not None:
+            wv[9, 11] = signed(inf_code)
+    wk = w[:K]  # contiguous rows; the NaN rows lie right after it
+    wd = ref.codec_decode_ref(wk, fmt)[:, :N]
+    n = N if mx else None
+    wc = w.to(cuda)[:K]
+    for M in (37, 1024):
+        xf = _rand((M + 1, K), 211 + M).to(torch.bfloat16)
+        xf[M] = float("nan")  # the row past M
+        xf[1, 3], xf[2, 4], xf[3, 5] = float("nan"), float("inf"), -float("inf")
+        x = xf[:M]
+        xc = xf.to(cuda)[:M]
+        bound = 4e-6 * (torch.nan_to_num(x.float(), 0, 0, 0).abs() @ torch.nan_to_num(wd, 0, 0, 0).abs())
+        bits = takum_matmul(xc, wc, fmt, n, "bits")
+        assert takum_matmul.last_loop in ("mma", "mma_split")
+        for impl in IMPLS:
+            got = takum_matmul(xc, wc, fmt, n, impl)
+            assert _same_f32(got, bits)
+            want = takum_matmul_plain(x, wk, fmt, n, decode_impl=impl)
+            assert _finite_within(got, want, bound), (M, impl)
+
+
+def _every_code_row(fmt):
+    """[1, n] bits holding every code of ``fmt`` (mx: every element code
+    under every scale byte, one 33-byte group per pair)."""
+    wf = wire_format(fmt)
+    if wf.is_block_scaled:
+        return mx_all_codes().reshape(1, -1)
+    return _all_codes(wf).reshape(1, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_mma_tile_carries_every_code_exactly(cuda, fmt):
+    """x = 1 (bf16, M = 17) over a weight row holding every code: the
+    tensor-core tile must return each decoded value exactly (NaN as NaN),
+    under each codec.  This holds the bf16 parts (t16: hi + lo) to the
+    decode over all 65536 codes, bf16 weights' subnormals included, and the
+    FMA fallback to the codes no bf16 parts carry (f32's largest finite
+    magnitude, from saturating t8 / t16 codes and mxt8 elements)."""
+    w = _every_code_row(fmt).to(cuda)
+    want = ref.codec_decode_ref(w.cpu(), fmt).reshape(-1)
+    x = torch.ones((17, 1), dtype=torch.bfloat16, device=cuda)
+    for impl in IMPLS:
+        got = takum_matmul(x, w, fmt, decode_impl=impl)
+        assert takum_matmul.last_loop in ("mma", "mma_split")
+        for row in (0, 16):
+            g = got[row].cpu()
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(g), nan), impl
+            assert torch.equal(g[~nan], want[~nan]), impl
+
+
+@pytest.mark.gpu
+def test_mma_tile_keeps_subnormal_products(cuda):
+    """Products below 2^-126 through the tensor cores: x = 2^-64 (bf16)
+    times decoded t16 weights 2^-62 .. 2^-70 and 1.5 * 2^-66; the tile's f32
+    output must equal the plain version's (f32 products, no flush to zero).
+    Subnormal weights themselves (bf16's) are carried by
+    test_mma_tile_carries_every_code_exactly."""
+    x = torch.full((17, 1), 2.0 ** -64, dtype=torch.bfloat16)
+    w = takum_encode_2d(torch.tensor([[2.0 ** -e for e in range(62, 71)] + [1.5 * 2.0 ** -66]]),
+                        "t16")
+    got = takum_matmul(x.to(cuda), w.to(cuda), "t16").cpu()
+    assert takum_matmul.last_loop == "mma_split"
+    want = takum_matmul_plain(x, w, "t16")
+    assert bool((want[0, 1:] != 0).all())
+    assert torch.equal(got, want), (got[0].tolist(), want[0].tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_dual_matmul_loops_by_m(cuda, fmt):
+    """K4 at M in {3, 4, 16} runs the split-K matvec and at M in {17, 37}
+    the tensor-core tile (t16: the FMA tile): within 4e-6 * (|decode(x)| @
+    |w|) of the plain version, lut equal to bits, a second launch equal to
+    the first, and a fused t8 / mxe4m3 output K2's encode of the unfused
+    one, bit for bit, at each loop."""
+    mx = wire_format(fmt).is_block_scaled
+    K, N = (992, 160) if mx else (1000, 160)
+    w, n, wd = _weight(fmt, K, N, 220)
+    wc = w.to(cuda)
+    for M in (3, 4, 16, 17, 37):
+        xb = takum_encode_2d(_rand((M, K), 221 + M), fmt)
+        xd = ref.codec_decode_ref(xb, fmt)
+        bound = 4e-6 * (xd.abs() @ wd.abs())
+        bits = takum_dual_matmul(xb.to(cuda), wc, fmt, n, "bits")
+        assert (takum_dual_matmul.last_loop == "matvec") == (M <= 16)
+        for impl in IMPLS:
+            got = takum_dual_matmul(xb.to(cuda), wc, fmt, n, impl)
+            assert _same_f32(got, bits), (M, impl)
+            assert _same_f32(got, takum_dual_matmul(xb.to(cuda), wc, fmt, n, impl))
+            want = takum_dual_matmul_plain(xb, w, fmt, n, decode_impl=impl)
+            assert ((got.cpu() - want).abs() <= bound).all(), (M, impl)
+        for out, oimpl in (("t8", "lut"), ("mxe4m3", "bits")):
+            fused = takum_dual_matmul(xb.to(cuda), wc, fmt, n, "bits", out, oimpl)
+            assert torch.equal(fused.view(torch.uint8),
+                               takum_encode_2d(bits, out, oimpl).view(torch.uint8)), (M, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16", "mxt8"))
+def test_mma_tile_fused_equals_encode_of_unfused(cuda, fmt):
+    """K3's tensor-core tile, both block edges (M = 37, N = 160: 64; M =
+    1024, N = 4096: 128), fused into every out format and encode codec:
+    K2's encode of the unfused output, bit for bit."""
+    for M, K, N in ((37, 1000, 160), (1024, 512, 4096)):
+        w, n, _ = _weight(fmt, K, N, 230)
+        wc = w.to(cuda)
+        x = _rand((M, K), 231).to(torch.bfloat16).to(cuda)
+        unfused = takum_matmul(x, wc, fmt, n)
+        for out, impl in OUT_CASES:
+            got = takum_matmul(x, wc, fmt, n, out_fmt=out, encode_impl=impl)
+            assert takum_matmul.last_loop in ("mma", "mma_split")
+            want = takum_encode_2d(unfused, out, impl)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (M, out, impl)
