@@ -14,22 +14,27 @@ Phases, each of which must pass:
       sweep, both also at the serving shapes and over one packed weight
       (all bit for bit); K3 at the serving shapes (M = 4: every linear of
       the decode step, the split-K matvec; M = 1024: the bf16 tensor-core
-      tile, t16 through its hi/lo split) and ragged shapes (M = 37 with bf16
-      x: the tensor-core tile; with f32 x: the FMA tile), within 4e-6 of
-      |x| @ |w| (a limit two lossy t16 controls must exceed), each row
+      tile, t16 through its hi/lo split), with f32 x at M = 1024 on wi for
+      t8 and t16 (the wgmma tile, x split into three bf16 parts) and ragged
+      shapes (M = 37 with bf16 x: the tensor-core tile; with f32 x: the
+      wgmma tile), within 4e-6 of |x| @ |w| (a limit two lossy t16 controls
+      must exceed), each row
       holding the loop it ran (the wrapper's ``last_loop``: the loop
       ``takum_matmul.tile_for`` named, which the C entry runs or refuses)
       and, at M = 1024, a bf16-output ``torch.matmul`` as a second yardstick
       of speed; for t8 and t16 also all-positive inputs at M = 1024 and the
-      prefill's deepest sums (K = 4096 and 14336), within the same limit of
-      the exact product (``k3_exact_reading``): there every partial sum is
-      the whole |x| @ |w|, so an accumulation that truncates shows; K6
+      prefill's deepest sums (K = 4096 and 14336), bf16 and f32 x, within
+      the same limit of the exact product (``k3_exact_reading``): there
+      every partial sum is the whole |x| @ |w|, so an accumulation that
+      truncates shows, and with f32 x two lossy controls (x as hi + mid of
+      its split; both operands TF32) must exceed the limit; K6
       (split S) at the serving shape with length < S.  Then the mx containers mxe4m3,
       mxe5m2 and mxt8: K1-mx over every element code under every scale byte
       and K2-mx over a block sweep (zero, NaN, Inf and subnormal blocks,
       absmax near 2^-126 and 2^127, values above the cap), both again at
       [8192, 128] and [4096, 14336], bit for bit; K3-mx at ragged N (100,
-      4096) and, for mxt8, at the serving shapes; K6-mx at the serving shape
+      4096) and, for mxt8, at the serving shapes and with f32 x at
+      M = 1024 on wi; K6-mx at the serving shape
       and at head dims 16 and 80.  Each is timed with CUDA events, and the
       lut gather's shared-memory bank conflicts are probed by timing K1, K3
       and the transposed K3 (K5's backward) under a broadcast, a random and
@@ -72,13 +77,15 @@ Phases, each of which must pass:
   (g) K5, ``takum_matmul_ad``: its backward, the transposed K3 (K3's loop
       reading the stored weight transposed, csrc/takum_matmul_wt.cu), for
       every flat format under each codec at both loops (M = 3: the matvec,
-      M = 37: the FMA tile) and odd shapes,
+      M = 37: the wgmma tile) and odd shapes,
       within K3's limit of its plain version and bit for bit equal to K3
       over a transposed copy; the forward equal to K3; a bf16 dx for a bf16
       x; mx refused; one autograd step per format launching exactly one K3
       and one transposed K3, x.grad against the plain path.  Then the
-      backward of llama3-8b's wi (M = 4 and 1024) and head (M = 4), t8 and
-      t16, through autograd, counted, and timed against its bound, its
+      backward of llama3-8b's wi (M = 4 and 1024), w2 (M = 1024) and head
+      (M = 4), t8 and t16, through autograd, counted, and timed against its
+      bound (at the bf16 rate over the MMAs of the split, and beside it at
+      the f32 rate; a matmul row's ``bound_rate`` names its rate), its
       plain version, ``torch.matmul(g, decode(w).T)`` and the copy
       yardstick (the bits transposed into a copy, then K3).
       Phase (b) prints each source's nvcc time and kernel count.
@@ -216,18 +223,20 @@ def bound(nbytes, flops, rate=F32_FLOPS):
 
 
 def matmul_rate(torch, fmt, xdt):
-    """The card's peak for K3's products.  With bf16 x, bf16 tensor cores:
-    every decoded weight of the 8-bit formats, bf16 and the mx containers
-    is exact in bf16 (8-bit elements carry at most 4 significant bits, a
-    decoded mx product is a normal f32 or flushed; f32's largest finite
-    value, from saturating codes no encode produces, aside), so one MMA per
-    product; a t16 weight (12 significant bits) is the exact sum of two bf16
-    parts (hi, its low 16 bits cleared, and lo = w - hi), so two MMAs per
-    product, BF16_FLOPS / 2.  With f32 x, which fits no bf16 tensor-core
-    type exactly, the f32 FMA rate."""
-    if xdt != torch.bfloat16:
-        return F32_FLOPS
-    return BF16_FLOPS / 2 if fmt == "t16" else BF16_FLOPS
+    """The card's peak for K3's products, and its name (a row's
+    ``bound_rate``): bf16 tensor cores over as many MMAs per product as
+    the operands' exact bf16 parts need.  Every decoded weight of the 8-bit
+    formats, bf16 and the mx containers is exact in bf16 (8-bit elements
+    carry at most 4 significant bits, a decoded mx product is a normal f32
+    or flushed; f32's largest finite value, from saturating codes no encode
+    produces, aside): one part; a t16 weight (12 significant bits) is the
+    exact sum of two (hi, its low 16 bits cleared, and lo = w - hi).  A bf16
+    x is one part, an f32 x the exact sum of three (hi, mid, lo:
+    ``takum_matmul.split3_bf16``).  So BF16_FLOPS / (x parts x w parts):
+    ``"bf16x1"``, ``"bf16x2"`` (t16), ``"bf16x3"`` (f32 x), ``"bf16x6"``
+    (f32 x, t16)."""
+    parts = (3 if xdt == torch.float32 else 1) * (2 if fmt == "t16" else 1)
+    return BF16_FLOPS / parts, f"bf16x{parts}"
 
 
 #: formats whose decoded weights are exact in bf16 (t16 is not), for the bf16
@@ -238,35 +247,58 @@ BF16_EXACT = ("t8", "e4m3", "e5m2", "bf16", "mxe4m3", "mxe5m2", "mxt8")
 POSITIVE_SHAPES = ((1024, 4096, 4096), (1024, 14336, 4096))
 
 
-def k3_exact_reading(torch, dev, fmt, M, K, N, positive):
-    """K3 over bf16 x [M, K] and ``fmt`` weights [K, N], drawn from N(0, 1)
-    and N(0, 1/4) (``positive``: both in absolute value) by a generator
-    seeded from the shape alone, so that a run of one row draws the same
-    inputs (tools/tile_variants.py): ({codec: largest |kernel - exact| /
-    (|x| @ |w|)}, the loop run), exact being the decoded operands' product
-    summed in f64.  Raises where lut and bits differ."""
+def k3_exact_reading(torch, dev, fmt, M, K, N, positive, xdt=None, transposed=False):
+    """K3 over x [M, K] (``xdt``: bf16, the default, or f32) and ``fmt``
+    weights [K, N], drawn from N(0, 1) and N(0, 1/4) (``positive``: both in
+    absolute value) by a generator seeded from the shape alone, so that a
+    run of one row draws the same inputs (tools/tile_variants.py); with
+    ``transposed`` (f32 x) through the transposed K3 over a transposed copy
+    of the bits instead, which equals K3 bit for bit.  Returns ({codec:
+    largest |kernel - exact| / (|x| @ |w|)}, the loop run, controls), exact
+    being the decoded operands' product summed in f64; for f32 x the
+    controls are the same reading of two lossy products, which K3_LIMIT
+    must catch: x as hi + mid only (its three-way split without lo,
+    ``takum_matmul.split3_bf16``), and both operands rounded to TF32.
+    Raises where lut and bits differ."""
     from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
-    from repro_torch.kernels.takum_matmul import takum_matmul
+    from repro_torch.kernels.takum_matmul import split3_bf16, takum_matmul, takum_matmul_t
 
+    xdt = torch.bfloat16 if xdt is None else xdt
     gen = torch.Generator(device=dev)
     gen.manual_seed(M * K * N)
     x = torch.randn((M, K), generator=gen, device=dev)
     w = torch.randn((K, N), generator=gen, device=dev) * 0.5
     if positive:
         x, w = x.abs(), w.abs()
-    x, w = x.to(torch.bfloat16), encode_2d_plain(w, fmt)
-    wd = decode_2d_plain(w, fmt).double()
-    exact = torch.matmul(x.double(), wd)
-    scale = exact if positive else torch.matmul(x.double().abs(), wd.abs())
+    x, w = x.to(xdt), encode_2d_plain(w, fmt)
+    wd = decode_2d_plain(w, fmt)
+    exact = torch.matmul(x.double(), wd.double())
+    scale = exact if positive else torch.matmul(x.double().abs(), wd.double().abs())
+
+    def ratio(got):
+        return float(((got.double() - exact).abs() / scale.clamp(min=1e-300)).max())
+
+    controls = {}
+    if xdt == torch.float32:
+        hi, mid, _, _ = split3_bf16(x)
+        controls["x_hi_mid"] = ratio(torch.matmul((hi.double() + mid.double()), wd.double()))
+        del hi, mid
+        controls["tf32_operands"] = ratio(torch.matmul(tf32(torch, x), tf32(torch, wd)))
     del wd
+    copy = transposed_copy(torch, w) if transposed else None
     reading, first = {}, None
     for impl in impls_of(fmt, "decode"):
-        got = takum_matmul(x, w, fmt, decode_impl=impl)
+        if transposed:
+            got = takum_matmul_t(x, copy, fmt, impl)
+            loop = takum_matmul_t.last_loop
+        else:
+            got = takum_matmul(x, w, fmt, decode_impl=impl)
+            loop = takum_matmul.last_loop
         check(first is None or same_bits_f32(torch, got, first),
               f"K3[{impl}] {fmt} {M}x{K}x{N}: differs from K3[bits]")
         first = got if first is None else first
-        reading[impl] = float(((got.double() - exact).abs() / scale.clamp(min=1e-300)).max())
-    return reading, takum_matmul.last_loop
+        reading[impl] = ratio(got)
+    return reading, loop, controls
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +468,10 @@ def phase_kernels(torch, dev, rows):
         shapes = [(M, K, N, torch.bfloat16) for M in (4, 1024) for N in (1024, 4096, 14336, 128256)]
         shapes += [(M, 14336, 4096, torch.bfloat16) for M in (4, 1024)]
         shapes += [(M, 1000, 777, dt) for M in (5, 37) for dt in (torch.float32, torch.bfloat16)]
+        if fmt in ("t8", "t16"):
+            # f32 x at the prefill's M over wi: the wgmma tile (x split three
+            # ways), the forward of K5 at that shape
+            shapes += [(1024, K, 14336, torch.float32)]
         for M, K_, N, xdt in shapes:
             xm = torch.randn((M, K_), generator=gen, device=dev).to(xdt)
             w = encode_2d_plain(torch.randn((K_, N), generator=gen, device=dev) * 0.5, fmt)
@@ -464,19 +500,21 @@ def phase_kernels(torch, dev, rows):
                         row[f"control_{name}_over_absprod"] = c
                 del want
                 xb = xm.element_size()
+                rate, rate_name = matmul_rate(torch, fmt, xdt)
                 b_ms, b_by = bound(M * K_ * xb + K_ * N * wf.nbits // 8 + M * N * 4, 2.0 * M * N * K_,
-                                   matmul_rate(torch, fmt, xdt))
+                                   rate)
                 kern = lambda: takum_matmul(xm, w, fmt, decode_impl=impl)
                 lib = lambda: torch.matmul(xm.float(), wd)
                 row.update(
                     ms=time_ms(torch, kern, flush=flush),
                     plain_ms=time_ms(torch, lambda: takum_matmul_plain(xm, w, fmt, decode_impl=impl),
                                      flush=flush),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib, flush=flush))
+                    bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
+                    library_ms=time_ms(torch, lib, flush=flush))
                 if M == 4:
                     row.update(device_ms=device_ms(torch, kern, flush=flush),
                                library_device_ms=device_ms(torch, lib, flush=flush))
-                if M == 1024 and fmt in BF16_EXACT:
+                if M == 1024 and fmt in BF16_EXACT and xdt == torch.bfloat16:
                     # a yardstick of speed only: it rounds its output to bf16
                     wb = wd.bfloat16()
                     row["library_bf16_out_ms"] = time_ms(torch, lambda: torch.matmul(xm, wb),
@@ -486,14 +524,20 @@ def phase_kernels(torch, dev, rows):
             del wd, scale, got_bits
         log(f"K3 {fmt}: {len(shapes)} shapes within {K3_LIMIT} of |x|@|w|, lut == bits")
         for M, K_, N in POSITIVE_SHAPES if fmt in ("t8", "t16") else ():
-            reading, loop = k3_exact_reading(torch, dev, fmt, M, K_, N, positive=True)
-            for impl, ratio in reading.items():
-                tag = f"K3[{impl}] {fmt} {M}x{K_}x{N} all-positive"
-                check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of the exact sum > {K3_LIMIT}")
-                rows.append(dict(kernel="takum_matmul", fmt=fmt, impl=impl, shape=[M, K_, N],
-                                 x="bfloat16", loop=loop, inputs="all-positive",
-                                 reference="exact", err_over_absprod=ratio))
-            log(f"K3 {fmt} {M}x{K_}x{N} all-positive ({loop}): {reading} of the exact sum")
+            for xdt in (torch.bfloat16, torch.float32):
+                reading, loop, controls = k3_exact_reading(torch, dev, fmt, M, K_, N, True, xdt)
+                for impl, ratio in reading.items():
+                    tag = f"K3[{impl}] {fmt} {M}x{K_}x{N} x {str(xdt)[6:]} all-positive"
+                    check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of the exact sum > {K3_LIMIT}")
+                    rows.append(dict(kernel="takum_matmul", fmt=fmt, impl=impl, shape=[M, K_, N],
+                                     x=str(xdt)[6:], loop=loop, inputs="all-positive",
+                                     reference="exact", err_over_absprod=ratio,
+                                     **{f"control_{k}_over_absprod": v for k, v in controls.items()}))
+                for name, c in controls.items():
+                    check(c > K3_LIMIT, f"K3 {fmt} {M}x{K_}x{N} all-positive: control {name} "
+                                        f"({c:.3g}) passes the limit")
+                log(f"K3 {fmt} {M}x{K_}x{N} x {str(xdt)[6:]} all-positive ({loop}): {reading} of "
+                    f"the exact sum; controls {controls}")
 
         # K6: B=4, H=32, Kv=8, hd=128 over the cache's [B, S, Kv, hd] layout, S=288
         B, H, Kv, hd, S = 4, 32, 8, 128, 288
@@ -615,6 +659,7 @@ def phase_mx_kernels(torch, dev, rows):
                   for dt in (torch.float32, torch.bfloat16)]
         if fmt == "mxt8":
             shapes += [(M, 4096, N, torch.bfloat16) for M in (4, 1024) for N in (14336, 128256)]
+            shapes += [(1024, 4096, 14336, torch.float32)]  # the wgmma tile
         for M, K_, N, xdt in shapes:
             xm = torch.randn((M, K_), generator=gen, device=dev).to(xdt)
             w = encode_2d_plain(blockscale.pad_block(
@@ -637,19 +682,21 @@ def phase_mx_kernels(torch, dev, rows):
                            err_over_absprod=ratio)
                 del got, want
                 if K_ == 4096:
+                    rate, rate_name = matmul_rate(torch, fmt, xdt)
                     b_ms, b_by = bound(M * K_ * xm.element_size() + K_ * plen(N) + M * N * 4,
-                                       2.0 * M * N * K_, matmul_rate(torch, fmt, xdt))
+                                       2.0 * M * N * K_, rate)
                     kern = lambda: takum_matmul(xm, w, fmt, n=N, decode_impl=impl)
                     lib = lambda: torch.matmul(xm.float(), wd)
                     row.update(
                         ms=time_ms(torch, kern, flush=flush),
                         plain_ms=time_ms(torch, lambda: takum_matmul_plain(
                             xm, w, fmt, n=N, decode_impl=impl), flush=flush),
-                        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib, flush=flush))
+                        bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
+                        library_ms=time_ms(torch, lib, flush=flush))
                     if M == 4:
                         row.update(device_ms=device_ms(torch, kern, flush=flush),
                                    library_device_ms=device_ms(torch, lib, flush=flush))
-                    if M == 1024:
+                    if M == 1024 and xdt == torch.bfloat16:
                         # a yardstick of speed only: it rounds its output to bf16
                         wb = wd.bfloat16()
                         row["library_bf16_out_ms"] = time_ms(torch, lambda: torch.matmul(xm, wb),
@@ -783,9 +830,10 @@ def bytes_differing(torch, a, b):
 
 
 def dual_rate(fmt):
-    """The card's peak for K4's products: bf16 tensor cores where both
-    decoded operands are exact in bf16 (every format but t16), else f32 FMA."""
-    return F32_FLOPS if fmt == "t16" else BF16_FLOPS
+    """The card's peak for K4's products and its name: bf16 tensor cores
+    where both decoded operands are exact in bf16 (every format but t16),
+    else f32 FMA."""
+    return (F32_FLOPS, "f32") if fmt == "t16" else (BF16_FLOPS, "bf16x1")
 
 
 def phase_producers_exact(torch, dev):
@@ -1062,9 +1110,11 @@ def phase_producers_full(torch, dev):
             out_bytes = (M * N * 4 if out_wf is None else
                          M * blockscale.payload_len(N) if out_wf.is_block_scaled
                          else M * N * out_wf.nbits // 8)
-            rate = matmul_rate(torch, fmt, torch.bfloat16) if prod == "K3" else dual_rate(fmt)
+            rate, rate_name = (matmul_rate(torch, fmt, torch.bfloat16) if prod == "K3"
+                               else dual_rate(fmt))
             b_ms, b_by = bound(x.numel() * x.element_size() + w.numel() * w.element_size()
                                + out_bytes, 2.0 * M * N * K, rate)
+            row["bound_rate"] = rate_name
         row.update(
             ms=time_ms(torch, lambda: call(prod, fmt, M, K, N, out, oi), flush=flush),
             plain_ms=time_ms(torch, lambda: call(prod, fmt, M, K, N, out, oi, plain=True),
@@ -1199,9 +1249,11 @@ def phase_ad_exact(torch, dev):
 
 
 #: (g) 3, the full-width rows: (weight, stored [K, N], M, format) for the
-#: backward of llama3-8b's wi and head; each format's default codec (t8 lut,
-#: t16 bits)
+#: backward of llama3-8b's wi (a long reduction, 14336, into 4096 outputs),
+#: w2 (a short one, 4096, into 14336) and head; each format's default codec
+#: (t8 lut, t16 bits)
 AD_ROWS = ([("wi", 4096, 14336, M, fmt) for M in (4, 1024) for fmt in ("t8", "t16")]
+           + [("w2", 14336, 4096, 1024, fmt) for fmt in ("t8", "t16")]
            + [("head", 4096, 128256, 4, fmt) for fmt in ("t8", "t16")])
 
 
@@ -1269,8 +1321,11 @@ def phase_ad_full(torch, dev):
         err = float((got - want).abs().max())
         del got, want, scale
         # bound: g, the weight bits and dx each moved once; the products at
-        # the f32 rate (g is f32)
-        b_ms, b_by = bound(M * N * 4 + K * N * wf.nbits // 8 + M * K * 4, 2.0 * M * N * K)
+        # the bf16 rate over the parts of the f32 g and the weight (3 MMAs a
+        # product, 6 for t16), and beside it at the f32 rate
+        rate, rate_name = matmul_rate(torch, fmt, torch.float32)
+        nbytes = M * N * 4 + K * N * wf.nbits // 8 + M * K * 4
+        b_ms, b_by = bound(nbytes, 2.0 * M * N * K, rate)
         copy = transposed_copy(torch, w)
         x_f = x.detach()
         row = dict(
@@ -1278,14 +1333,16 @@ def phase_ad_full(torch, dev):
             launch_key=f"takum_matmul[{impl}^T]", max_abs_err=err, err_over_absprod=ratio,
             ms=time_ms(torch, lambda: takum_matmul_t(g, w, fmt), flush=flush),
             plain_ms=time_ms(torch, lambda: takum_matmul_t_plain(g, w, fmt), flush=flush),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
+            bound_f32_ms=bound(nbytes, 2.0 * M * N * K, F32_FLOPS)[0],
             library_ms=time_ms(torch, lambda: torch.matmul(g, wd.T), flush=flush),
             copy_yardstick_ms=time_ms(torch, lambda: takum_matmul(
                 g, transposed_copy(torch, w), fmt), flush=flush),
             k3_over_copy_ms=time_ms(torch, lambda: takum_matmul(g, copy, fmt), flush=flush),
             forward_k3_ms=time_ms(torch, lambda: takum_matmul(x_f, w, fmt), flush=flush))
         rows.append(row)
-        log(f"(g) {tag}: {row['ms']:.4f} ms (bound {b_ms:.4f}, {b_by}; plain "
+        log(f"(g) {tag}: {row['ms']:.4f} ms on {loop} (bound {b_ms:.4f}, {b_by} at "
+            f"{rate_name}; f32 {row['bound_f32_ms']:.4f}; plain "
             f"{row['plain_ms']:.3f}; torch.matmul {row['library_ms']:.4f}; copy + K3 "
             f"{row['copy_yardstick_ms']:.4f}; K3 over the copy {row['k3_over_copy_ms']:.4f}; "
             f"forward K3 {row['forward_k3_ms']:.4f})")
@@ -1640,15 +1697,18 @@ LOOP_SOURCE = {
     "fma": "src/repro_torch/kernels/csrc/matmul_tile.cuh",
     "mma": "src/repro_torch/kernels/csrc/matmul_mma.cuh",
     "mma_split": "src/repro_torch/kernels/csrc/matmul_mma.cuh",
+    "mma_f32": "src/repro_torch/kernels/csrc/matmul_wgmma.cuh",
 }
 
-#: (kernel, format, codec, shape, path) rows that stand for each kernel in
-#: the summary line: the shapes, formats and codecs each counted path gives
-#: each kernel.  Paths: "takum", "takum8" and "mxfp8" are phase (d)'s
-#: full-depth runs; "mxt8" (mxt8 weights and KV cache) and "bf16" (bf16
-#: weights and KV cache, the path that runs K2 and K6 with the bits codec)
-#: the 2-layer kernel paths of phase (e) at the policy's own bf16
-#: activations.  The codec of each row is its format's default.
+#: (kernel, format, codec, shape, path[, x dtype]) rows that stand for each
+#: kernel in the summary line: the shapes, formats and codecs each counted
+#: path gives each kernel.  Paths: "takum", "takum8" and "mxfp8" are phase
+#: (d)'s full-depth runs; "mxt8" (mxt8 weights and KV cache) and "bf16"
+#: (bf16 weights and KV cache, the path that runs K2 and K6 with the bits
+#: codec) the 2-layer kernel paths of phase (e) at the policy's own bf16
+#: activations, "mxt8/f32" the same at f32 activations (M = 256 there);
+#: "ad" phase (g)'s K5 path.  x is bf16 unless named.  The codec of each
+#: row is its format's default.
 SUMMARY = [
     ("takum_decode_2d", "t16", "bits", [1024, 4096], "takum"),
     ("takum_encode_2d", "t8", "lut", [8192, 128], "takum"),
@@ -1678,6 +1738,11 @@ SUMMARY = [
     ("takum_decode_attention", "mxt8", "lut", [4, 32, 8, 288, 128], "mxt8"),
     ("takum_encode_2d", "bf16", "bits", [8192, 128], "bf16"),
     ("takum_decode_attention", "bf16", "bits", [4, 32, 8, 288, 128], "bf16"),
+    # K3 with f32 x on the wgmma tile: the forward of K5's wi rows (phase
+    # (g)'s autograd path) and mxt8's f32-activation path of phase (e)
+    ("takum_matmul", "t8", "lut", [1024, 4096, 14336], "ad", "float32"),
+    ("takum_matmul", "t16", "bits", [1024, 4096, 14336], "ad", "float32"),
+    ("takum_matmul", "mxt8", "lut", [1024, 4096, 14336], "mxt8/f32", "float32"),
 ]
 
 
@@ -1786,10 +1851,14 @@ def main() -> int:
     for path in ("mxt8", "bf16"):
         launches[path] = next(r["launches"] for r in parity
                               if r["policy"] == path and r["activations"] == "bf16")
+    launches["mxt8/f32"] = next(r["launches"] for r in parity
+                                if r["policy"] == "mxt8" and r["activations"] == "f32")
+    launches["ad"] = ad_counts
     summary = []
-    for kname, fmt, impl, shape, path in SUMMARY:
+    for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
-                   == (kname, fmt, impl, shape))
+                   == (kname, fmt, impl, shape) and r.get("x", "bfloat16") == (x or ["bfloat16"])[0]
+                   and "inputs" not in r)
         tag, source, replaces = KERNEL_INFO[kname]
         name = tag + ("-mx" if fmt.startswith("mx") else "") + ("-lut" if impl == "lut" else "")
         n = launches[path][f"{kname}[{impl}]"]
@@ -1801,8 +1870,8 @@ def main() -> int:
             path=path, launches=n, loop=loop,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
-            **{k: row[k] for k in ("device_ms", "library_device_ms", "library_bf16_out_ms")
-               if k in row}))
+            **{k: row[k] for k in ("bound_rate", "device_ms", "library_device_ms",
+                                   "library_bf16_out_ms") if k in row}))
     # phase (f): K4 and every fused variant, launches from its producer path
     for row in producer_rows:
         tag, source, replaces = KERNEL_INFO[row["kernel"]]
@@ -1819,7 +1888,7 @@ def main() -> int:
             path="producers", launches=n, loop=loop,
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
-            **{k: row[k] for k in ("library_bf16_out_ms",) if k in row}))
+            **{k: row[k] for k in ("bound_rate", "library_bf16_out_ms") if k in row}))
     # phase (g): K5's backward, launches from its autograd path
     for row in ad_rows:
         tag, source, replaces = KERNEL_INFO[row["kernel"]]
@@ -1832,7 +1901,8 @@ def main() -> int:
             route="cuda", source=LOOP_SOURCE[row["loop"]], entry=source, replaces=replaces, path="ad",
             launches=n, loop=row["loop"],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], bound_rate=row["bound_rate"],
+            bound_f32_ms=row["bound_f32_ms"], library_ms=row["library_ms"],
             copy_yardstick_ms=row["copy_yardstick_ms"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

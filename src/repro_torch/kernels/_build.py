@@ -51,8 +51,8 @@ _EPI = [_INT, _INT, _P, _P]
 #: producer then takes its epilogue arguments; the stream comes last.  K3,
 #: K4, K3's transposed twin and K6 also take the f32 workspace of their
 #: split plan after the output, and the plan's numbers after the shapes;
-#: K3, K4 and the transposed twin then the loop (``takum_matmul.LOOPS``),
-#: and K3 and K4 the tensor-core tile's block edge.
+#: K3, K4 and the transposed twin then the loop (``takum_matmul.LOOPS``)
+#: and the tensor-core tiles' block edge.
 ENTRIES = {
     "repro_decode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P]),
     "repro_encode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P, _P]),
@@ -63,7 +63,7 @@ ENTRIES = {
                           [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P,
                            *_EPI, _P]),
     "repro_matmul_wt": ("takum_matmul_wt",
-                        [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P]),
+                        [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P]),
     "repro_decode_attention": (
         "takum_attention",
         [_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _LL, _LL, _LL, _LL, _LL, _LL,

@@ -569,7 +569,7 @@ __device__ __forceinline__ void stage_chunk(uint8_t* dst, const void* p, int len
 // tile's 32 x 32 warp tiles, 32 in the matvec's combine pass), which is
 // why the tile goes through shared memory first.
 //
-// The out format and its codec are runtime values: store_encoded_tile is
+// The out format and its codec are runtime values: store_encoded_tile_by is
 // compiled once per translation unit (__noinline__) and switches on them
 // once per tile, so a producer has one fused instantiation per kernel
 // instantiation, not one per out format and codec.  The encode tables are
@@ -595,15 +595,14 @@ inline bool epilogue_ok(const Epilogue& ep) {
 }
 
 template <int OUT, int OIMPL>
-__device__ __forceinline__ void encode_tile_as(const float* t, int ldt, int rows, int cols,
-                                               void* out, long long row0, long long col0,
+__device__ __forceinline__ void encode_tile_as(int tid, int nt, const float* t, int ldt, int rows,
+                                               int cols, void* out, long long row0, long long col0,
                                                const Epilogue& ep) {
   if constexpr (kIsMx<OUT>) {
     uint8_t* o = static_cast<uint8_t*>(out);
-    const int lane = static_cast<int>(threadIdx.x) & 31;
+    const int lane = tid & 31;
     const int per_row = cols / kMxBlock;  // cols is whole groups
-    for (int grp = static_cast<int>(threadIdx.x) / 32; grp < rows * per_row;
-         grp += static_cast<int>(blockDim.x) / 32) {
+    for (int grp = tid / 32; grp < rows * per_row; grp += nt / 32) {
       const int r = grp / per_row, c = (grp % per_row) * kMxBlock;
       const float x = t[r * ldt + c + lane];
       const uint32_t amax = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(x) & 0x7FFFFFFFu);
@@ -615,7 +614,7 @@ __device__ __forceinline__ void encode_tile_as(const float* t, int ldt, int rows
   } else {
     using T = typename Wire<OUT>::storage;
     T* o = static_cast<T*>(out);
-    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    for (int i = tid; i < rows * cols; i += nt) {
       const int r = i / cols, c = i % cols;
       o[(row0 + r) * ep.ldo + col0 + c] =
           static_cast<T>(elem_encode<OUT, OIMPL>(t[r * ldt + c], ep.meta, ep.aux));
@@ -625,16 +624,16 @@ __device__ __forceinline__ void encode_tile_as(const float* t, int ldt, int rows
 
 // the tile through out format F's codec ep.impl (lut only where F has tables)
 template <int F>
-__device__ __forceinline__ int encode_tile_fmt(const float* t, int ldt, int rows, int cols,
-                                               void* out, long long row0, long long col0,
-                                               const Epilogue& ep) {
+__device__ __forceinline__ int encode_tile_fmt(int tid, int nt, const float* t, int ldt, int rows,
+                                               int cols, void* out, long long row0,
+                                               long long col0, const Epilogue& ep) {
   if constexpr (kHasEncodeLut<F>) {
     if (ep.impl == kLut) {
-      encode_tile_as<F, kLut>(t, ldt, rows, cols, out, row0, col0, ep);
+      encode_tile_as<F, kLut>(tid, nt, t, ldt, rows, cols, out, row0, col0, ep);
       return 0;
     }
   }
-  encode_tile_as<F, kBits>(t, ldt, rows, cols, out, row0, col0, ep);
+  encode_tile_as<F, kBits>(tid, nt, t, ldt, rows, cols, out, row0, col0, ep);
   return 0;
 }
 
@@ -667,15 +666,25 @@ __device__ __forceinline__ int encode_tile_fmt(const float* t, int ldt, int rows
 
 namespace repro {
 
-// Encode the rows x cols tile `t` (row stride ldt floats; every thread of
-// the block calls this after a __syncthreads that made `t` visible) into
-// rows row0.. and columns col0.. of the packed output `out`.  For an mx
-// format col0 and cols are whole 32-element groups.  Returns nonzero only
-// for an out format that epilogue_ok refuses before any launch.
-inline __device__ __noinline__ int store_encoded_tile(const float* t, int ldt, int rows, int cols,
-                                                      void* out, long long row0, long long col0,
-                                                      const Epilogue& ep) {
-  REPRO_WIRE_DISPATCH(ep.code, encode_tile_fmt, t, ldt, rows, cols, out, row0, col0, ep)
+// Encode the rows x cols tile `t` (row stride ldt floats) into rows row0..
+// and columns col0.. of the packed output `out`, shared out among threads
+// 0 .. nt - 1 (tid: the caller's index among them; nt a multiple of 32),
+// which call this after a barrier that made `t` visible.  For an mx format
+// col0 and cols are whole 32-element groups.  Returns nonzero only for an
+// out format that epilogue_ok refuses before any launch.
+inline __device__ __noinline__ int store_encoded_tile_by(int tid, int nt, const float* t, int ldt,
+                                                         int rows, int cols, void* out,
+                                                         long long row0, long long col0,
+                                                         const Epilogue& ep) {
+  REPRO_WIRE_DISPATCH(ep.code, encode_tile_fmt, tid, nt, t, ldt, rows, cols, out, row0, col0, ep)
+}
+
+// store_encoded_tile_by over every thread of the block
+__device__ __forceinline__ int store_encoded_tile(const float* t, int ldt, int rows, int cols,
+                                                  void* out, long long row0, long long col0,
+                                                  const Epilogue& ep) {
+  return store_encoded_tile_by(static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x), t,
+                               ldt, rows, cols, out, row0, col0, ep);
 }
 
 }  // namespace repro

@@ -2,7 +2,8 @@
 // but t16): out[M, N] = X[M, K] @ decode(w_bits[K, N]) on Hopper's bf16
 // tensor cores, f32 accumulation; and launch_loop, the one dispatch of K3,
 // K4 and K3's transposed launch over their loops (the split-K matvec, the
-// FMA tile, this tile), as kernels/takum_matmul.py tile_for names them.
+// FMA tile, this tile, the f32-x tile of matmul_wgmma.cuh), as
+// kernels/takum_matmul.py tile_for names them.
 //
 // Replaces, above M = 16, the Pallas kernel src/repro/kernels/takum_matmul.py:56
 // _mm_kernel (dual=False: entry takum_matmul :166 with bf16 x; dual=True:
@@ -91,7 +92,7 @@ constexpr int kXCh = kBK / 8;  // 16-byte chunks per row of an A tile
 constexpr int kAPitch = (kBK + 8) * 2;  // bytes per row of an A tile: padded by 16 bytes
 
 // the loop a launch runs: kernels/takum_matmul.py LOOPS
-enum Loop : int { kMatvec = 0, kFma = 1, kMma = 2, kMmaSplit = 3 };
+enum Loop : int { kMatvec = 0, kFma = 1, kMma = 2, kMmaSplit = 3, kMmaF32 = 4 };
 
 template <int FMT, int XMODE, int BM, int BN>
 struct Cfg {
@@ -633,11 +634,25 @@ mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ w, void* __re
 template <int FMT, int XMODE, bool WT>
 inline constexpr bool kHasMma =
     !WT && (XMODE == repro_mm::kXBF16 || (XMODE == repro_mm::kXWire && FMT != repro::kT16));
-// Whether they have the FMA tile: f32 x (K3 and its transposed launch) and
-// K4 over t16.
+// Whether they have the FMA tile as a loop of its own: K4 over t16
+// (unfused and fused), and K3 with f32 x unfused only, whose loop is the
+// wgmma tile: the FMA loop stays launchable beside it as the reference its
+// fallback blocks are held against (tests/test_torch_gpu.py).
 template <int FMT, int XMODE, bool WT>
 inline constexpr bool kHasFma =
-    XMODE == repro_mm::kXF32 || (XMODE == repro_mm::kXWire && FMT == repro::kT16);
+    !WT && (XMODE == repro_mm::kXF32 || (XMODE == repro_mm::kXWire && FMT == repro::kT16));
+
+}  // namespace repro_mma
+
+namespace repro_wg {
+// the f32-x tile's launch (matmul_wgmma.cuh, which the sources that launch
+// it include: takum_matmul.cu, takum_matmul_wt.cu)
+template <int FMT, int IMPL, bool WT, bool FUSED, int BM>
+int launch_wgmma(const float* x, const void* w, void* out, int M, int N, int K, const int* tab,
+                 const repro::Epilogue& ep, cudaStream_t stream);
+}  // namespace repro_wg
+
+namespace repro_mma {
 
 template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN>
 int launch_mma(const void* x, const void* w, void* out, int M, int N, int K, const int* tab,
@@ -659,7 +674,7 @@ int launch_mma(const void* x, const void* w, void* out, int M, int N, int K, con
 
 // One launch of K3 (XMODE kXF32 / kXBF16), K4 (kXWire) or K3's transposed
 // launch (WT) on the loop `loop` that the wrapper chose (tile_for), with
-// `tile` the tensor-core tile's block rows (mma_plan: 128 or 64); unfused
+// `tile` the tensor-core tiles' block rows (mma_plan: 128 or 64); unfused
 // or fused as ep asks.  A loop that FMT and XMODE do not have, a tile that
 // does not exist, an M outside the loop's range or a refused shared-memory
 // opt-in returns an error: nothing falls back to another loop.
@@ -682,15 +697,37 @@ int launch_loop(int loop, int tile, const void* x, const void* w, void* out, flo
   if (M <= repro_mv::kMaxM) return bad;
   if (loop == kFma) {
     if constexpr (kHasFma<FMT, XMODE, WT>) {
-      if (fused) {
-        if constexpr (!WT) {
-          return repro_mm::launch_tiled<FMT, IMPL, XMODE, true>(x, w, out, M, N, K, t, ep,
-                                                               stream);
-        }
-        return bad;
+      if (!fused) {
+        return repro_mm::launch_tiled<FMT, IMPL, XMODE, false>(x, w, out, M, N, K, t, ep, stream);
       }
-      return repro_mm::launch_tiled<FMT, IMPL, XMODE, false, WT>(x, w, out, M, N, K, t, ep,
-                                                                stream);
+      if constexpr (XMODE == repro_mm::kXWire) {
+        return repro_mm::launch_tiled<FMT, IMPL, XMODE, true>(x, w, out, M, N, K, t, ep, stream);
+      }
+    }
+    return bad;
+  }
+  if (loop == kMmaF32) {
+    if constexpr (XMODE == repro_mm::kXF32) {
+      const float* xf = static_cast<const float*>(x);
+      if constexpr (WT) {
+        if (tile == 128) return repro_wg::launch_wgmma<FMT, IMPL, true, false, 128>(
+            xf, w, out, M, N, K, t, ep, stream);
+        if (tile == 64) return repro_wg::launch_wgmma<FMT, IMPL, true, false, 64>(
+            xf, w, out, M, N, K, t, ep, stream);
+      } else {
+        if (tile == 128) {
+          return fused ? repro_wg::launch_wgmma<FMT, IMPL, false, true, 128>(xf, w, out, M, N, K,
+                                                                            t, ep, stream)
+                       : repro_wg::launch_wgmma<FMT, IMPL, false, false, 128>(xf, w, out, M, N, K,
+                                                                             t, ep, stream);
+        }
+        if (tile == 64) {
+          return fused ? repro_wg::launch_wgmma<FMT, IMPL, false, true, 64>(xf, w, out, M, N, K, t,
+                                                                           ep, stream)
+                       : repro_wg::launch_wgmma<FMT, IMPL, false, false, 64>(xf, w, out, M, N, K,
+                                                                            t, ep, stream);
+        }
+      }
     }
     return bad;
   }

@@ -1,17 +1,19 @@
-// The FMA tile: out[M, N] = X[M, K] @ decode(w_bits[K, N]) with f32 FMAs,
-// for the launches above M = 16 that the bf16 tensor cores cannot carry
-// exactly: K3 with f32 x (takum_matmul.cu), K3's transposed launch (K5's
-// backward, takum_matmul_wt.cu, always f32) and K4 over t16
-// (takum_dual_matmul.cu, whose two split operands would need four products
-// per pair); X is x itself (f32) or decode(x_bits) (K4).  Also the fallback
-// of the tensor-core tile (matmul_mma.cuh) for a block that meets a value
-// its bf16 parts do not carry exactly.  The loop a launch runs is the
+// The FMA tile: out[M, N] = X[M, K] @ decode(w_bits[K, N]) with f32 FMAs.
+// Above M = 16 it is the loop of K4 over t16 (takum_dual_matmul.cu, whose
+// two split operands would need four products per pair; X = decode(x_bits))
+// and the fallback of both tensor-core tiles (fma_tile: matmul_mma.cuh for
+// bf16 x and K4, matmul_wgmma.cuh for f32 x and K3's transposed launch) for
+// a block that meets a value its bf16 parts do not carry exactly; K3's C
+// entry keeps it launchable, unfused, for f32 x too (X = x itself), so that
+// the wgmma tile's fallback can be held against it.  The loop a launch runs is the
 // wrapper's choice (kernels/takum_matmul.py tile_for); M <= 16 runs the
-// split-K matvec of matvec_splitk.cuh, bf16 x above it the tensor-core tile.
+// split-K matvec of matvec_splitk.cuh, above it bf16 x the tensor-core tile
+// of matmul_mma.cuh and f32 x the wgmma tile of matmul_wgmma.cuh.
 //
 // Replaces, for those launches, the Pallas kernel
-// src/repro/kernels/takum_matmul.py:56 _mm_kernel (dual=False: entry
-// takum_matmul :166; dual=True: entry takum_dual_matmul :227) for the flat
+// src/repro/kernels/takum_matmul.py:56 _mm_kernel (dual=True: entry
+// takum_dual_matmul :227; as the fallback also dual=False, entry
+// takum_matmul :166, and the backward rule :211) for the flat
 // formats and the mx payloads (its `mx` branch, :61-80, :111-132), with
 // either codec (IMPL kBits, or kLut: its `lut` branch, :139-142), and its
 // out_fmt epilogue (:96-106).  The TPU kernel carries an f32 accumulator
@@ -30,12 +32,15 @@
 // [M, K/32*33] blocked along K, element k scaled by its group's byte at
 // (k/32)*33, as K3-mx reads w along N).  Out-of-range M/N lanes are never
 // stored; K-edge lanes are zero on BOTH operands, so a NaN in padding can
-// never meet a 0.  No tensor cores here: an f32 x fits no bf16 tensor-core
-// type exactly (a three-way split would), and TF32 keeps 10 fraction bits.
+// never meet a 0.  No tensor cores here: K4's t16 operands would each need
+// their hi/lo split (four products a pair), and the fallback exists for the
+// values no bf16 parts carry.  An f32 x runs on the tensor cores through its
+// exact three-way bf16 split (matmul_wgmma.cuh).
 //
 // Bound on the H100: the products at 67 TFLOP/s f32 outside the tensor
 // cores (at M = 1024 over 4096 x 14336: 1.795 ms).  The loop issues 8
-// shared loads per 16 FMAs per k and reaches about 30 % of that rate.
+// shared loads per 16 FMAs per k and reaches about 30 % of that rate
+// (K5's backward on it took 6.7 ms t8, 8.9 ms t16 on an H100, PERF.md §6).
 //
 // An mx weight is the payload [K, ceil(N/32)*33], blocked along N: row k
 // holds the groups [s, e0..e31] of columns 32g..32g+31.  N need not be a
@@ -50,15 +55,16 @@
 // bits decode's and the k terms are added in the same order, so the two
 // codecs give the same output bit for bit.
 //
-// WT (K5's backward above M = 16, takum_matmul_wt.cu): the weight is stored
-// transposed, w_bits[N, K] row-major, and the kernel computes
-// X @ decode(w_bits)^T without copying it: element (k, n) is read at w[n * K + k] (the index in
+// WT (fma_tile only: the fallback of K5's backward above M = 16 on the
+// wgmma tile, takum_matmul_wt.cu): the weight is stored transposed,
+// w_bits[N, K] row-major, and the pass computes X @ decode(w_bits)^T
+// without copying it: element (k, n) is read at w[n * K + k] (the index in
 // 64 bits).  The w tile is then filled with the thread index running along
 // k (kk = i % BK), so that neighbouring threads read neighbouring bytes of
 // one stored row; the shared tile's rows are padded by 32 / BK floats, which
 // spreads the column a warp stores (BK k's of 32 / BK n's) over all 32
-// banks.  The K loop, and so every output, is the same as the unfused
-// launch over a copy of w_bits^T; flat formats only (an mx payload's scale
+// banks.  The K loop, and so every output, is the same as the pass over a
+// copy of w_bits^T; flat formats only (an mx payload's scale
 // bytes are bound to blocks of the stored last axis).
 //
 // FUSED (out_fmt): the same tile and the same K loop as the unfused launch
@@ -93,6 +99,18 @@ __device__ __forceinline__ float load_x(const void* x, long long gm, int gk, int
   }
 }
 
+// A barrier of threads 0 .. NT - 1: __syncthreads for BAR 0 (the whole
+// block), else named barrier BAR over those NT threads (a warp-specialised
+// kernel's consumers, matmul_wgmma.cuh).
+template <int BAR, int NT>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (BAR == 0) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(NT) : "memory");
+  }
+}
+
 // The shared memory of one fma_tile pass.
 template <int BM, int BN, int BK, bool WT>
 struct FmaSmem {
@@ -106,9 +124,9 @@ struct FmaSmem {
 // for thread (tx, ty) = (tid % (BN / TN), tid / (BN / TN)).  Each BK step's
 // k terms are summed, ascending, into a fresh partial that is then added to
 // acc: a blocked order, K / BK adds per output in series rather than K.
-// Every one of the block's NT threads calls it (it holds __syncthreads).
+// Threads 0 .. NT - 1 call it, and they alone: it holds block_sync<BAR, NT>.
 template <int FMT, int IMPL, int XMODE, int BM, int BN, int BK, int TM, int TN, bool WT,
-          int NT = kThreads>
+          int NT = kThreads, int BAR = 0>
 __device__ __forceinline__ void fma_tile(const void* __restrict__ x,
                                          const typename repro::Wire<FMT>::storage* __restrict__ w,
                                          int M, int N, int K, const int* dtab, int m0, int n0,
@@ -139,7 +157,7 @@ __device__ __forceinline__ void fma_tile(const void* __restrict__ x,
                             ? repro::e8m0_decode(w[gk * ldw + repro::mx_scale_at(gn)])
                             : 0.0f;
       }
-      __syncthreads();
+      block_sync<BAR, NT>();
       for (int i = tid; i < BK * BN; i += kThreads) {
         const int kk = i / BN, nn = i % BN;
         const int gk = k0 + kk, gn = n0 + nn;
@@ -167,7 +185,7 @@ __device__ __forceinline__ void fma_tile(const void* __restrict__ x,
                 : 0.0f;
       }
     }
-    __syncthreads();
+    block_sync<BAR, NT>();
     float part[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -189,7 +207,7 @@ __device__ __forceinline__ void fma_tile(const void* __restrict__ x,
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
+    block_sync<BAR, NT>();
   }
 }
 
@@ -208,20 +226,19 @@ __device__ __forceinline__ void put_sub_tile(const float (&acc)[TM][TN], float* 
   }
 }
 
-template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN,
-          bool WT = false>
+template <int FMT, int IMPL, int XMODE, bool FUSED, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
 mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* __restrict__ w,
           void* __restrict__ out, int M, int N, int K, const int* __restrict__ tab,
           repro::Epilogue ep) {
-  __shared__ FmaSmem<BM, BN, BK, WT> sm;
+  __shared__ FmaSmem<BM, BN, BK, false> sm;
   __shared__ int tab_s[repro::kDecodeTabInts<FMT, IMPL>];  // lut: an 8-bit decode table
   const int* dtab = repro::stage_decode_table<FMT, IMPL>(tab, tab_s);
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   float acc[TM][TN];
-  fma_tile<FMT, IMPL, XMODE, BM, BN, BK, TM, TN, WT>(x, w, M, N, K, dtab, m0, n0, sm, acc);
+  fma_tile<FMT, IMPL, XMODE, BM, BN, BK, TM, TN, false>(x, w, M, N, K, dtab, m0, n0, sm, acc);
   if constexpr (FUSED) {
     __shared__ float os[BM][BN];  // the finished tile, for the epilogue
     put_sub_tile(acc, &os[0][0], BN, ty * TM, tx * TN, BM, BN);
@@ -234,12 +251,12 @@ mm_kernel(const void* __restrict__ x, const typename repro::Wire<FMT>::storage* 
 }
 
 // The 64 x 64 tile's launch, unfused or (FUSED) with the out_fmt flush.
-template <int FMT, int IMPL, int XMODE, bool FUSED, bool WT = false>
+template <int FMT, int IMPL, int XMODE, bool FUSED>
 int launch_tiled(const void* x, const void* w, void* out, int M, int N, int K, const int* tab,
                  const repro::Epilogue& ep, cudaStream_t stream) {
   using T = typename repro::Wire<FMT>::storage;
   const dim3 grid((N + 63) / 64, (M + 63) / 64);
-  mm_kernel<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4, WT><<<grid, kThreads, 0, stream>>>(
+  mm_kernel<FMT, IMPL, XMODE, FUSED, 64, 64, 16, 4, 4><<<grid, kThreads, 0, stream>>>(
       x, static_cast<const T*>(w), out, M, N, K, tab, ep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,19 +3,23 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/takum_matmul.py:56
 // _mm_kernel(dual=False) (entry takum_matmul :166); here x is f32 or bf16
-// (XMODE kXF32 / kXBF16).  Three loops, chosen by the wrapper from (M, x
+// (XMODE kXF32 / kXBF16).  Four loops, chosen by the wrapper from (M, x
 // type, format) alone (kernels/takum_matmul.py tile_for) and passed in as
 // `loop`: at M <= 16 (the decode step) the split-K matvec of
 // matvec_splitk.cuh, bound by the weight bytes; above it, for bf16 x, the
 // tensor-core tile of matmul_mma.cuh (t16 through its exact hi/lo split),
-// bound by the bf16 tensor-core rate; for f32 x, which fits no bf16
-// tensor-core type exactly, the 64 x 64 FMA tile of matmul_tile.cuh, bound
-// by the f32 products.  Instantiations, per format and codec: the matvec
-// (MB 4 and 16) for both x types, the tensor-core tile (128 x 128 and
-// 64 x 64, each unfused and fused) for bf16 x, the FMA tile (unfused and fused) for f32
-// x; the fused kernels and the fused combine pass call one epilogue helper
-// that switches on the out format and codec at run time.
-#include "matmul_mma.cuh"
+// for f32 x the warp-specialised wgmma tile of matmul_wgmma.cuh (x through
+// its exact three-way bf16 split), both bound by the bf16 tensor-core rate
+// over their MMAs per product; the 64 x 64 FMA tile of matmul_tile.cuh is
+// the fallback of both tiles, and stays launchable, unfused, for f32 x as
+// the reference the wgmma tile's fallback blocks are held against.
+// Instantiations, per format and codec: the matvec (MB 4 and 16) for both
+// x types, the tensor-core tiles (128 x 128 and 64 x 64, each unfused and
+// fused) for each x type (the wgmma tile's flat formats twice: TMA and
+// cp.async copies), the FMA tile (unfused) for f32 x; the
+// fused kernels and the fused combine pass call one epilogue helper that
+// switches on the out format and codec at run time.
+#include "matmul_wgmma.cuh"
 
 namespace {
 

@@ -31,12 +31,25 @@ format) alone, passed to the C entry as an int (``LOOPS``):
 - M > 16 with bf16 x (K3), or K4 over any format but t16: the bf16
   tensor-core tile of ``csrc/matmul_mma.cuh`` (``"mma"``; t16 weights under
   K3 through the exact hi/lo split, ``"mma_split"``), its block shape from
-  :func:`mma_plan`.  A block that meets a value its bf16 parts cannot carry
-  exactly (f32's largest finite value, from a saturating t8 / t16 code; an
-  infinite x under the split) recomputes its tile on the FMA loop inside
-  the same kernel.
-- M > 16 with f32 x (K3, and every transposed launch), or K4 over t16: the
-  64 x 64 FMA tile of ``csrc/matmul_tile.cuh`` (``"fma"``).
+  :func:`mma_plan`.
+- M > 16 with f32 x (K3, and every transposed launch): the warp-specialised
+  wgmma tile of ``csrc/matmul_wgmma.cuh`` (``"mma_f32"``), x through the
+  exact three-way bf16 split of :func:`split3_bf16` (three MMAs per
+  product, six for t16), the same block shapes.  It replaces, on Hopper,
+  ``repro``'s ``_mm_kernel`` (``takum_matmul.py:56``) for f32 x and the
+  backward rule ``_takum_matmul_bwd`` (``:211``); at M = 1024 on
+  llama3-8b's wi its MMAs bound it at 0.365 ms (t8) and 0.730 ms (t16) on
+  the H100's bf16 rate, against 1.795 ms for f32 FMAs.  Its producers load
+  the raw tiles by tensor-map copies (TMA) where x's and the weight's rows
+  are 16-byte multiples, else by per-thread cp.async (mx, ragged rows).
+- M > 16, K4 over t16: the 64 x 64 FMA tile of ``csrc/matmul_tile.cuh``
+  (``"fma"``): both split operands would need four products per pair.
+
+A tensor-core block that meets a value its bf16 parts cannot carry exactly
+(f32's largest finite value, from a saturating t8 / t16 code; an infinite
+x under the t16 split; under the x split a non-finite x, a nonzero one off
+bf16's grid below 2^-110, or an infinite weight) recomputes its tile on
+the FMA loop inside the same kernel.
 
 The C entry refuses a loop it has no kernel for; nothing falls back.
 
@@ -70,9 +83,10 @@ MATVEC_BN = 128
 MATVEC_X_FLOATS = 4096
 #: the loops of K3, K4 and the transposed K3, by their C code
 #: (``repro_mma::Loop`` of csrc/matmul_mma.cuh)
-LOOPS = ("matvec", "fma", "mma", "mma_split")
-#: the tensor-core tile's block shapes (rows, columns), largest first
-#: (csrc/matmul_mma.cuh); the C entries take the rows as ``tile``
+LOOPS = ("matvec", "fma", "mma", "mma_split", "mma_f32")
+#: the tensor-core tiles' block shapes (rows, columns), largest first
+#: (csrc/matmul_mma.cuh, csrc/matmul_wgmma.cuh); the C entries take the rows
+#: as ``tile``
 MMA_TILES = ((128, 128), (64, 64))
 #: streaming multiprocessors of the H100: 128 x 128 blocks of the tensor-core
 #: tile run one per SM, so a grid of fewer leaves SMs idle
@@ -126,16 +140,44 @@ def tile_for(M: int, x_kind: str, fmt) -> str:
       split into two bf16 parts;
     - K4 (``"wire"``): ``"mma"``, but t16 ``"fma"`` (both operands would need
       the split: four products per pair);
-    - f32 x (K3 and its transposed launch): ``"fma"``, the FMA tile (an f32
-      x fits no bf16 tensor-core type exactly)."""
+    - f32 x (K3 and its transposed launch): ``"mma_f32"``, the wgmma tile,
+      x split into three bf16 parts (:func:`split3_bf16`), every format."""
     if x_kind not in ("f32", "bf16", "wire"):
         raise ValueError(f"x_kind must be 'f32', 'bf16' or 'wire', got {x_kind!r}")
     if M <= MATVEC_MAX_M:
         return "matvec"
     t16 = kernel_format(fmt).name == "t16"
-    if x_kind == "f32" or (x_kind == "wire" and t16):
+    if x_kind == "f32":
+        return "mma_f32"
+    if x_kind == "wire" and t16:
         return "fma"
     return "mma_split" if t16 else "mma"
+
+
+#: the smallest |x| whose three bf16 parts always sum to x: below it, x's
+#: lowest bits can fall under bf16's finest step, its smallest subnormal
+SPLIT3_EDGE = 2.0 ** -110
+
+
+def split3_bf16(x: torch.Tensor):
+    """The three-way bf16 split of f32 ``x`` that the wgmma tile
+    (``csrc/matmul_wgmma.cuh`` ``split3_8``) multiplies, as f32 tensors
+    holding bf16 values, and its vote: ``(hi, mid, lo, vote)`` with hi =
+    x with its low 16 bits cleared, mid the same of r = x - hi, lo = r -
+    mid (both subtractions exact), and ``vote`` True where x is not the
+    exact sum of three bf16 parts: x not finite, or lo off bf16's grid
+    (not a multiple of 2^-133), which happens only for nonzero |x| <
+    ``SPLIT3_EDGE``.  Elsewhere hi + mid + lo == x (for x = -0, +0)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    top = -(1 << 16)  # 0xFFFF0000 as int32
+    hi = (bits & top).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & top).view(torch.float32)
+    lo = r - mid
+    vote = ~torch.isfinite(x) | ((lo.view(torch.int32) & 0xFFFF) != 0)
+    return hi, mid, lo, vote
 
 
 class MmaPlan(NamedTuple):
@@ -347,16 +389,17 @@ def takum_matmul_t(g: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None)
     if _check_device(g, w_bits, "g and w_bits"):
         return takum_matmul_t_plain(g, w_bits, wf, decode_impl=impl)
     # the kernel's out[M, N] = g[M, K] @ decode(w[N, K])^T, in its own names
-    # (at M <= 16 the plan of K3 over a transposed copy: the same order)
+    # (the plan of K3 over a transposed copy, and the same order)
     (M, K), N = g.shape, w_bits.shape[0]
     _check_dims(M, N, K)
     out = torch.empty((M, N), dtype=torch.float32, device=g.device)
     if out.numel():
-        loop, ws, chunk, _ = _loop_args(M, N, K, "f32", wf, g.device)
+        loop, ws, chunk, tile = _loop_args(M, N, K, "f32", wf, g.device)
         fn = _build.entry("repro_matmul_wt")
         _build.check(
             fn(g.data_ptr(), w_bits.data_ptr(), out.data_ptr(), _ptr(ws), M, N, K, chunk,
-               LOOPS.index(loop), wf.code, IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", g.device), stream_of(g)),
+               LOOPS.index(loop), tile, wf.code, IMPL_CODE[impl],
+               *table_ptrs(wf, impl, "decode", g.device), stream_of(g)),
             "takum_matmul_t",
         )
         count_launch(takum_matmul, launch_key(impl, transposed=True))

@@ -22,7 +22,10 @@ M <= 16 (the split-K matvec) and K6 (split S with an ordered combine) must
 also give the same bits on a second launch.  The tensor-core tile (K3 with
 bf16 x above M = 16, K4 above M = 16) is held to the same limit at M = 17,
 37 and 1024, with specials, NaN bits past the operands' ends, and every
-code of every format carried exactly; K4 at M <= 16 runs the matvec.
+code of every format carried exactly; K4 at M <= 16 runs the matvec.  The
+wgmma tile (K3 with f32 x above M = 16, and the transposed K3) likewise, at
+ragged shapes, fused, all-positive at the prefill's depths against the f64
+sum, and with the blocks its vote sends to the FMA tile equal to that loop.
 """
 
 import pytest
@@ -31,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.formats import wire_format
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import takum_matmul as takum_matmul_mod
 from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
 from repro_torch.kernels.takum_attention import (attention_plan, decode_attention_plain,
                                                  takum_decode_attention)
@@ -391,9 +395,9 @@ def _transposed_copy(w):
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("fmt", FMTS)
 def test_transposed_matmul_kernel_within_limit(cuda, fmt, impl):
-    """K5's backward at both loops (M = 3: the matvec; 37: the FMA tile) over
-    a stored weight [96, 1000]: the reduction (1000) is a multiple of neither K tile, the
-    output (96) of neither N tile."""
+    """K5's backward at both loops (M = 3: the matvec; 37: the wgmma tile)
+    over a stored weight [96, 1000]: the reduction (1000) is a multiple of
+    neither K stage, the output (96) of neither N tile."""
     w = takum_encode_2d(_rand((96, 1000), 51, 1000 ** -0.5), fmt)
     wd = ref.codec_decode_ref(w, fmt)
     for M in (3, 37):
@@ -563,7 +567,7 @@ def test_mma_tile_within_limit_and_deterministic(cuda, fmt):
     group): within 4e-6 * (|x| @ |w|) of the plain version under each
     codec, lut equal to bits and a second launch equal to the first, bit for
     bit; all-positive inputs (the partial sum is then the whole |x| @ |w|)
-    at M = 1024 too.  f32 x at M = 37 keeps the FMA tile."""
+    at M = 1024 too.  f32 x at M = 37 runs the wgmma tile."""
     K, N = 1000, 777
     loop = "mma_split" if fmt == "t16" else "mma"
     for positive in (False, True):
@@ -584,7 +588,7 @@ def test_mma_tile_within_limit_and_deterministic(cuda, fmt):
                 assert ((got.cpu() - want).abs() <= bound).all(), (M, impl, positive)
     x = _rand((37, K), 209)
     got = takum_matmul(x.to(cuda), wc, fmt, n, "bits")
-    assert takum_matmul.last_loop == "fma"
+    assert takum_matmul.last_loop == "mma_f32"
     assert ((got.cpu() - takum_matmul_plain(x, w, fmt, n)).abs()
             <= 4e-6 * (x.abs() @ wd.abs())).all()
 
@@ -734,3 +738,195 @@ def test_mma_tile_fused_equals_encode_of_unfused(cuda, fmt):
             assert takum_matmul.last_loop in ("mma", "mma_split")
             want = takum_encode_2d(unfused, out, impl)
             assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (M, out, impl)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma tile (K3 with f32 x above M = 16, and the transposed K3): x split
+# into three bf16 parts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_mma_f32_tile_within_limit_and_deterministic(cuda, fmt):
+    """K3 with f32 x at (M, K) in {(37, 1000), (1000, 1000), (37, 999)} over
+    N = 777 (mx: a padded last group; K = 1000 and 999 a multiple of no
+    32-k stage, K = 999 rows of x not 16-byte aligned), both block edges
+    (mma_plan: 64 x 64 at these N): within 4e-6 * (|x| @ |w|) of the plain
+    version under each codec, lut equal to bits, a second launch equal to
+    the first, and fused into t8 K2's encode of the unfused output, bit for
+    bit."""
+    N = 777
+    for M, K in ((37, 1000), (1000, 1000), (37, 999)):
+        w, n, wd = _weight(fmt, K, N, 240 + K)
+        wc = w.to(cuda)
+        x = _rand((M, K), 241 + M)
+        xc = x.to(cuda)
+        bound = 4e-6 * (x.abs() @ wd.abs())
+        bits = takum_matmul(xc, wc, fmt, n, "bits")
+        assert takum_matmul.last_loop == "mma_f32"
+        for impl in IMPLS:
+            got = takum_matmul(xc, wc, fmt, n, impl)
+            assert _same_f32(got, bits), (M, K, impl)
+            assert _same_f32(got, takum_matmul(xc, wc, fmt, n, impl))
+            want = takum_matmul_plain(x, w, fmt, n, decode_impl=impl)
+            assert ((got.cpu() - want).abs() <= bound).all(), (M, K, impl)
+        # fused into t8 (mx out needs whole 32-column groups: the next test)
+        fused = takum_matmul(xc, wc, fmt, n, "bits", "t8", "lut")
+        assert torch.equal(fused, takum_encode_2d(bits, "t8", "lut")), (M, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16", "mxt8"))
+def test_mma_f32_tile_fused_equals_encode_of_unfused(cuda, fmt):
+    """The wgmma tile at both block edges (M = 37, N = 160: 64; M = 1024,
+    N = 4096: 128), fused into every out format and encode codec: K2's
+    encode of the unfused output, bit for bit."""
+    for M, K, N in ((37, 1000, 160), (1024, 512, 4096)):
+        w, n, _ = _weight(fmt, K, N, 250)
+        wc = w.to(cuda)
+        x = _rand((M, K), 251).to(cuda)
+        unfused = takum_matmul(x, wc, fmt, n)
+        for out, impl in OUT_CASES:
+            got = takum_matmul(x, wc, fmt, n, out_fmt=out, encode_impl=impl)
+            assert takum_matmul.last_loop == "mma_f32"
+            want = takum_encode_2d(unfused, out, impl)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (M, out, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS)
+def test_mma_f32_transposed_equals_k3_over_a_copy(cuda, fmt):
+    """The transposed launch on the wgmma tile at M = 37 and 1024 over
+    stored [N, K] = [777, 1000] and [4096, 1024] (both block edges), each
+    codec: equal to K3 over a transposed copy bit for bit, within 4e-6 of
+    |g| @ |w|.T of its plain version."""
+    for M, N, K in ((37, 777, 1000), (1024, 4096, 1024)):
+        w = takum_encode_2d(_rand((N, K), 260 + N, K ** -0.5), fmt)
+        wd = ref.codec_decode_ref(w, fmt)
+        wc = w.to(cuda)
+        copy = _transposed_copy(wc)
+        g = _rand((M, K), 261 + M)
+        for impl in IMPLS:
+            got = takum_matmul_t(g.to(cuda), wc, fmt, impl)
+            assert takum_matmul_t.last_loop == "mma_f32"
+            assert _same_f32(got, takum_matmul(g.to(cuda), copy, fmt, decode_impl=impl)), (M, impl)
+            want = takum_matmul_t_plain(g, w, fmt, decode_impl=impl)
+            assert ((got.cpu() - want).abs() <= 4e-6 * (g.abs() @ wd.abs().T)).all(), (M, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", (37, 1024))
+@pytest.mark.parametrize("fmt", ("t8", "t16"))
+def test_matmul_ad_step_on_the_wgmma_tile(cuda, fmt, M):
+    """One autograd step of K5 above M = 16 launches exactly one K3 and one
+    transposed K3, both on the wgmma tile, and x.grad is the plain backward
+    of its cotangent within 4e-6 of |g| @ |w|.T."""
+    w = takum_encode_2d(_rand((512, 640), 270, 512 ** -0.5), fmt).to(cuda)
+    x = _rand((M, 512), 271).to(cuda).requires_grad_()
+    ops.reset_launch_counts()
+    y = takum_matmul_ad(x, w, fmt)
+    assert takum_matmul.last_loop == "mma_f32"
+    (y ** 2).sum().backward()
+    assert takum_matmul_t.last_loop == "mma_f32"
+    impl = "lut" if fmt == "t8" else "bits"
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    assert got == {f"takum_matmul[{impl}]": 1, f"takum_matmul[{impl}^T]": 1}
+    g = 2 * y.detach().cpu()
+    wd = ref.codec_decode_ref(w.cpu(), fmt)
+    want = takum_matmul_t_plain(g, w.cpu(), fmt)
+    assert ((x.grad.cpu() - want).abs() <= 4e-6 * (g.abs() @ wd.abs().T)).all()
+    ops.reset_launch_counts()
+
+
+def _fma_loop(monkeypatch, fn, *args, **kw):
+    """``fn`` with the wrappers' loop forced to the FMA tile (which the C
+    entries keep for f32 x as the wgmma tile's fallback)."""
+    with monkeypatch.context() as m:
+        m.setattr(takum_matmul_mod, "tile_for", lambda M, kind, fmt: "fma")
+        return fn(*args, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ((300, 300, 300), (1024, 512, 4096)))
+@pytest.mark.parametrize("fmt", ("t8", "t16", "e5m2", "bf16", "mxt8"))
+def test_mma_f32_fallback_blocks_equal_the_fma_loop(cuda, monkeypatch, fmt, shape):
+    """Blocks the wgmma tile's vote sends to its FMA fallback: x rows with
+    +inf, NaN and a sub-edge value (1.2345 * 2^-120, not a multiple of
+    2^-133), each in a block of its own, and a weight column with a
+    saturating code (t8 0x7F, t16 0x7FFF: f32's largest value; mxt8 the same
+    element under scale byte 120) or inf (e5m2, bf16).  At M = K = N = 300
+    the blocks are 64 x 64 (mma_plan: one consumer warpgroup), at M = 1024,
+    N = 4096 128 x 128 (two, setmaxnreg, TN = 4 in the fallback).  Every
+    output of a flagged block equals the FMA loop's bit for bit, NaN
+    matching NaN; the rest are within 4e-6 * (|x| @ |w|) of the plain
+    version.  Fused into t8 (and mxe4m3 where N is whole 32-column groups),
+    the output is K2's encode of the unfused one bit for bit; the transposed
+    launch over a transposed copy of the same bits (flat formats) gives the
+    unfused output."""
+    M, K, N = shape
+    tile = takum_matmul_mod.mma_plan(M, N).rows
+    assert tile == (64 if M == 300 else 128)
+    w, n, _ = _weight(fmt, K, N, 280)
+    wf = wire_format(fmt)
+    sat = {"t8": 0x7F, "t16": 0x7FFF, "e5m2": 0x7C, "bf16": 0x7F80}.get(fmt)
+    k_sat, n_sat = K * 2 // 5, N * 2 // 3 + 1
+    if wf.is_block_scaled:
+        g = w[k_sat].view(torch.uint8)
+        grp = n_sat // 32 * 33
+        g[grp] = 120                      # the group's scale byte: 2^-7
+        g[grp + 1 + n_sat % 32] = 0x7F    # a saturating t8 element under it
+    else:
+        wv = w.view(wf.signed_storage)
+        wv[k_sat, n_sat] = sat - (1 << 16) if sat >= 1 << 15 else sat
+    wd = ref.codec_decode_ref(w, fmt)[:, :N]
+    x = _rand((M, K), 281)
+    rows = (5, M // 4 + 6, M - 3)
+    x[rows[0], 7] = float("inf")
+    x[rows[1], 9] = float("nan")
+    x[rows[2], 11] = 1.2345 * 2.0 ** -120
+    assert len({r // tile for r in rows}) == 3
+    xc, wc = x.to(cuda), w.to(cuda)
+    got = takum_matmul(xc, wc, fmt, n)
+    assert takum_matmul.last_loop == "mma_f32"
+    fma = _fma_loop(monkeypatch, takum_matmul, xc, wc, fmt, n).cpu()
+    flagged = torch.zeros((M, N), dtype=torch.bool)
+    for r in rows:
+        flagged[r // tile * tile:(r // tile + 1) * tile] = True
+    flagged[:, n_sat // tile * tile:(n_sat // tile + 1) * tile] = True
+    assert _same_f32(got.cpu()[flagged], fma[flagged])
+    want = takum_matmul_plain(x, w, fmt, n)
+    bound = 4e-6 * (x.abs() @ wd.abs())
+    keep = ~flagged
+    assert ((got.cpu()[keep] - want[keep]).abs() <= bound[keep]).all()
+    for out, impl in (("t8", "lut"), ("mxe4m3", "bits")):
+        if wire_format(out).is_block_scaled and N % 32:
+            continue
+        fused = takum_matmul(xc, wc, fmt, n, out_fmt=out, encode_impl=impl)
+        assert takum_matmul.last_loop == "mma_f32"
+        want_bits = takum_encode_2d(got, out, impl)
+        assert torch.equal(fused.view(torch.uint8), want_bits.view(torch.uint8)), (out, impl)
+    if not wf.is_block_scaled:
+        got_t = takum_matmul_t(xc, _transposed_copy(wc), fmt)
+        assert takum_matmul_t.last_loop == "mma_f32"
+        assert _same_f32(got_t.cpu(), got.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", (4096, 14336))
+@pytest.mark.parametrize("fmt", ("t8", "t16"))
+def test_mma_f32_all_positive_rows_within_limit(cuda, fmt, K):
+    """All-positive f32 x [1024, K] over all-positive weights [K, 4096]
+    (K = 4096: every prefill linear but w2; 14336: w2): every partial sum
+    is then the whole |x| @ |w|, so a truncating accumulation shows.  The
+    wgmma tile within 4e-6 of the f64 sum of the decoded operands, under
+    each codec."""
+    M, N = 1024, 4096
+    gen = torch.Generator(device=cuda).manual_seed(290 + K)
+    x = torch.randn((M, K), generator=gen, device=cuda).abs()
+    w = takum_encode_2d(torch.randn((K, N), generator=gen, device=cuda).abs() * 0.5, fmt)
+    exact = x.double() @ ref.codec_decode_ref(w, fmt).double()
+    for impl in IMPLS:
+        got = takum_matmul(x, w, fmt, decode_impl=impl)
+        assert takum_matmul.last_loop == "mma_f32"
+        assert float(((got.double() - exact).abs() / exact).max()) <= 4e-6, impl

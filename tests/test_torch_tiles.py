@@ -160,14 +160,15 @@ def test_t16_split_is_exact_for_every_code_but_f32_max():
 def test_tile_for_loop_table(fmt):
     """M <= 16: the matvec for K3 (either x) and K4; above: bf16-x K3 on the
     tensor cores (t16 through the split), f32-x K3 and every transposed
-    launch (f32) on the FMA tile, K4 on the tensor cores but over t16."""
+    launch (f32) on the wgmma tile (x split three ways), K4 on the tensor
+    cores but over t16, which keeps the FMA tile."""
     t16 = fmt == "t16"
     for M in (1, 4, 5, 16):
         for kind in ("f32", "bf16", "wire"):
             assert tile_for(M, kind, fmt) == "matvec"
     for M in (17, 37, 256, 1024, 100_000):
         assert tile_for(M, "bf16", fmt) == ("mma_split" if t16 else "mma")
-        assert tile_for(M, "f32", fmt) == "fma"
+        assert tile_for(M, "f32", fmt) == "mma_f32"
         assert tile_for(M, "wire", fmt) == ("fma" if t16 else "mma")
     assert tile_for(17, "bf16", wire_format(fmt)) == tile_for(17, "bf16", fmt)
 
@@ -175,7 +176,7 @@ def test_tile_for_loop_table(fmt):
 def test_tile_for_refuses_an_unknown_x_kind():
     with pytest.raises(ValueError, match="x_kind"):
         tile_for(64, "f16", "t8")
-    assert LOOPS == ("matvec", "fma", "mma", "mma_split")
+    assert LOOPS == ("matvec", "fma", "mma", "mma_split", "mma_f32")
 
 
 @pytest.mark.parametrize("M", (17, 37, 64, 100, 256, 1000, 1024, 4096))
@@ -247,8 +248,8 @@ def test_k4_wrapper_passes_a_matvec_plan_only_at_small_m(monkeypatch, fmt):
                                          (torch.float32, "t8"), (torch.bfloat16, "mxt8")])
 def test_k3_wrapper_passes_tile_for_and_mma_plan(monkeypatch, x_dtype, fmt):
     """K3's wrapper hands its C entry tile_for's loop code and mma_plan's
-    edge (0 off the tensor-core tile), and the transposed launch the FMA
-    tile above M = 16."""
+    edge (0 off the tensor-core tiles), and the transposed launch the wgmma
+    tile and its edge above M = 16."""
     calls = []
     monkeypatch.setattr(tm, "_check_device", lambda *a: False)
     monkeypatch.setattr(tm, "stream_of", lambda t: 0)
@@ -269,16 +270,17 @@ def test_k3_wrapper_passes_tile_for_and_mma_plan(monkeypatch, x_dtype, fmt):
     if not wf.is_block_scaled:
         tm.takum_matmul_t(torch.zeros((37, 64)), torch.zeros((K, 64), dtype=wf.storage), fmt)
         name, args = calls[-1]
-        assert name == "repro_matmul_wt" and tm.takum_matmul_t.last_loop == "fma"
-        assert args[7:10] == (0, LOOPS.index("fma"), wf.code)
+        assert name == "repro_matmul_wt" and tm.takum_matmul_t.last_loop == "mma_f32"
+        assert args[7:11] == (0, LOOPS.index("mma_f32"), mma_plan(37, K).rows, wf.code)
 
 
 @pytest.mark.parametrize("name", sorted(tile_variants.VARIANTS))
 def test_tile_variant_applies_to_the_header(name):
     """Each substitution of a ``tools/tile_variants.py`` variant finds its
-    text exactly once in ``csrc/matmul_mma.cuh`` and changes it (but
-    ``base``), so an edit of the header that a variant no longer matches
-    fails here rather than on the card."""
-    text = (ROOT / tile_variants.HEADER).read_text()
+    text exactly once in its header (``csrc/matmul_mma.cuh`` or
+    ``csrc/matmul_wgmma.cuh``) and changes it (but ``base``), so an edit of
+    a header that a variant no longer matches fails here rather than on the
+    card."""
+    text = (ROOT / tile_variants.header_of(name)).read_text()
     out = tile_variants.apply(name, text)
     assert (out == text) == (name == "base")
