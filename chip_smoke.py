@@ -11,9 +11,11 @@ Phases, each of which must pass:
       decode, every encode but bf16's), each plain version running the same
       codec, and every lut kernel bit for bit against the bits kernel.  For
       t8, t16, e4m3, e5m2 and bf16: K1 over every code and K2 over an f32
-      sweep, both also at the serving shapes and over one packed weight
-      (all bit for bit); K3 at the serving shapes (M = 4: every linear of
-      the decode step, the split-K matvec; M = 1024: the bf16 tensor-core
+      sweep, both also at the serving shapes ([1024, 4096], [8192, 128])
+      and over one packed weight [4096, 14336] (all bit for bit, each timed
+      by events and as device time beside the library call's); K3 at the
+      serving shapes (M = 4: every linear of the decode step, the split-K
+      matvec; M = 1024: the bf16 tensor-core
       tile, t16 through its hi/lo split), with f32 x at M = 1024 on wi for
       t8 and t16 (the wgmma tile, x split into three bf16 parts) and ragged
       shapes (M = 37 with bf16 x: the tensor-core tile; with f32 x: the
@@ -32,28 +34,37 @@ Phases, each of which must pass:
       mxe5m2 and mxt8: K1-mx over every element code under every scale byte
       and K2-mx over a block sweep (zero, NaN, Inf and subnormal blocks,
       absmax near 2^-126 and 2^127, values above the cap), both again at
-      [8192, 128] and [4096, 14336], bit for bit; K3-mx at ragged N (100,
+      [8192, 128], [1024, 4096] and [4096, 14336], bit for bit and timed;
+      K3-mx at ragged N (100,
       4096) and, for mxt8, at the serving shapes and with f32 x at
       M = 1024 on wi; K6-mx at the serving shape
-      and at head dims 16 and 80.  Each is timed with CUDA events, and the
+      and at head dims 16 and 80.  Then, every format and codec, K2 and K1 as
+      the model launches them: one layer's KV append (K and V bf16, one
+      ``takum_encode_into`` launch into the cache slots: the decode step's
+      2 x [32, 128] and the prefill's 2 x [8192, 128]) and the embedding
+      rows (``takum_decode_rows``: 4 and 1024 ids from a [128256, 4096]
+      table, scaled, to bf16), bit for bit against the compositions they
+      replaced.  Each is timed with CUDA events, and the
       lut gather's shared-memory bank conflicts are probed by timing K1, K3
       and the transposed K3 (K5's backward) under a broadcast, a random and
       an 8-way-conflict code pattern.  The K3 rows at M = 4 and the K6 rows
       also carry their device time (calls replayed from a CUDA graph) beside
       the library call's, since their CUDA-event time is mostly the host's
-      launch path; and per policy the decode step's K3 total, launches x
-      time over the five shapes.
+      launch path (so do the K1 / K2 rows); and per policy the decode step's
+      K3 total, launches x time over the five shapes.
   (d) serving: llama3-8b at full width and depth, random weights from a
       seed, B=4, a 256-token prompt and 32 greedy decode steps, with every
-      kernel's launch count read around each run and held to the policy:
-      takum (t16 weights, t8 KV cache), takum8 (t8 weights and KV cache:
+      kernel's launch count read around each run and held to the policy
+      (per call one K2 append per layer and one K1 over the embedding rows;
+      the packing and loading of the tree counted apart): takum (t16
+      weights, t8 KV cache), takum8 (t8 weights and KV cache:
       every kernel through its lut codec), then mxfp8 (bf16 weights, mxe4m3
       KV cache: K2-mx appends, K6-mx reads).  One uncounted prefill first
       (its time kept as ``first_prefill_ms``), so that the counted one is
       warm whatever earlier phases ran.  After the counted run, two decode
       steps on its cache, then one prefill, under torch.profiler: device
-      busy ms, K3's share of the prefill and the other top device
-      operations.
+      busy ms, the kernel launches per decode step, K3's share of the
+      prefill and the other top device operations.
   (e) model parity: full width, 2 layers, takum, takum8, ofp8, mxfp8, mxt8
       (mxt8 weights and KV cache: K1-mx, K2-mx, K3-mx and K6-mx) and bf16
       (bf16 KV cache: K2 and K6 with the bits codec), kernel path against
@@ -378,6 +389,99 @@ def gather_yardstick(torch, fmt, bits):
     return lambda: tab[codes_of(bits)]
 
 
+#: (kernel, shape) of the K1 / K2 rows of phase (c): the prefill's embedding
+#: rows and KV block, and one packed weight [d, d_ff]
+CODEC_SHAPES = (("takum_decode_2d", (1024, 4096)), ("takum_decode_2d", (4096, 14336)),
+                ("takum_encode_2d", (8192, 128)), ("takum_encode_2d", (4096, 14336)))
+#: the inputs' scale per shape (a weight's init scale for [d, d_ff])
+CODEC_SCALE = {(4096, 14336): 4096 ** -0.5}
+
+
+def codec_row(torch, kname, fmt, impl, shape, err, nbytes, kern, plain, lib, flush):
+    """A K1 / K2 row: event and device time of the kernel and of the library
+    call (None: there is none), the plain version's event time, and the
+    byte bound."""
+    b_ms, b_by = bound(nbytes, 0)
+    return dict(kernel=kname, fmt=fmt, impl=impl, shape=list(shape), max_abs_err=err,
+                ms=time_ms(torch, kern, flush=flush), device_ms=device_ms(torch, kern, flush=flush),
+                plain_ms=time_ms(torch, plain, flush=flush), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lib, flush=flush) if lib else None,
+                library_device_ms=device_ms(torch, lib, flush=flush) if lib else None)
+
+
+#: the model's codec launches timed in phase (c): (B, S, start, cache_len) of
+#: the KV append (a decode step's slot, the prefill's range) and the
+#: embedding rows' ids (a decode step's 4, the prefill's 4 x 256)
+APPEND_CASES = ((4, 1, 200, 288), (4, 256, 0, 290))
+EMBED_ROWS = (4, 1024)
+
+
+def phase_model_codecs(torch, dev, rows):
+    """K2 and K1 as the model launches them, every format and codec, each
+    bit for bit against its plain version (the composition it replaced)
+    and timed: ``takum_encode_into``, one layer's KV append (K and V, [B *
+    S * Kv, hd] bf16 each, one launch) into the slots of a [B, cache_len *
+    Kv * feat] cache (the whole cache compared, so the bytes around the
+    slots too), and ``takum_decode_rows``, the embedding rows of random ids
+    from a [128256, 4096] table of random codes, times a pow2 scale, to
+    bf16."""
+    from repro_torch.core.formats import kernel_wire_names, wire_format
+    from repro_torch.kernels.takum_codec import (decode_rows_plain, encode_into_plain,
+                                                 takum_decode_rows, takum_encode_into)
+    from repro_torch.quant import blockscale
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4242)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    Kv, hd, V, d = 8, 128, 128256, 4096
+    for fmt in kernel_wire_names():
+        wf = wire_format(fmt)
+        feat = blockscale.payload_len(hd) if wf.is_block_scaled else hd
+        esz = wf.nbits // 8
+        for B, S, start, cache_len in APPEND_CASES:
+            k, v = (torch.randn((B * S * Kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            cache = torch.zeros((2, B, cache_len * Kv * feat * esz), dtype=torch.uint8,
+                                device=dev).view(wf.storage)
+            want = cache.clone()
+
+            def slots(c):
+                return [c[i][:, start * Kv * feat:(start + S) * Kv * feat] for i in range(2)]
+
+            for impl in impls_of(fmt, "encode"):
+                takum_encode_into((k, v), slots(cache), fmt, impl)
+                encode_into_plain((k, v), slots(want), fmt, impl)
+                check(torch.equal(cache.view(torch.uint8), want.view(torch.uint8)),
+                      f"append[{impl}] {fmt} S={S}: the cache differs from the plain version's")
+                nbytes = 2 * (k.numel() * 2 + B * S * Kv * feat * esz)
+                rows.append(codec_row(
+                    torch, "takum_encode_into", fmt, impl, [2, B * S * Kv, hd], 0.0, nbytes,
+                    lambda: takum_encode_into((k, v), slots(cache), fmt, impl),
+                    lambda: encode_into_plain((k, v), slots(want), fmt, impl), None, flush))
+            del k, v, cache, want
+        L = blockscale.payload_len(d) if wf.is_block_scaled else d
+        table = torch.randint(0, 256, (V, L * esz), generator=gen, device=dev,
+                              dtype=torch.uint8).view(wf.storage)
+        scale = None if wf.is_block_scaled else torch.tensor(2.0 ** -6, device=dev)
+        for n in EMBED_ROWS:
+            ids = torch.randint(0, V, (n,), generator=gen, device=dev)
+            for impl in impls_of(fmt, "decode"):
+                got = takum_decode_rows(table, ids, fmt, impl, scale, torch.bfloat16)
+                want = decode_rows_plain(table, ids, fmt, impl, scale, torch.bfloat16)
+                check(same_bits_f32(torch, got.float(), want.float()),
+                      f"embed[{impl}] {fmt} {n} rows: differs from the plain version")
+                nbytes = n * (L * esz + 2 * d) + 4
+                rows.append(codec_row(
+                    torch, "takum_decode_rows", fmt, impl, [n, V, d], 0.0, nbytes,
+                    lambda: takum_decode_rows(table, ids, fmt, impl, scale, torch.bfloat16),
+                    lambda: decode_rows_plain(table, ids, fmt, impl, scale, torch.bfloat16),
+                    None, flush))
+        del table
+        log(f"append / embedding rows {fmt}: bit-exact at the decode step's and the prefill's "
+            f"shapes, timed")
+    del flush
+
+
 def phase_kernels(torch, dev, rows):
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
@@ -414,11 +518,13 @@ def phase_kernels(torch, dev, rows):
         log(f"K1/K2 {fmt}: {codes.numel()} codes and {x.numel()} f32 inputs bit-exact, "
             f"codecs {dec_impls} / {enc_impls}")
 
-        # K1 / K2 at the serving shapes, bit for bit: the embedding rows
-        # [B*S0, d] (4.2 M elements, past the grid cap of csrc/takum_codec.cu,
-        # so threads take the grid-stride step) and the KV block [B*S0*Kv, hd]
-        for kname, shape in (("takum_decode_2d", (1024, 4096)), ("takum_encode_2d", (8192, 128))):
-            xf = torch.randn(shape, generator=gen, device=dev)
+        # K1 / K2 at the serving shapes, bit for bit, timed by events and as
+        # device time beside the library call: the embedding rows [B*S0, d]
+        # (K1), the prefill's KV block [B*S0*Kv, hd] (K2) and one packed
+        # weight [d, d_ff] (58.7 M elements: what quantize_params packs, and
+        # K1 decoding it back; many trips of the persistent grid)
+        for kname, shape in CODEC_SHAPES:
+            xf = torch.randn(shape, generator=gen, device=dev) * CODEC_SCALE.get(shape, 1.0)
             bits = encode_2d_plain(xf, fmt, "bits")
             for impl in (dec_impls if kname == "takum_decode_2d" else enc_impls):
                 if kname == "takum_decode_2d":
@@ -437,26 +543,12 @@ def phase_kernels(torch, dev, rows):
                     err = (decode_2d_plain(got, fmt) - decode_2d_plain(bits, fmt)).abs().max()
                     nbytes = xf.numel() * (4 + wf.nbits // 8)
                     lib = (lambda: xf.to(torch.bfloat16)) if fmt == "bf16" else None
-                b_ms, b_by = bound(nbytes, 0)
-                rows.append(dict(
-                    kernel=kname, fmt=fmt, impl=impl, shape=list(shape), max_abs_err=float(err),
-                    ms=time_ms(torch, lambda: kern(arg, fmt, impl), flush=flush),
-                    plain_ms=time_ms(torch, lambda: plain(arg, fmt, impl), flush=flush),
-                    bound_ms=b_ms, bound_by=b_by,
-                    library_ms=time_ms(torch, lib, flush=flush) if lib else None))
-
-        # K2 packing one weight [d, d_ff] (58.7 M elements, many grid-stride
-        # steps per thread) and K1 decoding it back, both bit for bit
-        xf = torch.randn((4096, 14336), generator=gen, device=dev) * 4096 ** -0.5
-        want = encode_2d_plain(xf, fmt, "bits")
-        for impl in enc_impls:
-            nbad = int((as_i64(torch, takum_encode_2d(xf, fmt, impl)) != as_i64(torch, want)).sum())
-            check(nbad == 0, f"K2[{impl}] {fmt} [4096, 14336]: {nbad} codes differ from plain")
-        for impl in dec_impls:
-            check(same_bits_f32(torch, takum_decode_2d(want, fmt, impl), decode_2d_plain(want, fmt)),
-                  f"K1[{impl}] {fmt} [4096, 14336]: differs from plain")
-        del xf, want
-        log(f"K1/K2 {fmt}: bit-exact at [1024, 4096], [8192, 128] and [4096, 14336]")
+                del got
+                rows.append(codec_row(torch, kname, fmt, impl, shape, float(err), nbytes,
+                                      lambda: kern(arg, fmt, impl), lambda: plain(arg, fmt, impl),
+                                      lib, flush))
+            del xf, bits
+        log(f"K1/K2 {fmt}: bit-exact at [1024, 4096], [8192, 128] and [4096, 14336], timed")
 
         # K3 at the serving shapes (bf16 activations: decode M=4, prefill
         # M=B*S0=1024) and ragged shapes for each tile size with f32 and bf16
@@ -640,17 +732,12 @@ def phase_mx_kernels(torch, dev, rows):
                      dec_impls),
                     ("takum_encode_2d", takum_encode_2d, encode_2d_plain, xf, 4 * nel + npay,
                      enc_impls)):
-                if shape == (4096, 14336):
-                    continue  # checked only: no serving call has this shape
-                b_ms, b_by = bound(nbytes, 0)
                 for impl in impls:
-                    rows.append(dict(
-                        kernel=kname, fmt=fmt, impl=impl, shape=list(shape), max_abs_err=0.0,
-                        ms=time_ms(torch, lambda: kern(arg, fmt, impl), flush=flush),
-                        plain_ms=time_ms(torch, lambda: plain(arg, fmt, impl), flush=flush),
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                    rows.append(codec_row(torch, kname, fmt, impl, shape, 0.0, nbytes,
+                                          lambda: kern(arg, fmt, impl),
+                                          lambda: plain(arg, fmt, impl), None, flush))
             del xf, bits, want
-        log(f"K1-mx/K2-mx {fmt}: bit-exact at [8192, 128], [1024, 4096] and [4096, 14336]")
+        log(f"K1-mx/K2-mx {fmt}: bit-exact at [8192, 128], [1024, 4096] and [4096, 14336], timed")
 
         # K3-mx: ragged N (a padded last group) at both tile sizes with f32
         # and bf16 x; for mxt8 also the serving shapes of the mxt8 policy
@@ -1381,9 +1468,12 @@ def phase_serving(torch, dev, policy):
     cfg = configs.get("llama3_8b").with_(quant=POLICIES[policy])
     B, S0, STEPS = 4, 256, 32
     t0 = time.perf_counter()
+    ops.reset_launch_counts()
     qp = serve.load_params(packed_params(torch, cfg, seed=0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    pack_counts = ops.launch_counts()
+    check_pack_launches(pack_counts, cfg, policy)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
@@ -1438,7 +1528,8 @@ def phase_serving(torch, dev, policy):
         allocated_before_gb=held_before / 1e9,
         weight_bytes=sum(_nbytes(v) for v in _leaves(qp)),
         kv_cache_bytes=kv_cache_bytes,
-        launches=counts, first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
+        launches=counts, pack_launches={k: v for k, v in pack_counts.items() if v},
+        first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
         profile_prefill=prefill_trace, profile_two_decode_steps=trace,
     )
     del qp, logits
@@ -1450,22 +1541,45 @@ def check_launches(counts, cfg, calls, steps, tag, gains_loaded=False):
     """Hold the launch counts of a serving run (a prefill and ``steps``
     decode steps: ``calls`` model calls) to what ``cfg``'s policy drives,
     each surface through the codec its format defaults to
-    (``lut.resolve_impl(None, ...)``): per call 2 K2 appends per layer and,
-    for packed weights, 7 K3 per layer plus the head and one K1 for the
-    embedding rows (two more K1 when the run also decoded the norm gains at
-    load); per decode step one K6 per layer.  Every other kernel, the other
-    codec's included, must show no launch."""
+    (``lut.resolve_impl(None, ...)``): per call one K2 append per layer
+    (``takum_encode_into``: K and V in one launch) and, for packed weights,
+    7 K3 per layer plus the head and one K1 over the embedding rows
+    (``takum_decode_rows``), with two K1 (``takum_decode_2d``) when the run
+    also decoded the norm gains at load; per decode step one K6 per layer.
+    Every other kernel, the other codec's and the old composition's
+    (``takum_encode_2d``) included, must show no launch."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
 
     L, kv, w = cfg.num_layers, cfg.quant.kv_cache, cfg.quant.weights
-    want = {f"takum_encode_2d[{resolve_impl(None, kv, 'encode')}]": 2 * L * calls,
+    want = {f"takum_encode_into[{resolve_impl(None, kv, 'encode')}]": L * calls,
             f"takum_decode_attention[{resolve_impl(None, kv)}]": L * steps}
     if wire_format(w).family != "ieee":  # bf16/f32 weights: every linear is torch.matmul
         want[f"takum_matmul[{resolve_impl(None, w)}]"] = (7 * L + 1) * calls
-        want[f"takum_decode_2d[{resolve_impl(None, w)}]"] = calls + (2 if gains_loaded else 0)
+        want[f"takum_decode_rows[{resolve_impl(None, w)}]"] = calls
+        if gains_loaded:
+            want[f"takum_decode_2d[{resolve_impl(None, w)}]"] = 2
     got = {k: v for k, v in counts.items() if v}
     check(got == want, f"{tag}: launches {got}, want {want}")
+
+
+def check_pack_launches(counts, cfg, tag):
+    """The launches of packing a random tree and loading it
+    (``serve.quantize_params`` then ``serve.load_params``): one K2
+    (``takum_encode_2d``, the weight format's default encode) per packed
+    leaf, two K1 (``takum_decode_2d``) for the norm gains; none for bf16 /
+    f32 weights."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels.lut import resolve_impl
+
+    w = cfg.quant.weights
+    want = {}
+    if wire_format(w).family != "ieee":
+        # embed, ln1, ln2, wq, wk, wv, wo, wi, wg, w2 and the head (final_norm is 1-D)
+        want = {f"takum_encode_2d[{resolve_impl(None, w, 'encode')}]": 11,
+                f"takum_decode_2d[{resolve_impl(None, w)}]": 2}
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{tag}: packing launches {got}, want {want}")
 
 
 def device_ms_by_name(prof):
@@ -1496,8 +1610,12 @@ def profile_decode(torch, step, qp, logits, cache):
     by_name = device_ms_by_name(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if "CUDA" in str(getattr(ev, "device_type", ""))
+                  and not ev.key.startswith(("Memcpy", "Memset")))
     return dict(wall_ms=wall_ms, device_busy_ms=busy if busy else None,
                 idle_share=(1 - busy / wall_ms) if busy else None,
+                kernel_launches_per_step=kernels / 2,
                 top_kernels_ms=[[k[:80], v] for k, v in top])
 
 
@@ -1600,7 +1718,9 @@ def phase_parity(torch, dev):
         for act, tol in (("f32", f32_tol), ("bf16", 5e-2)):
             quant = dataclasses.replace(named[policy], activations=act)
             cfg = configs.get("llama3_8b").with_(num_layers=2, quant=quant)
+            ops.reset_launch_counts()
             qp = packed_params(torch, cfg, seed=1)
+            pack_counts = {k: v for k, v in ops.launch_counts().items() if v}
             gen = torch.Generator(device=dev)
             gen.manual_seed(11)
             prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
@@ -1645,6 +1765,7 @@ def phase_parity(torch, dev):
             agree = float((k.argmax(-1) == p.argmax(-1)).float().mean())
             res = dict(policy=policy, activations=act, tol=tol, max_rel_err=max(errs),
                        rel_err_per_step=errs, greedy_agreement=agree, launches=counts,
+                       pack_launches=pack_counts,
                        kernel_prefill_ms=prefill_ms,
                        kv_bytes_differing_kernel_vs_plain=kv_diff("kernel", "plain"))
             log(f"parity {policy}/{act}: max rel err {max(errs):.3e} (tol {tol}), per step "
@@ -1680,6 +1801,10 @@ KERNEL_INFO = {
                         "src/repro/kernels/takum_codec.py:51"),
     "takum_encode_2d": ("K2", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:61"),
+    "takum_encode_into": ("K2", "src/repro_torch/kernels/csrc/takum_codec.cu",
+                          "src/repro/kernels/takum_codec.py:61"),
+    "takum_decode_rows": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
+                          "src/repro/kernels/takum_codec.py:51"),
     "takum_matmul": ("K3", "src/repro_torch/kernels/csrc/takum_matmul.cu",
                      "src/repro/kernels/takum_matmul.py:56"),
     "takum_decode_attention": ("K6", "src/repro_torch/kernels/csrc/takum_attention.cu",
@@ -1703,15 +1828,21 @@ LOOP_SOURCE = {
 #: (kernel, format, codec, shape, path[, x dtype]) rows that stand for each
 #: kernel in the summary line: the shapes, formats and codecs each counted
 #: path gives each kernel.  Paths: "takum", "takum8" and "mxfp8" are phase
-#: (d)'s full-depth runs; "mxt8" (mxt8 weights and KV cache) and "bf16"
-#: (bf16 weights and KV cache, the path that runs K2 and K6 with the bits
-#: codec) the 2-layer kernel paths of phase (e) at the policy's own bf16
-#: activations, "mxt8/f32" the same at f32 activations (M = 256 there);
-#: "ad" phase (g)'s K5 path.  x is bf16 unless named.  The codec of each
-#: row is its format's default.
+#: (d)'s full-depth runs (the KV append through ``takum_encode_into``, the
+#: embedding rows through ``takum_decode_rows``), "<policy>/pack" the
+#: packing and loading of their trees (K2 per packed weight through
+#: ``takum_encode_2d``, K1 over the norm gains through ``takum_decode_2d``);
+#: "mxt8" (mxt8 weights and KV cache) and "bf16" (bf16 weights and KV cache,
+#: the path that runs K2 and K6 with the bits codec) the 2-layer kernel
+#: paths of phase (e) at the policy's own bf16 activations, "mxt8/f32" the
+#: same at f32 activations (M = 256 there), "mxt8/pack" its packing; "ad"
+#: phase (g)'s K5 path.  x is bf16 unless named.  The codec of each row is
+#: its format's default.
 SUMMARY = [
-    ("takum_decode_2d", "t16", "bits", [1024, 4096], "takum"),
-    ("takum_encode_2d", "t8", "lut", [8192, 128], "takum"),
+    ("takum_decode_rows", "t16", "bits", [4, 128256, 4096], "takum"),
+    ("takum_encode_into", "t8", "lut", [2, 32, 128], "takum"),
+    ("takum_encode_2d", "t16", "lut", [4096, 14336], "takum/pack"),
+    ("takum_decode_2d", "t16", "bits", [1024, 4096], "takum/pack"),
     ("takum_matmul", "t16", "bits", [4, 4096, 4096], "takum"),
     ("takum_matmul", "t16", "bits", [4, 4096, 1024], "takum"),
     ("takum_matmul", "t16", "bits", [4, 4096, 14336], "takum"),
@@ -1719,8 +1850,10 @@ SUMMARY = [
     ("takum_matmul", "t16", "bits", [1024, 4096, 14336], "takum"),
     ("takum_matmul", "t16", "bits", [4, 4096, 128256], "takum"),
     ("takum_decode_attention", "t8", "lut", [4, 32, 8, 288, 128], "takum"),
-    ("takum_decode_2d", "t8", "lut", [1024, 4096], "takum8"),
-    ("takum_encode_2d", "t8", "lut", [8192, 128], "takum8"),
+    ("takum_decode_rows", "t8", "lut", [4, 128256, 4096], "takum8"),
+    ("takum_encode_into", "t8", "lut", [2, 32, 128], "takum8"),
+    ("takum_encode_2d", "t8", "lut", [4096, 14336], "takum8/pack"),
+    ("takum_decode_2d", "t8", "lut", [1024, 4096], "takum8/pack"),
     ("takum_matmul", "t8", "lut", [4, 4096, 4096], "takum8"),
     ("takum_matmul", "t8", "lut", [4, 4096, 1024], "takum8"),
     ("takum_matmul", "t8", "lut", [4, 4096, 14336], "takum8"),
@@ -1728,15 +1861,17 @@ SUMMARY = [
     ("takum_matmul", "t8", "lut", [1024, 4096, 14336], "takum8"),
     ("takum_matmul", "t8", "lut", [4, 4096, 128256], "takum8"),
     ("takum_decode_attention", "t8", "lut", [4, 32, 8, 288, 128], "takum8"),
-    ("takum_encode_2d", "mxe4m3", "bits", [8192, 128], "mxfp8"),
+    ("takum_encode_into", "mxe4m3", "bits", [2, 32, 128], "mxfp8"),
     ("takum_decode_attention", "mxe4m3", "lut", [4, 32, 8, 288, 128], "mxfp8"),
+    ("takum_decode_rows", "mxt8", "lut", [4, 128256, 4096], "mxt8"),
     ("takum_decode_2d", "mxt8", "lut", [1024, 4096], "mxt8"),
-    ("takum_encode_2d", "mxt8", "lut", [8192, 128], "mxt8"),
+    ("takum_encode_into", "mxt8", "lut", [2, 32, 128], "mxt8"),
+    ("takum_encode_2d", "mxt8", "lut", [4096, 14336], "mxt8/pack"),
     ("takum_matmul", "mxt8", "lut", [4, 4096, 14336], "mxt8"),
     ("takum_matmul", "mxt8", "lut", [1024, 4096, 14336], "mxt8"),
     ("takum_matmul", "mxt8", "lut", [4, 4096, 128256], "mxt8"),
     ("takum_decode_attention", "mxt8", "lut", [4, 32, 8, 288, 128], "mxt8"),
-    ("takum_encode_2d", "bf16", "bits", [8192, 128], "bf16"),
+    ("takum_encode_into", "bf16", "bits", [2, 32, 128], "bf16"),
     ("takum_decode_attention", "bf16", "bits", [4, 32, 8, 288, 128], "bf16"),
     # K3 with f32 x on the wgmma tile: the forward of K5's wi rows (phase
     # (g)'s autograd path) and mxt8's f32-activation path of phase (e)
@@ -1822,6 +1957,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_mx_kernels(torch, dev, rows)
     log(f"(c) mx kernels match their plain versions ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_model_codecs(torch, dev, rows)
+    log(f"(c) the model's K1 / K2 launches match their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
     k3_step = k3_decode_step(rows)
     log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
@@ -1831,6 +1970,8 @@ def main() -> int:
         t0 = time.perf_counter()
         serving[policy] = phase_serving(torch, dev, policy)
         log(f"(d) serving {policy} " + json.dumps(serving[policy]))
+        log(f"(d) {policy}: kernel launches per decode step (torch.profiler) "
+            f"{serving[policy]['profile_two_decode_steps']['kernel_launches_per_step']}")
         log(f"(d) {policy} done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1848,9 +1989,12 @@ def main() -> int:
     log(f"(g) K5 done in {time.perf_counter() - t0:.1f} s")
 
     launches = {p: serving[p]["launches"] for p in serving}
+    launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
         launches[path] = next(r["launches"] for r in parity
                               if r["policy"] == path and r["activations"] == "bf16")
+    launches["mxt8/pack"] = next(r["pack_launches"] for r in parity
+                                 if r["policy"] == "mxt8" and r["activations"] == "bf16")
     launches["mxt8/f32"] = next(r["launches"] for r in parity
                                 if r["policy"] == "mxt8" and r["activations"] == "f32")
     launches["ad"] = ad_counts
@@ -1861,7 +2005,7 @@ def main() -> int:
                    and "inputs" not in r)
         tag, source, replaces = KERNEL_INFO[kname]
         name = tag + ("-mx" if fmt.startswith("mx") else "") + ("-lut" if impl == "lut" else "")
-        n = launches[path][f"{kname}[{impl}]"]
+        n = launches[path].get(f"{kname}[{impl}]", 0)
         check(n > 0, f"{name} was never launched on the {path} path")
         loop = row.get("loop")
         summary.append(dict(

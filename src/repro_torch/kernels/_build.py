@@ -48,14 +48,23 @@ _EPI = [_INT, _INT, _P, _P]
 #: C entry -> (library, argtypes); every entry returns a cudaError_t as int.
 #: Each takes the format id and the codec id, then the table pointers (null
 #: for "bits"): the decode table, or the encode pair (meta, thr | sub); a
-#: producer then takes its epilogue arguments; the stream comes last.  K3,
+#: producer then takes its epilogue arguments; the stream comes last.  K1
+#: and K2 take their operands' layout before the format (K1: input, row
+#: index, output, rows, columns, input pitch, input rows, scale, output
+#: dtype; K2: two sources, two destinations, pairs, elements, run, pitch,
+#: source dtype) and ``takum_codec.codec_plan``'s grid, vec, head and tail
+#: after the tables; ``repro_codec_occupancy`` gives the device's SM count
+#: and a codec kernel's blocks per SM.  K3,
 #: K4, K3's transposed twin and K6 also take the f32 workspace of their
 #: split plan after the output, and the plan's numbers after the shapes;
 #: K3, K4 and the transposed twin then the loop (``takum_matmul.LOOPS``)
 #: and the tensor-core tiles' block edge.
 ENTRIES = {
-    "repro_decode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P]),
-    "repro_encode": ("takum_codec", [_P, _P, _LL, _INT, _INT, _P, _P, _P]),
+    "repro_decode": ("takum_codec", [_P, _P, _P, _LL, _LL, _LL, _LL, _P, _INT, _INT, _INT, _P,
+                                     _INT, _INT, _LL, _LL, _P]),
+    "repro_encode": ("takum_codec", [_P, _P, _P, _P, _INT, _LL, _LL, _LL, _INT, _INT, _INT, _P,
+                                     _P, _INT, _INT, _LL, _LL, _P]),
+    "repro_codec_occupancy": ("takum_codec", [_INT, _INT, _INT, _INT, _P, _P]),
     "repro_matmul": ("takum_matmul",
                      [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P,
                       *_EPI, _P]),

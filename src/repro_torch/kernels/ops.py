@@ -1,6 +1,8 @@
 """Public entry points of the port's kernels (counterpart of
 ``repro.kernels.ops``): ``encode``, ``decode``, ``matmul``, ``dual_matmul``,
-``decode_attention``.
+``decode_attention``, and the model's two codec launches ``encode_into``
+(K2 into strided destinations, a pair per launch: the KV append) and
+``decode_rows`` (K1 over gathered rows, scaled and cast: the embedding).
 
 Each op takes a wire-format handle (a registered name such as 't8', 'e4m3',
 'bf16', 'mxe4m3', a :class:`~repro_torch.core.formats.WireFormat`, or a bare
@@ -43,7 +45,8 @@ import torch
 from repro_torch.core.formats import wire_format
 from .lut import DECODE_IMPLS, resolve_impl
 from .takum_attention import decode_attention_plain, takum_decode_attention
-from .takum_codec import decode_2d_plain, encode_2d_plain, takum_decode_2d, takum_encode_2d
+from .takum_codec import (decode_2d_plain, decode_rows_plain, encode_2d_plain, encode_into_plain,
+                          takum_decode_2d, takum_decode_rows, takum_encode_2d, takum_encode_into)
 from .takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain, takum_matmul,
                            takum_matmul_plain)
 
@@ -52,8 +55,8 @@ from .takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain, takum_mat
 _PLAIN_ACC = None
 
 #: every kernel wrapper; each counts its launches per codec in ``.launches``
-WRAPPERS = (takum_decode_2d, takum_encode_2d, takum_matmul, takum_dual_matmul,
-            takum_decode_attention)
+WRAPPERS = (takum_decode_2d, takum_encode_2d, takum_encode_into, takum_decode_rows, takum_matmul,
+            takum_dual_matmul, takum_decode_attention)
 #: every unfused kernel, named ``wrapper[impl]`` (e.g. ``takum_matmul[lut]``):
 #: one per wrapper and codec, each a template instantiation of its own.  A
 #: fused producer launch counts under ``wrapper[impl>out_fmt:encode_impl]``
@@ -168,6 +171,31 @@ def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     b2, shape = _as_2d(bits.contiguous())
     out = takum_decode_2d(b2, wf, impl) if _PLAIN_ACC is None else decode_2d_plain(b2, wf, impl)
     return _reshape_back(out, shape)
+
+
+def encode_into(srcs, dsts, fmt, encode_impl=None) -> None:
+    """K2 of one or two [R, C] sources (f32 or bf16) written into 2-D
+    strided destinations in one launch; see
+    :func:`~repro_torch.kernels.takum_codec.takum_encode_into`."""
+    wf = wire_format(fmt)
+    impl = resolve_impl(encode_impl, wf, "encode")
+    if _PLAIN_ACC is None:
+        takum_encode_into(srcs, dsts, wf, impl)
+    else:
+        encode_into_plain(srcs, dsts, wf, impl)
+
+
+def decode_rows(bits: torch.Tensor, rows: torch.Tensor, fmt, decode_impl=None, scale=None,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """K1 over the rows of ``bits`` [V, L] that ``rows`` picks, times
+    ``scale``, in ``out_dtype``; see
+    :func:`~repro_torch.kernels.takum_codec.takum_decode_rows`."""
+    wf = wire_format(fmt)
+    _check_mx_payload(bits, wf, "decode_rows bits")
+    impl = resolve_impl(decode_impl, wf)
+    if _PLAIN_ACC is None:
+        return takum_decode_rows(bits, rows, wf, impl, scale, out_dtype)
+    return decode_rows_plain(bits, rows, wf, impl, scale, out_dtype)
 
 
 def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None, out_fmt=None,

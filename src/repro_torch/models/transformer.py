@@ -7,15 +7,21 @@ per-tensor pow2 scale over all layers.  The layers run as a Python loop over
 L (``repro`` scans them).
 
 On the card the serving path goes through the port's kernels: every linear
-over a packed weight is K3, the embedding rows are decoded by K1 (as are the
-packed norm gains, once per call), every KV append is K2 and the decode
-step reads the cache through K6.  No call names a codec, so each kernel
+over a packed weight is K3; the embedding rows of the token ids are one K1
+launch per call (``ops.decode_rows``: the row gather, the decode, the pow2
+scale and the cast to the activation dtype in one kernel; the packed norm
+gains are decoded by K1 once, at load); each layer's KV append is one K2
+launch (``ops.encode_into``: K and V as a pair, the activations widened in
+registers, written straight into their cache slots); and the decode step
+reads the cache through K6.  No call names a codec, so each kernel
 takes its format's default (``kernels/lut.py``, as in ``repro``): the table
 ("lut") codec for t8 weights and caches (and mxt8's elements), the e4m3 /
 e5m2 cache read and the t16 weight packing; the bits codec elsewhere.  An mx KV cache (``mxe4m3``, ``mxe5m2``,
 ``mxt8``) stores per (position, kv head) the payload of the head dim
 zero-padded to a multiple of 32: ``payload_len(hd)`` bytes, appended
-through K2-mx and read through K6-mx.  The KV cache is updated IN PLACE
+through K2-mx and read through K6-mx (a head dim that is not whole blocks
+is padded before the append, an extra launch that no served config needs:
+llama3-8b's is 128).  The KV cache is updated IN PLACE
 (``repro`` is functional and returns a new cache): ``prefill`` fills a fresh
 cache and ``decode_step`` writes its slot into the cache it is given.
 """
@@ -100,10 +106,14 @@ def _gain(g) -> torch.Tensor:
 
 
 def _embed(params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``adt``: a packed table through one
+    K1 launch over the gathered rows (scaled and cast in the kernel)."""
     e = params["embed"]
-    if isinstance(e, QTensor):
-        return e[tokens].dequantize(adt)  # K1 on the gathered rows only
-    return e[tokens].to(adt)
+    if isinstance(e, QTensor) and e.fmt not in ("bf16", "f32"):
+        x = ops.decode_rows(e.bits, tokens, e.fmt, scale=None if e.block_scaled else e.scale,
+                            out_dtype=adt)
+        return x[..., :e.n] if e.block_scaled else x
+    return (e.bits if isinstance(e, QTensor) else e)[tokens].to(adt)
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -195,15 +205,24 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> KVCache:
     return KVCache(k=k, v=v, pos=0)
 
 
-def _encode_cache(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """KV entries -> cache storage through K2 (encoded at the producer); an
-    mx format zero-pads the head dim to a multiple of 32 first."""
+def _append_kv(cfg: ModelConfig, cache: KVCache, l: int, k: torch.Tensor, v: torch.Tensor,
+               start: int) -> None:
+    """Write layer ``l``'s K and V [B, S, Kv, hd] (activation dtype) into
+    cache positions ``start .. start + S`` in place: one K2 launch for the
+    pair (``ops.encode_into``), each batch row a run of ``S * Kv * feat``
+    storage elements at a pitch of ``cache_len * Kv * feat``."""
     wf = wire_format(cfg.quant.kv_cache)
-    x = x.to(torch.float32)
+    B, S, Kv, _ = k.shape
     if wf.is_block_scaled:
-        x = blockscale.pad_block(x)
-    bits = ops.encode(x, wf)
-    return bits.view(torch.bfloat16) if wf.name == "bf16" else bits
+        k, v = blockscale.pad_block(k), blockscale.pad_block(v)
+
+    def slots(t):
+        feat = t.shape[-1]
+        rows = _cache_bits(cfg, t[l]).view(B, t.shape[2] * Kv * feat)
+        return rows[:, start * Kv * feat:(start + S) * Kv * feat]
+
+    ops.encode_into((k.view(B * S * Kv, -1), v.view(B * S * Kv, -1)),
+                    (slots(cache.k), slots(cache.v)), wf)
 
 
 def _decode_cache(cfg: ModelConfig, t: torch.Tensor, hd: int | None = None) -> torch.Tensor:
@@ -211,14 +230,6 @@ def _decode_cache(cfg: ModelConfig, t: torch.Tensor, hd: int | None = None) -> t
     this is for inspection).  ``hd`` slices an mx payload's padding off."""
     out = ops.decode(_cache_bits(cfg, t).contiguous(), cfg.quant.kv_cache)
     return out if hd is None else out[..., :hd]
-
-
-def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """Copy ``src`` into the cache slice ``dst`` (16-bit bits through a
-    signed view: CUDA builds of torch copy few unsigned 16-bit tensors)."""
-    if dst.dtype == torch.uint16:
-        dst, src = dst.view(torch.int16), src.view(torch.int16)
-    dst.copy_(src)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | None = None):
@@ -229,8 +240,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | 
     cache = init_cache(cfg, B, cache_len or S, tokens.device)
 
     def on_kv(l, k, v):
-        _put(cache.k[l, :, :S], _encode_cache(cfg, k))
-        _put(cache.v[l, :, :S], _encode_cache(cfg, v))
+        _append_kv(cfg, cache, l, k, v, 0)
 
     logits = forward(cfg, params, tokens, last_only=True, on_kv=on_kv)
     cache.pos = S
@@ -260,8 +270,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
         q = rope(linear(h, a["wq"]).reshape(B, 1, H, hd), positions, cfg.rope_theta)
         k_new = rope(linear(h, a["wk"]).reshape(B, 1, Kv, hd), positions, cfg.rope_theta)
         v_new = linear(h, a["wv"]).reshape(B, 1, Kv, hd)
-        _put(cache.k[l, :, pos:pos + 1], _encode_cache(cfg, k_new))
-        _put(cache.v[l, :, pos:pos + 1], _encode_cache(cfg, v_new))
+        _append_kv(cfg, cache, l, k_new, v_new, pos)
         o = ops.decode_attention(
             q[:, 0].to(torch.float32),
             _cache_bits(cfg, cache.k[l]).permute(0, 2, 1, 3),  # [B, Kv, S, feat] view

@@ -26,6 +26,11 @@ code of every format carried exactly; K4 at M <= 16 runs the matvec.  The
 wgmma tile (K3 with f32 x above M = 16, and the transposed K3) likewise, at
 ragged shapes, fused, all-positive at the prefill's depths against the f64
 sum, and with the blocks its vote sends to the FMA tile equal to that loop.
+K1 and K2 (the vectorised, persistent codec loops) also run at odd element
+counts up to 2^20 + 3, on views offset by 1-15 bytes, into strided
+destinations between canary bytes, as one launch for a pair equal to two
+single ones, from bf16 sources equal to their f32 widening, and as the
+gathered, scaled and cast embedding rows, all bit for bit.
 """
 
 import pytest
@@ -38,7 +43,10 @@ from repro_torch.kernels import takum_matmul as takum_matmul_mod
 from repro_torch.kernels.mx_cases import mx_all_codes, mx_sweep
 from repro_torch.kernels.takum_attention import (attention_plan, decode_attention_plain,
                                                  takum_decode_attention)
-from repro_torch.kernels.takum_codec import takum_decode_2d, takum_encode_2d
+from repro_torch.kernels.takum_codec import (decode_2d_plain, decode_rows_plain,
+                                             encode_2d_plain, encode_into_plain, takum_decode_2d,
+                                             takum_decode_rows, takum_encode_2d,
+                                             takum_encode_into)
 from repro_torch.kernels.takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain,
                                               takum_matmul, takum_matmul_ad, takum_matmul_plain,
                                               takum_matmul_t, takum_matmul_t_plain, matvec_plan)
@@ -90,6 +98,153 @@ def test_codec_kernels_bit_exact(cuda, fmt):
     got = takum_encode_2d(x.to(cuda), fmt).cpu()
     assert torch.equal(got.view(wf.signed_storage), bits.view(wf.signed_storage))
     assert _same_f32(takum_decode_2d(bits.to(cuda), fmt).cpu(), takum_decode_2d(bits, fmt))
+
+
+#: element counts of the codec checks: below, at and past one vector, and a
+#: range that needs many trips of the persistent grid (mx: groups)
+CODEC_NS = (1, 15, 17, 4095, 2 ** 20 + 3)
+
+
+def _impls(fmt, op):
+    wf = wire_format(fmt)
+    ok = wf.supports_lut_decode if op == "decode" else wf.supports_lut_encode
+    return IMPLS if ok else ("bits",)
+
+
+def _f32_inputs(n, seed, device=None):
+    """n f32 values: normals over 80 binades, and a quarter raw bit patterns
+    (NaN, Inf, subnormals)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * torch.exp2(torch.randint(-40, 40, (n,), generator=g).float())
+    raw = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g).to(torch.int32)
+    x = torch.where(torch.rand(n, generator=g) < 0.25, raw.view(torch.float32), x)
+    return x.to(device)
+
+
+def _codes(wf, n, seed, device=None):
+    g = torch.Generator().manual_seed(seed)
+    return wf.pack(torch.randint(0, 1 << wf.nbits, (n,), generator=g)).to(device)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_codec_kernels_bit_exact_at_odd_counts(cuda, fmt):
+    """K1 and K2 of every codec at n in CODEC_NS (mx: n groups) equal their
+    plain versions on the same card bit for bit."""
+    wf = wire_format(fmt)
+    for n in CODEC_NS:
+        if wf.is_block_scaled:
+            bits = torch.randint(0, 256, (1, 33 * n), generator=torch.Generator().manual_seed(n),
+                                 dtype=torch.uint8).to(cuda)
+            x = _f32_inputs(32 * n, n + 1, cuda).reshape(1, -1)
+        else:
+            bits, x = _codes(wf, n, n, cuda).reshape(1, n), _f32_inputs(n, n + 1, cuda).reshape(1, n)
+        for impl in _impls(fmt, "decode"):
+            assert _same_f32(takum_decode_2d(bits, fmt, impl), decode_2d_plain(bits, fmt, impl)), \
+                (n, impl)
+        for impl in _impls(fmt, "encode"):
+            assert _same_bits(takum_encode_2d(x, fmt, impl), encode_2d_plain(x, fmt, impl)), (n, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_codec_kernels_on_views_offset_by_bytes(cuda, fmt):
+    """Operands that start 1-15 bytes past a 16-byte boundary (as far as
+    the element size allows): K1's input and table rows, K2's source and a
+    takum_encode_into destination, each against its plain version."""
+    wf = wire_format(fmt)
+    esz = wf.nbits // 8
+    R, C = 3, 96  # mx: three groups per row
+    L = blockscale.payload_len(C) if wf.is_block_scaled else C
+    for off in range(1, 16):
+        x = _f32_inputs(R * C + 4, off, cuda)[off % 4:][:R * C].reshape(R, C)  # f32: 4-byte steps
+        for impl in _impls(fmt, "encode"):
+            assert _same_bits(takum_encode_2d(x, fmt, impl), encode_2d_plain(x, fmt, impl)), (off, impl)
+        if off % esz:
+            continue
+        buf = _codes(wf, R * L + 16, off, cuda) if not wf.is_block_scaled else \
+            torch.randint(0, 256, (R * L + 16,), dtype=torch.uint8).to(cuda)
+        bits = buf[off // esz:][:R * L].view(R, L)
+        rows = torch.tensor([2, 0, 2, 1], device=cuda)
+        for impl in _impls(fmt, "decode"):
+            assert _same_f32(takum_decode_2d(bits, fmt, impl), decode_2d_plain(bits, fmt, impl))
+            assert _same_f32(takum_decode_rows(bits, rows, fmt, impl),
+                             decode_rows_plain(bits, rows, fmt, impl)), (off, impl)
+        for impl in _impls(fmt, "encode"):
+            got = torch.zeros_like(buf)
+            want = torch.zeros_like(buf)
+            takum_encode_into(x, got[off // esz:][:R * L].view(R, L), fmt, impl)
+            encode_into_plain(x, want[off // esz:][:R * L].view(R, L), fmt, impl)
+            assert _same_bits(got, want), (off, impl)
+
+
+def _cache_slots(wf, B, S, Kv, hd, start, n, device):
+    """A [B, S * Kv * feat] cache of canary bytes 0xA5 and the view of its
+    positions start .. start + n, as the model's KV append writes them."""
+    feat = blockscale.payload_len(hd) if wf.is_block_scaled else hd
+    cache = torch.full((B, S * Kv * feat * wf.nbits // 8), 0xA5, dtype=torch.uint8, device=device)
+    cache = cache.view(wf.storage)
+    return cache, cache[:, start * Kv * feat:(start + n) * Kv * feat]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_encode_into_strided_slots_pairs_and_bf16(cuda, fmt):
+    """takum_encode_into at a prefill slot range (n = 5 of S = 13) and a
+    decode slot (n = 1 at position 7): the slots equal the plain version's,
+    every byte around them keeps its canary; the pair launch equals two
+    single launches; a bf16 source equals its f32 widening."""
+    wf = wire_format(fmt)
+    B, S, Kv, hd = 3, 13, 2, 64
+    for start, n in ((0, 5), (7, 1)):
+        k = _f32_inputs(B * n * Kv * hd, start + 30, cuda).reshape(B * n * Kv, hd)
+        v = (_rand((B * n * Kv, hd), start + 31) * 3).to(cuda)
+        for impl in _impls(fmt, "encode"):
+            ck, dk = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+            cv, dv = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+            takum_encode_into((k, v), (dk, dv), fmt, impl)
+            for c, src in ((ck, k), (cv, v)):
+                want, slots = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+                encode_into_plain(src, slots, fmt, impl)
+                assert _same_bits(c, want), (start, impl)
+            single_k, sk = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+            single_v, sv = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+            takum_encode_into(k, sk, fmt, impl)
+            takum_encode_into(v, sv, fmt, impl)
+            assert _same_bits(ck, single_k) and _same_bits(cv, single_v), (start, impl)
+            kb = k.to(torch.bfloat16)
+            ob, db = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+            of, df = _cache_slots(wf, B, S, Kv, hd, start, n, cuda)
+            takum_encode_into(kb, db, fmt, impl)
+            takum_encode_into(kb.float(), df, fmt, impl)
+            assert _same_bits(ob, of), (start, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_decode_rows_equals_gather_decode_scale_cast(cuda, fmt):
+    """K1 over gathered rows (repeated, out of order, a [2, 5] id tensor),
+    scaled by a pow2 and cast, equals the gather, K1, the multiply and the
+    cast on the card, bit for bit (NaN as NaN)."""
+    wf = wire_format(fmt)
+    V, C = 50, 256
+    L = blockscale.payload_len(C) if wf.is_block_scaled else C
+    table = (torch.randint(0, 256, (V, L), dtype=torch.uint8) if wf.is_block_scaled
+             else _codes(wf, V * L, 60).reshape(V, L)).to(cuda)
+    rows = torch.tensor([[7, 3, 7, 49, 0], [1, 1, 2, 48, 7]], device=cuda)
+    scale = None if wf.is_block_scaled else torch.tensor(2.0 ** -3, device=cuda)
+    for impl in _impls(fmt, "decode"):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = takum_decode_rows(table, rows, fmt, impl, scale, out_dtype)
+            g = table.view(wf.signed_storage)[rows.reshape(-1)].view(table.dtype)
+            want = takum_decode_2d(g, fmt, impl).reshape(2, 5, C)
+            want = (want if scale is None else want * scale).to(out_dtype)
+            assert got.dtype == out_dtype and got.shape == (2, 5, C)
+            assert _same_f32(got.float(), want.float()), (impl, out_dtype)
 
 
 @pytest.mark.gpu
@@ -171,6 +326,9 @@ def test_launch_counters_count_kernel_launches(cuda):
     for impl in IMPLS:
         bits = ops.encode(x, "t8", encode_impl=impl)
         ops.decode(bits, "t8", decode_impl=impl)
+        ops.encode_into((x, x), (torch.empty_like(bits), torch.empty_like(bits)), "t8",
+                        encode_impl=impl)
+        ops.decode_rows(bits, torch.tensor([3, 0, 3], device=cuda), "t8", decode_impl=impl)
         ops.matmul(x, bits.t().contiguous(), "t8", decode_impl=impl)
         ops.dual_matmul(bits, bits.t().contiguous(), "t8", decode_impl=impl)
         kv = bits.reshape(1, 1, 4, 32)
