@@ -100,6 +100,24 @@ Phases, each of which must pass:
       plain version, ``torch.matmul(g, decode(w).T)`` and the copy
       yardstick (the bits transposed into a copy, then K3).
       Phase (b) prints each source's nvcc time and kernel count.
+  (h) training.  First the token ids (F3, F4): K1's embedding rows equal
+      their plain version for int32 and int64 ids and for ids off the table
+      (wrapped, then clamped), and the process launches kernels after.
+      (h1) one train step at smoke size under takum, kernels and then
+      ``ops.plain_path()`` from clones of one state: params, moment codes
+      and rng bit for bit (K1 and K2 are exact and nothing else differs),
+      with stochastic and with nearest-even moment refreshes, launches
+      counted; (h2) ``adamw_update`` on the wi leaf [4096, 14336] with t16
+      and t8 moments, kernel against plain path bit for bit, timed; (h3)
+      llama3-8b at full width cut to 4 layers, B = 4, S = 256, random init
+      from a seed, 8 steps on one batch each under takum, takum8 and bf16:
+      the CE falls,
+      K1 counted around one step (2 per parameter leaf under quantised
+      moments, none under bf16's f32 moments) and K2 around the init, step
+      ms and the peak of ``max_memory_allocated``; (h4) the smoke launcher
+      (``repro_torch.launch.train``, bf16) and the loop under takum with an
+      f32 checkpoint, each crashed at step 7 and restarted from its step-4
+      checkpoint, end equal to an unbroken run bit for bit.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -1794,6 +1812,308 @@ def phase_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase (h): single-device training
+# ---------------------------------------------------------------------------
+
+
+def same_tree(torch, a, b):
+    """Every leaf of two trees equal bit for bit (floats through their int
+    view: NaN == NaN, -0 != +0), with equal dtypes and shapes."""
+    from repro_torch import tree
+
+    la, lb = tree.flatten(a)[0], tree.flatten(b)[0]
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype.is_floating_point or x.dtype in (torch.uint16, torch.uint32):
+            w = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[x.element_size()]
+            x, y = x.contiguous().view(w), y.contiguous().view(w)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def clone_tree(t):
+    from repro_torch import tree
+
+    return tree.map_leaves(lambda x: x.clone(), t)
+
+
+def phase_token_ids(torch, dev):
+    """F3 and F4 on the card: K1's embedding rows (``takum_decode_rows``)
+    equal the plain version, bit for bit, for int32 and int64 ids and for
+    ids off the table ([-V, -1, 5, V, V + 3]: wrapped, then clamped), for
+    t16 (bits), t8 and mxt8 (lut).  The phases after this one launch more
+    kernels in the same process: the context survived."""
+    from repro_torch.kernels.takum_codec import decode_rows_plain, takum_decode_rows
+    from repro_torch.quant.qtensor import quantize
+
+    V, d = 1000, 256
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    table = torch.randn((V, d), generator=gen, device=dev)
+    ids = torch.tensor([[-V, -1, 5, V, V + 3], [-V - 7, 0, V - 1, -2, 2 * V]], device=dev)
+    cases = 0
+    for fmt in ("t16", "t8", "mxt8"):
+        q = quantize(table, fmt, scaled=True)
+        scale = None if q.block_scaled else q.scale
+        for dt in (torch.int32, torch.int64):
+            got = takum_decode_rows(q.bits, ids.to(dt), fmt, scale=scale)
+            want = decode_rows_plain(q.bits, ids.to(dt), fmt, scale=scale)
+            check(same_bits_f32(torch, got, want), f"F3/F4: K1 rows {fmt} {dt} differ from plain")
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+#: llama3-8b's wi leaf of one layer, [d, d_ff] (phase (h2))
+WI_SHAPE = (4096, 14336)
+#: parameter leaves of the dense model (embed, final_norm, lm_head, ln1, ln2,
+#: the four attention and three MLP weights): K1 decodes each one's two
+#: quantised moments once a step
+TRAIN_LEAVES = 12
+
+
+def phase_train_exact(torch, dev):
+    """(h1) One train step at smoke size under takum (SR refresh, then RNE
+    refresh: K2), with the kernels and then under ``ops.plain_path()`` from
+    clones of one state, one batch and one generator seed: params, moment
+    codes and scales, the step and the rng equal bit for bit, K1 launched
+    2 x TRAIN_LEAVES times (and K2 as often under RNE).  (h2)
+    ``adamw_update`` on llama3-8b's wi leaf [4096, 14336] with t16 and t8
+    moments, two updates (the second from non-zero moments), kernel path
+    against plain path: codes and params bit for bit, each update timed."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut import resolve_impl
+    from repro_torch.optim import adamw_init, adamw_update, generator_draws
+    from repro_torch.quant.policy import POLICIES
+    from repro_torch.train.step import init_state, make_train_step
+
+    out = {}
+    for sr in (True, False):
+        cfg = configs.get_smoke("llama3_8b").with_(
+            quant=dataclasses.replace(POLICIES["takum"], stochastic_rounding=sr))
+        st = init_state(cfg, 0, device=dev)
+        batch = SyntheticLM(cfg.vocab_size, 64, 4, seed=17).batch(0)
+        step = make_train_step(cfg)
+        ops.reset_launch_counts()
+        k_state, k_m = step(clone_tree(st), batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        with ops.plain_path():
+            p_state, p_m = step(clone_tree(st), batch)
+        tag = f"h1 takum {'SR' if sr else 'RNE'}"
+        check(same_tree(torch, k_state, p_state), f"{tag}: kernel and plain steps differ")
+        check(k_m["loss"].item() == p_m["loss"].item(), f"{tag}: losses differ")
+        dec = f"takum_decode_2d[{resolve_impl(None, 't16')}]"
+        enc = f"takum_encode_2d[{resolve_impl(None, 't16', 'encode')}]"
+        want = {dec: 2 * TRAIN_LEAVES, **({} if sr else {enc: 2 * TRAIN_LEAVES})}
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+        out[tag] = dict(launches=counts, loss=k_m["loss"].item())
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    wi = torch.randn(WI_SHAPE, generator=gen, device=dev) * WI_SHAPE[0] ** -0.5
+    grads = [torch.randn(wi.shape, generator=gen, device=dev) * 1e-3 for _ in range(2)]
+    for fmt in ("t16", "t8"):
+        def run(seed):
+            st = adamw_init({"wi": wi}, fmt=fmt)
+            p = {"wi": wi}
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            for gr in grads:
+                p, st = adamw_update({"wi": gr}, st, p, lr=3e-4, fmt=fmt, rnd=generator_draws(g))
+            return p, st
+
+        kp, ks = run(9)
+        with ops.plain_path():
+            pp, ps = run(9)
+        check(same_tree(torch, (kp, ks), (pp, ps)), f"h2 {fmt}: kernel and plain updates differ")
+        st = adamw_init({"wi": wi}, fmt=fmt)
+        p, st = adamw_update({"wi": grads[0]}, st, {"wi": wi}, lr=3e-4, fmt=fmt)
+
+        def update():
+            adamw_update({"wi": grads[1]}, st, p, lr=3e-4, fmt=fmt,
+                         rnd=generator_draws(gen))
+
+        def update_rne():
+            adamw_update({"wi": grads[1]}, st, p, lr=3e-4, fmt=fmt)
+
+        row = dict(ms_sr=time_ms(torch, update, reps=5, warmup=1),
+                   ms_rne=time_ms(torch, update_rne, reps=5, warmup=1))
+        with ops.plain_path():
+            row["plain_ms_sr"] = time_ms(torch, update, reps=5, warmup=1)
+        out[f"h2 wi {fmt}"] = row
+        del kp, ks, pp, ps, st, p
+    del wi, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase (h3): llama3-8b at full width, cut to this many layers
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4, 256, 8
+
+
+def phase_train_full(torch, dev, policy):
+    """(h3) llama3-8b at full width and TRAIN_LAYERS layers, random init
+    from a seed, TRAIN_STEPS AdamW steps of B = 4, S = 256 under ``policy``,
+    every step on the same ``SyntheticLM`` batch: the CE falls from step 1
+    to the last; launches counted around the init (K2 packs the zero
+    moments) and around step 2 (K1: two per parameter leaf under quantised
+    moments, none under f32 moments); each step timed (host clock,
+    synchronised); the peak of ``max_memory_allocated`` (with what the
+    process held before); one more step profiled.  One batch,
+    because over a 128256-token vocabulary the Markov chain's 1024 tokens
+    of one batch barely recur in the next: eight fresh batches show no fall
+    beyond the batch-to-batch spread (on the CPU at d = 1024, V = 32768:
+    10.907, 10.939, ..., 10.878), where a wrong gradient or update would
+    still fail to fit one batch (the same run on one batch: 10.907 -> 0.062)."""
+    from repro_torch import configs, tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut import resolve_impl
+    from repro_torch.quant.policy import POLICIES
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = configs.get("llama3_8b").with_(num_layers=TRAIN_LAYERS, quant=POLICIES[policy])
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = init_state(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    n_params = sum(p.numel() for p in tree.flatten(st.params)[0])
+    pipe = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=17)
+    step = make_train_step(cfg)
+    ces, step_ms, counts = [], [], None
+    batch = pipe.batch(0)
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        ces.append(m["ce"].item())
+        check(m["grad_ok"].item() == 1.0, f"h3 {policy}: non-finite gradients at step {i + 1}")
+    fmt = cfg.quant.opt_state
+    quantised = fmt not in ("f32", "bf16")
+    want = {f"takum_decode_2d[{resolve_impl(None, fmt)}]": 2 * TRAIN_LEAVES} if quantised else {}
+    check(counts == want, f"h3 {policy}: launches in one step {counts}, want {want}")
+    want_init = ({f"takum_encode_2d[{resolve_impl(None, fmt, 'encode')}]": 2 * TRAIN_LEAVES}
+                 if quantised else {})
+    check(init_counts == want_init, f"h3 {policy}: init launches {init_counts}")
+    check(all(math.isfinite(c) for c in ces) and ces[-1] < ces[0],
+          f"h3 {policy}: CE did not fall: {ces}")
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_train_step(torch, step, st, batch)
+    del st, m
+    torch.cuda.empty_cache()
+    return dict(policy=policy, opt_state=fmt, layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_S,
+                params=n_params, init_s=init_s, init_launches=init_counts, step_launches=counts,
+                ce=ces, step_ms=step_ms, step_ms_median_2_on=statistics.median(step_ms[1:]),
+                tokens_per_s=TRAIN_B * TRAIN_S / statistics.median(step_ms[1:]) * 1e3,
+                allocated_before_gb=held_before / 1e9, max_memory_allocated_gb=peak / 1e9,
+                profile_one_step=profile)
+
+
+#: kernel-name fragments of the training step's device time by part: the
+#: f32 GEMMs (cuBLAS / CUTLASS) and K1
+TRAIN_GEMM = ("gemm", "cutlass", "nvjet")
+TRAIN_K1 = ("decode_kernel",)
+
+
+def profile_train_step(torch, step, st, batch):
+    """One more step (after the counted ones) under torch.profiler: device
+    busy ms, the GEMMs' and K1's shares, the kernels launched, and the top
+    device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    by_name = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    gemm = sum(v for k, v in by_name.items() if any(f in k for f in TRAIN_GEMM))
+    k1 = sum(v for k, v in by_name.items() if any(f in k for f in TRAIN_K1))
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if "CUDA" in str(getattr(ev, "device_type", ""))
+                  and not ev.key.startswith(("Memcpy", "Memset")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy if busy else None,
+                idle_share=(1 - busy / wall_ms) if busy else None, gemm_ms=gemm, k1_ms=k1,
+                kernel_launches=kernels, top_kernels_ms=[[k[:80], v] for k, v in top])
+
+
+def phase_train_restart(torch, dev):
+    """(h4) A crash injected at step 7, a restart from the step-4
+    checkpoint, and the final state equal, bit for bit, to an unbroken
+    run's: ``launch.train --smoke`` on the card under bf16 (whose checkpoint
+    format is f32), and ``TrainLoop`` over ``make_train_step`` under takum
+    with an f32 checkpoint (the SR draws seeded from the restored rng)."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launch
+    from repro_torch.quant.policy import POLICIES
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.train.step import init_state, make_train_step
+
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--smoke", "--steps", "12", "--batch", "4", "--seq", "64", "--policy", "bf16",
+            "--ckpt-every", "4", "--device", dev.type]
+    cfg = configs.get_smoke("llama3_8b").with_(quant=POLICIES["takum"])
+    pipe = SyntheticLM(cfg.vocab_size, 64, 4, seed=17)
+
+    def takum_loop(d, hook=None):
+        loop = TrainLoop(TrainLoopConfig(total_steps=12, ckpt_every=4, ckpt_dir=str(d),
+                                         ckpt_fmt="f32", log_every=4),
+                         make_train_step(cfg), pipe.batch,
+                         lambda: init_state(cfg, 0, device=dev), hook)
+        return loop.run(), loop.metrics_history
+
+    runs = {"launcher bf16": lambda d, hook=None: launch.main(args + ["--ckpt-dir", str(d)],
+                                                              failure_hook=hook),
+            "loop takum": takum_loop}
+
+    def crash(step):
+        if step == 7:
+            raise RuntimeError("injected failure")
+
+    ce = {}
+    for name, run in runs.items():
+        ref, hist = run(root / name / "unbroken")
+        try:
+            run(root / name / "restarted", crash)
+            check(False, f"h4 {name}: the injected failure did not stop the run")
+        except RuntimeError as e:
+            check("injected" in str(e), f"h4 {name}: unexpected failure {e}")
+        resumed, _ = run(root / name / "restarted")
+        check(same_tree(torch, ref, resumed),
+              f"h4 {name}: the restarted run differs from the unbroken one")
+        ce[name] = [m["ce"] for m in hist]
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(steps=12, crash_at=7, resumed_from=4, ce=ce)
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -1878,6 +2198,13 @@ SUMMARY = [
     ("takum_matmul", "t8", "lut", [1024, 4096, 14336], "ad", "float32"),
     ("takum_matmul", "t16", "bits", [1024, 4096, 14336], "ad", "float32"),
     ("takum_matmul", "mxt8", "lut", [1024, 4096, 14336], "mxt8/f32", "float32"),
+    # training (phase (h3)): K1 decodes each quantised moment every step, K2
+    # packs the zero moments at init (the SR refresh is plain PyTorch); the
+    # row is phase (c)'s at one layer's wi leaf
+    ("takum_decode_2d", "t16", "bits", [4096, 14336], "train/takum"),
+    ("takum_decode_2d", "t8", "lut", [4096, 14336], "train/takum8"),
+    ("takum_encode_2d", "t16", "lut", [4096, 14336], "train/takum/init"),
+    ("takum_encode_2d", "t8", "lut", [4096, 14336], "train/takum8/init"),
 ]
 
 
@@ -1988,6 +2315,27 @@ def main() -> int:
     ad_rows, ad_counts = phase_ad_full(torch, dev)
     log(f"(g) K5 done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    ids_cases = phase_token_ids(torch, dev)
+    log(f"(h) F3/F4: K1 rows equal their plain version on int32 / int64 and off-table ids "
+        f"({ids_cases} cases)")
+    train_exact = phase_train_exact(torch, dev)
+    log("(h1, h2) kernel and plain train steps and updates bit for bit " + json.dumps(train_exact))
+    train_full = {}
+    for policy in ("takum", "takum8", "bf16"):
+        train_full[policy] = phase_train_full(torch, dev, policy)
+        r = train_full[policy]
+        log(f"(h3) {policy}: llama3-8b {r['layers']} layers ({r['params'] / 1e9:.3f}B params), "
+            f"B={r['batch']} S={r['seq']}: CE {r['ce'][0]:.4f} -> {r['ce'][-1]:.4f}, "
+            f"step {r['step_ms_median_2_on']:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+            f"peak {r['max_memory_allocated_gb']:.2f} GB (held before "
+            f"{r['allocated_before_gb']:.2f}), profiled step {json.dumps(r['profile_one_step'])}, "
+            f"launches per step "
+            f"{r['step_launches']}, at init {r['init_launches']}; card: {card}")
+    train_restart = phase_train_restart(torch, dev)
+    log(f"(h4) restarts equal the unbroken runs {json.dumps(train_restart)}")
+    log(f"(h) training done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -1998,6 +2346,9 @@ def main() -> int:
     launches["mxt8/f32"] = next(r["launches"] for r in parity
                                 if r["policy"] == "mxt8" and r["activations"] == "f32")
     launches["ad"] = ad_counts
+    for policy in ("takum", "takum8"):
+        launches[f"train/{policy}"] = train_full[policy]["step_launches"]
+        launches[f"train/{policy}/init"] = train_full[policy]["init_launches"]
     summary = []
     for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
@@ -2058,6 +2409,8 @@ def main() -> int:
                             launches={k: v for k, v in producer_counts.items() if v}),
              ad=dict(worst_err_over_absprod=ad_worst, rows=ad_rows,
                      launches={k: v for k, v in ad_counts.items() if v}),
+             train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
+                        restart=train_restart),
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -8,6 +8,10 @@ format's bits are the element bytes [..., n] and its scale the uint8 E8M0
 bytes [..., ceil(n/32)], which are interleaved into the port's payload.
 The caller converts from ``repro``; this module imports neither JAX nor
 ``repro``.
+
+``train_state_from_numpy(tree, cfg)`` takes ``repro``'s ``TrainState``
+the same way (params, AdamW step and moments, the uint32[2] rng), so both
+packages can start training from one state.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-    a = np.ascontiguousarray(a)
-    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")  # a copy; 0-d stays 0-d
+    return torch.from_numpy(a).to(device)
 
 
 def _leaf(x, device):
@@ -58,3 +63,27 @@ def params_from_numpy(tree: dict, cfg, *, device=None) -> dict:
     if tuple(emb.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed shape {tuple(emb.shape)} does not match {cfg.name}")
     return out
+
+
+def _field(t, name: str):
+    return t[name] if isinstance(t, dict) else getattr(t, name)
+
+
+def train_state_from_numpy(tree, cfg, *, device=None):
+    """``repro``'s ``TrainState`` as numpy (``params``, ``opt`` with
+    ``step``/``m``/``v``, ``rng``; NamedTuples or dicts; quantised moments as
+    ``{"bits", "fmt", "scale"}``) -> the port's ``TrainState``: params and
+    moments on ``device`` (the card unless 'cpu'), the rng on the host."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.step import TrainState
+
+    dev = resolve_device(device)
+    opt = _field(tree, "opt")
+    rng = np.asarray(_field(tree, "rng"))
+    if rng.dtype != np.uint32 or rng.shape != (2,):
+        raise TypeError(f"rng must be uint32[2], got {rng.dtype} {rng.shape}")
+    return TrainState(
+        params=params_from_numpy(_field(tree, "params"), cfg, device=dev),
+        opt=AdamWState(step=_tensor(np.asarray(_field(opt, "step"), np.int32), dev),
+                       m=_leaf(_field(opt, "m"), dev), v=_leaf(_field(opt, "v"), dev)),
+        rng=torch.from_numpy(rng.copy()))

@@ -10,7 +10,9 @@ codes (:meth:`WireFormat.pack` turns them into :attr:`WireFormat.storage`);
 ``[..., n]`` (n a multiple of 32) to the interleaved uint8 payload
 ``[..., n/32*33]`` and ``decode`` maps it back (``quant.blockscale``).
 ``code`` is the format's id in the CUDA kernels (``kernels/csrc/codec.cuh``);
-f32 has none, since no kernel moves it.
+f32 has none, since no kernel moves it.  ``encode_np``/``decode_np`` are the
+float64 numpy oracles (:mod:`.codecs_np`) the checkpoint manager packs
+float leaves with.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from . import ofp8, takum
+from . import codecs_np, ofp8, takum
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -39,11 +42,24 @@ class WireFormat:
     code: Optional[int] = None
     encode: Callable = dataclasses.field(repr=False, default=None)
     decode: Callable = dataclasses.field(repr=False, default=None)
+    encode_np: Callable = dataclasses.field(repr=False, default=None)
+    decode_np: Callable = dataclasses.field(repr=False, default=None)
 
     @property
     def storage(self) -> torch.dtype:
         """Narrowest unsigned container for the packed bit patterns."""
         return {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}[self.nbits]
+
+    @property
+    def np_storage(self):
+        """:attr:`storage` as a numpy dtype."""
+        return {8: np.uint8, 16: np.uint16, 32: np.uint32}[self.nbits]
+
+    @property
+    def supports_sr(self) -> bool:
+        """A stochastic-rounding encode exists: takum's and OFP8's
+        (``takum.takum_encode_sr``, ``ofp8.encode_sr``)."""
+        return self.family in ("takum", "ofp8")
 
     @property
     def signed_storage(self) -> torch.dtype:
@@ -133,6 +149,8 @@ def _mx_wire(elem_name: str, elem_emax: int, code: int) -> BlockScaledFormat:
         name=name, nbits=8, family="mx", special="nan_block", code=code,
         encode=lambda x: _bs().encode_payload(x, name),
         decode=lambda p: _bs().decode_payload(p, name),
+        encode_np=lambda x: codecs_np.mx_encode(x, name),
+        decode_np=lambda p: codecs_np.mx_decode(p, name),
         elem_name=elem_name, elem_emax=elem_emax,
     )
 
@@ -142,6 +160,8 @@ def _takum_wire(n: int, code: int) -> WireFormat:
         name=f"t{n}", nbits=n, family="takum", special="nar", code=code,
         encode=lambda x: takum.takum_encode(x, n),
         decode=lambda b: takum.takum_decode(b, n),
+        encode_np=lambda x: codecs_np.takum_encode(x, n),
+        decode_np=lambda b: codecs_np.takum_decode(b, n),
     )
 
 
@@ -151,6 +171,8 @@ def _ofp8_wire(fmt: str, code: int) -> WireFormat:
         code=code,
         encode=lambda x: ofp8.encode(x, fmt),
         decode=lambda b: ofp8.decode(b, fmt),
+        encode_np=lambda x: codecs_np.ofp8_encode(x, fmt),
+        decode_np=lambda b: codecs_np.ofp8_decode(b, fmt),
     )
 
 
@@ -175,10 +197,12 @@ WIRE_FORMATS: dict[str, WireFormat] = {
             name="f32", nbits=32, family="ieee", special="inf",
             encode=takum.f32_bits,
             decode=lambda b: takum.f32_from_bits(takum.codes_of(b) & 0xFFFFFFFF),
+            encode_np=codecs_np.f32_encode, decode_np=codecs_np.f32_decode,
         ),
         WireFormat(
             name="bf16", nbits=16, family="ieee", special="inf", code=4,
             encode=bf16_encode, decode=bf16_decode,
+            encode_np=codecs_np.bf16_encode, decode_np=codecs_np.bf16_decode,
         ),
         _takum_wire(8, 0),
         _takum_wire(16, 1),

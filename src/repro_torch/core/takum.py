@@ -14,7 +14,10 @@ as if zero-extended to 12 bits.
 
 The encoder rounds to nearest, ties to even, on the bit string, saturates
 (a nonzero value never becomes 0, a finite value never becomes NaR) and
-flushes f32 subnormal inputs to zero (DAZ).  The decoder assembles the f32
+flushes f32 subnormal inputs to zero (DAZ).  The stochastic-rounding
+encoder (:func:`takum_encode_sr`, for optimizer state) shares everything
+but the rounding: it adds given uniform bits below the kept bits and
+truncates.  The decoder assembles the f32
 directly: characteristics above 127 saturate to f32 max-finite, below -126
 flush to zero, NaR becomes NaN.  On XLA's CPU backend ``repro``'s value
 decoder flushes the same subnormal results, so both agree on every t8/t16
@@ -29,7 +32,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["NAR", "codes_of", "f32_bits", "f32_from_bits", "pow2_f32", "takum_encode",
-           "takum_decode"]
+           "takum_encode_sr", "takum_decode"]
 
 _I64 = torch.int64
 
@@ -89,11 +92,10 @@ def _round_body(body, nbits, keep: int):
     return out.clamp(1, (1 << keep) - 1)
 
 
-def takum_encode(x: torch.Tensor, n: int) -> torch.Tensor:
-    """float32 -> n-bit linear takum bit patterns (int64), RNE, DAZ,
-    saturating; NaN and Inf encode to NaR.  ``n`` in [2, 28]."""
-    if not 2 <= n <= 28:
-        raise ValueError(f"takum_encode supports 2 <= n <= 28, got {n}")
+def _encode_body(x: torch.Tensor):
+    """float32 -> (neg, is_zero, is_nar, body, nbits): the left-aligned
+    header + 23-bit fraction of |x| and its bit count (int64), DAZ'd
+    subnormals and zeros flagged zero, NaN and Inf flagged NaR."""
     u = f32_bits(x)
     a = u & 0x7FFFFFFF
     is_zero = a < 0x00800000  # |x| < 2**-126: zero and DAZ'd subnormals
@@ -111,12 +113,45 @@ def takum_encode(x: torch.Tensor, n: int) -> torch.Tensor:
     R = torch.where(cneg, 7 - r, r)
     D = (~cneg).to(_I64)
     H = (D << (r + 3)) | (R << r) | C  # 4 + r header bits
-    mag = _round_body((H << 23) | mf, r + 4 + 23, n - 1)
+    return neg, is_zero, is_nar, (H << 23) | mf, r + 4 + 23
 
+
+def _finish(neg, is_zero, is_nar, mag, n: int) -> torch.Tensor:
+    """Sign, zero and NaR onto the rounded magnitude."""
     mask = (1 << n) - 1
     enc = torch.where(neg, (-mag) & mask, mag)
     enc = torch.where(is_zero, torch.zeros_like(enc), enc)
     return torch.where(is_nar, torch.full_like(enc, NAR(n)), enc)
+
+
+def takum_encode(x: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 -> n-bit linear takum bit patterns (int64), RNE, DAZ,
+    saturating; NaN and Inf encode to NaR.  ``n`` in [2, 28]."""
+    if not 2 <= n <= 28:
+        raise ValueError(f"takum_encode supports 2 <= n <= 28, got {n}")
+    neg, is_zero, is_nar, body, nbits = _encode_body(x)
+    return _finish(neg, is_zero, is_nar, _round_body(body, nbits, n - 1), n)
+
+
+def takum_encode_sr(x: torch.Tensor, n: int, rnd_bits: torch.Tensor) -> torch.Tensor:
+    """float32 -> n-bit linear takum bit patterns (int64) with stochastic
+    rounding: the tail of ``repro``'s ``_encode_from_cm(..., rnd_bits)``.
+    ``rnd_bits & (2**t - 1)`` is added below the t discarded bits of the
+    body (the carry walks into the kept bits), the sum truncated, and the
+    magnitude clamped to [1, 2**(n-1) - 1]; zero, DAZ and NaR as
+    :func:`takum_encode`.  ``rnd_bits``: x's shape, uint32 values in an
+    integer tensor (int64, or their int32 view), given by the caller and
+    never drawn here.  ``n`` in [2, 27] (a body has at least 27 bits, so
+    t >= 1)."""
+    if not 2 <= n <= 27:
+        raise ValueError(f"takum_encode_sr supports 2 <= n <= 27, got {n}")
+    if rnd_bits.shape != x.shape:
+        raise ValueError(f"rnd_bits {tuple(rnd_bits.shape)} must match x {tuple(x.shape)}")
+    neg, is_zero, is_nar, body, nbits = _encode_body(x)
+    t = (nbits - (n - 1)).clamp(0, 31)
+    add = rnd_bits.to(_I64) & ((torch.ones_like(t) << t) - 1)
+    mag = ((body + add) >> t).clamp(1, (1 << (n - 1)) - 1)
+    return _finish(neg, is_zero, is_nar, mag, n)
 
 
 def _decode_fields(bits: torch.Tensor, n: int):

@@ -53,7 +53,8 @@ _EPI = [_INT, _INT, _P, _P]
 #: index, output, rows, columns, input pitch, input rows, scale, output
 #: dtype; K2: two sources, two destinations, pairs, elements, run, pitch,
 #: source dtype) and ``takum_codec.codec_plan``'s grid, vec, head and tail
-#: after the tables; ``repro_codec_occupancy`` gives the device's SM count
+#: after the tables (K1 then the width of one row id, 4 or 8, 0 without
+#: a row index); ``repro_codec_occupancy`` gives the device's SM count
 #: and a codec kernel's blocks per SM.  K3,
 #: K4, K3's transposed twin and K6 also take the f32 workspace of their
 #: split plan after the output, and the plan's numbers after the shapes;
@@ -61,7 +62,7 @@ _EPI = [_INT, _INT, _P, _P]
 #: and the tensor-core tiles' block edge.
 ENTRIES = {
     "repro_decode": ("takum_codec", [_P, _P, _P, _LL, _LL, _LL, _LL, _P, _INT, _INT, _INT, _P,
-                                     _INT, _INT, _LL, _LL, _P]),
+                                     _INT, _INT, _LL, _LL, _INT, _P]),
     "repro_encode": ("takum_codec", [_P, _P, _P, _P, _INT, _LL, _LL, _LL, _INT, _INT, _INT, _P,
                                      _P, _INT, _INT, _LL, _LL, _P]),
     "repro_codec_occupancy": ("takum_codec", [_INT, _INT, _INT, _INT, _P, _P]),

@@ -173,7 +173,7 @@ __device__ __forceinline__ void stage_encode_tables16(const uint32_t* meta, cons
 // nrows 1, rows null.
 struct DecodeArgs {
   const void* in;
-  const long long* rows;
+  const void* rows;     // int32 or int64 ids (row_bytes 4 or 8), or null
   void* out;
   long long nrows, cols, pitch;
   long long nsrc;       // input rows: the bound on rows[]
@@ -181,13 +181,18 @@ struct DecodeArgs {
   const int* tab;       // lut: the decode table
   long long head, tail;  // elements of the scalar loop before / after the vector body
   int vec;               // elements per vector access, or 1: the scalar loop does it all
+  int row_bytes;         // width of one id in rows[]
 };
 
+// The input row of output row t: the id read at its own width, an id in
+// [-nsrc, -1] wrapped by adding nsrc, then clamped to [0, nsrc - 1] (the
+// reference's gather: ids [-1, 5, 7, -9] on 5 rows read rows 4, 4, 4, 0)
 __device__ __forceinline__ long long input_row(const DecodeArgs& a, long long t) {
   if (a.rows == nullptr) return t;
-  const long long k = a.rows[t];
-  if (k < 0 || k >= a.nsrc) __trap();  // an index off the table stops the kernel
-  return k;
+  long long k = a.row_bytes == 8 ? static_cast<const long long*>(a.rows)[t]
+                                 : static_cast<long long>(static_cast<const int*>(a.rows)[t]);
+  if (k < 0) k += a.nsrc;
+  return k < 0 ? 0 : (k >= a.nsrc ? a.nsrc - 1 : k);
 }
 
 template <int FMT, int IMPL, typename OutT>
@@ -520,7 +525,8 @@ template <int FMT, int IMPL>
 int launch_decode_as(const DecodeArgs& a, int out_dtype, int grid, cudaStream_t stream) {
   const long long n = a.nrows * a.cols;
   if (a.nrows < 1 || a.cols < 1 || out_dtype < kF32 || out_dtype > kBF16 ||
-      !plan_ok(n, a.head, a.tail, grid)) {
+      !plan_ok(n, a.head, a.tail, grid) ||
+      (a.rows != nullptr && a.row_bytes != 4 && a.row_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (IMPL == repro::kLut && (a.tab == nullptr || !aligned16(a.tab))) {
@@ -651,16 +657,17 @@ int occupancy(int op, int impl, int dtype, int* blocks) {
 }  // namespace
 
 // K1: output [nrows, cols] (f32 or bf16 by out_dtype) from `in`'s rows
-// (through `rows` when not null); for an mx format cols counts decoded
+// (through `rows` when not null: ids of row_bytes 4 or 8, wrapped and
+// clamped as input_row says); for an mx format cols counts decoded
 // elements (whole groups) and pitch payload bytes.  grid, vec, head and
 // tail are the wrapper's plan (takum_codec.codec_plan); impl is
 // repro::Impl; tab may be null for kBits.
-extern "C" int repro_decode(const void* in, const long long* rows, void* out, long long nrows,
+extern "C" int repro_decode(const void* in, const void* rows, void* out, long long nrows,
                             long long cols, long long pitch, long long nsrc, const float* scale,
                             int out_dtype, int fmt, int impl, const void* tab, int grid, int vec,
-                            long long head, long long tail, void* stream) {
+                            long long head, long long tail, int row_bytes, void* stream) {
   const DecodeArgs a{in, rows, out, nrows, cols, pitch, nsrc, scale,
-                     static_cast<const int*>(tab), head, tail, vec};
+                     static_cast<const int*>(tab), head, tail, vec, row_bytes};
   REPRO_WIRE_DISPATCH(fmt, launch_decode, a, impl, out_dtype, grid,
                       static_cast<cudaStream_t>(stream))
 }

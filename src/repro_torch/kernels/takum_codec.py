@@ -195,7 +195,8 @@ def _launch_decode(counter, bits, rows, out, nrows, cols, pitch, nsrc, scale, wf
     _build.check(fn(bits.data_ptr(), 0 if rows is None else rows.data_ptr(), out.data_ptr(),
                     nrows, cols, pitch, nsrc, 0 if scale is None else scale.data_ptr(), dt,
                     wf.code, IMPL_CODE[impl], *table_ptrs(wf, impl, "decode", dev),
-                    plan.grid, plan.vec, plan.head, plan.tail, stream_of(bits)),
+                    plan.grid, plan.vec, plan.head, plan.tail,
+                    0 if rows is None else rows.element_size(), stream_of(bits)),
                  counter.__name__)
     count_launch(counter, impl)
 
@@ -337,10 +338,23 @@ def takum_encode_into(srcs, dsts, fmt, encode_impl=None) -> None:
         _launch_encode(takum_encode_into, srcs, dsts, srcs[0].numel(), run, pitch, wf, impl)
 
 
+#: the row id dtypes K1 reads at their own width
+ROW_DTYPES = (torch.int32, torch.int64)
+
+
+def table_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Row ids -> the rows of an ``n``-row table they read, as ``repro``'s
+    gather does (``params["embed"][tokens]``): an id in [-n, -1] wraps by
+    adding n, then every id clamps to [0, n - 1].  Ids [-1, 5, 7, -9] on 5
+    rows read rows 4, 4, 4, 0.  int64 out."""
+    ids = ids.to(torch.int64)
+    return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+
+
 def _rows_args(bits, rows, wf, scale, out_dtype):
     _check_2d(bits, wf.storage, "bits")
-    if rows.dtype != torch.int64:
-        raise TypeError(f"rows must be int64, got {rows.dtype}")
+    if rows.dtype not in ROW_DTYPES:
+        raise TypeError(f"rows must be int32 or int64, got {rows.dtype}")
     if out_dtype not in DTYPE_CODE:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if scale is not None and (scale.dtype != torch.float32 or scale.numel() != 1):
@@ -351,12 +365,14 @@ def _rows_args(bits, rows, wf, scale, out_dtype):
 
 def decode_rows_plain(bits, rows, fmt, decode_impl=None, scale=None,
                       out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version of :func:`takum_decode_rows`: gather the rows (16-bit
-    bits through their signed view), decode (``decode_2d_plain``),
-    multiply by ``scale``, cast to ``out_dtype``."""
+    """Plain version of :func:`takum_decode_rows`: gather the rows that
+    int32 or int64 ``rows`` read (:func:`table_rows`: an id in [-V, -1]
+    wraps by adding V, then every id clamps to [0, V - 1], as ``repro``'s
+    gather does; 16-bit bits through their signed view), decode
+    (``decode_2d_plain``), multiply by ``scale``, cast to ``out_dtype``."""
     wf = wire_format(fmt)
     C = _rows_args(bits, rows, wf, scale, out_dtype)
-    g = bits.view(wf.signed_storage)[rows].view(bits.dtype)
+    g = bits.view(wf.signed_storage)[table_rows(rows, bits.shape[0])].view(bits.dtype)
     y = decode_2d_plain(g.reshape(-1, bits.shape[1]), wf, decode_impl)
     y = y.reshape(*rows.shape, C)
     return (y if scale is None else y * scale).to(out_dtype)
@@ -365,13 +381,16 @@ def decode_rows_plain(bits, rows, fmt, decode_impl=None, scale=None,
 def takum_decode_rows(bits: torch.Tensor, rows: torch.Tensor, fmt, decode_impl=None,
                       scale=None, out_dtype=torch.float32) -> torch.Tensor:
     """K1 over the rows of ``bits`` [V, L] (packed bits, or an mx payload)
-    that ``rows`` (int64 ids in [0, V), any shape, contiguous) picks, in
-    one launch: ``[*rows.shape, C]`` in ``out_dtype`` (float32 or
-    bfloat16), each decoded value multiplied by ``scale`` (a one-element
-    f32 tensor on the same device, e.g. a QTensor's pow2 scale) in f32 and
-    rounded to ``out_dtype`` with RNE.  An id off the table stops the
-    kernel (a device-side trap).  The model decodes its embedding rows this
-    way.  CPU tensors take :func:`decode_rows_plain`."""
+    that ``rows`` (int32 or int64 ids, any shape, contiguous; the kernel
+    reads each id at its own width) picks, in one launch: ``[*rows.shape,
+    C]`` in ``out_dtype`` (float32 or bfloat16), each decoded value
+    multiplied by ``scale`` (a one-element f32 tensor on the same device,
+    e.g. a QTensor's pow2 scale) in f32 and rounded to ``out_dtype`` with
+    RNE.  An id off the table reads what ``repro``'s gather reads: an id in
+    [-V, -1] wraps by adding V, then every id clamps to [0, V - 1]
+    (:func:`table_rows`), in the kernel and the plain version alike.  The
+    model decodes its embedding rows this way.  CPU tensors take
+    :func:`decode_rows_plain`."""
     wf = kernel_format(fmt)
     impl = lut.resolve_impl(decode_impl, wf)
     C = _rows_args(bits, rows, wf, scale, out_dtype)

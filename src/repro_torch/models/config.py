@@ -3,6 +3,9 @@
 This slice ports the dense decoder with an untied head only: any other
 family raises ``NotImplementedError``, and the fields are those the dense
 path reads (tied embeddings come with the families that use them).
+``remat`` is ``repro``'s knob: ``"block"`` (the default) recomputes each
+layer in the backward (``torch.utils.checkpoint``), ``"none"`` keeps every
+activation.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ class ModelConfig:
 
     quant: QuantPolicy = dataclasses.field(default_factory=QuantPolicy)
 
+    remat: str = "block"  # none | block (checkpoint each layer)
+
     def __post_init__(self):
         if self.family != "dense":
             raise NotImplementedError(
@@ -39,6 +44,8 @@ class ModelConfig:
             )
         if self.num_heads <= 0 or self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError("num_heads must be a positive multiple of num_kv_heads")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"remat must be 'none' or 'block', got {self.remat!r}")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -24,6 +24,14 @@ is padded before the append, an extra launch that no served config needs:
 llama3-8b's is 128).  The KV cache is updated IN PLACE
 (``repro`` is functional and returns a new cache): ``prefill`` fills a fresh
 cache and ``decode_step`` writes its slot into the cache it is given.
+
+Training runs :func:`loss_fn` over raw f32 (or bf16) parameters with
+autograd: every linear is ``torch.matmul`` (``repro`` trains its f32
+masters through the plain dot of ``layers.linear``), the attention's
+backward is :class:`~.attention.FlashAttention`, and under ``cfg.remat ==
+"block"`` each layer is recomputed in the backward.  Token ids are int32
+or int64 everywhere; an id off the table reads what ``repro``'s gather
+reads (wrapped, then clamped: ``takum_codec.table_rows``).
 """
 
 from __future__ import annotations
@@ -31,10 +39,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.formats import wire_format
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.takum_codec import table_rows
 from repro_torch.quant import blockscale
 from repro_torch.quant.qtensor import QTensor
 from .attention import flash_attention
@@ -94,6 +105,14 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def _needs_grad(tree) -> bool:
+    """Whether a tensor of a parameter tree asks autograd for a gradient
+    (packed QTensors never do)."""
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def _gain(g) -> torch.Tensor:
     """Norm gains as a tensor.  Packed gains decode through K1 on every
     call; ``serve.load_params`` decodes them once when the weights load."""
@@ -101,19 +120,23 @@ def _gain(g) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (prefill, training)
 # ---------------------------------------------------------------------------
 
 
 def _embed(params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
-    """The embedding rows of ``tokens`` in ``adt``: a packed table through one
-    K1 launch over the gathered rows (scaled and cast in the kernel)."""
+    """The embedding rows of int32 or int64 ``tokens`` in ``adt``: a packed
+    table through one K1 launch over the gathered rows (scaled and cast in
+    the kernel), a plain table through ``F.embedding`` (whose backward sums
+    the rows' grads deterministically).  Either way an id off the table is
+    wrapped, then clamped (``takum_codec.table_rows``), as in ``repro``."""
     e = params["embed"]
     if isinstance(e, QTensor) and e.fmt not in ("bf16", "f32"):
         x = ops.decode_rows(e.bits, tokens, e.fmt, scale=None if e.block_scaled else e.scale,
                             out_dtype=adt)
         return x[..., :e.n] if e.block_scaled else x
-    return (e.bits if isinstance(e, QTensor) else e)[tokens].to(adt)
+    table = e.bits if isinstance(e, QTensor) else e
+    return F.embedding(table_rows(tokens, table.shape[0]), table).to(adt)
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -143,21 +166,42 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
             on_kv=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] f32 (``last_only``: [B, 1, V], the
     head applied to the last position only).  ``on_kv(l, k, v)`` receives
-    each layer's roped K and V [B, S, Kv, hd] (the prefill's cache fill)."""
+    each layer's roped K and V [B, S, Kv, hd] (the prefill's cache fill).
+    Where autograd records and a parameter needs a gradient, each layer runs
+    under ``checkpoint`` when ``cfg.remat == "block"`` (``repro``'s
+    ``jax.checkpoint`` of the layer); serving never does."""
     B, S = tokens.shape
     adt = _act_dtype(cfg)
     x = _embed(params, tokens, adt)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     layers = params["layers"]
     gains1, gains2 = _gain(layers["ln1"]), _gain(layers["ln2"])
+    remat = cfg.remat == "block" and torch.is_grad_enabled() and _needs_grad(params)
     for l in range(cfg.num_layers):
-        x, k, v = _block(cfg, _layer(layers, l), gains1[l], gains2[l], x, positions)
+        args = (cfg, _layer(layers, l), gains1[l], gains2[l], x, positions)
+        x, k, v = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
         if on_kv is not None:
             on_kv(l, k, v)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
     return _head(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
+    """Next-token cross-entropy (counterpart of ``repro``'s ``loss_fn``):
+    ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.  ``batch["tokens"]``
+    [B, S] int32 or int64.  The gold logit is ``torch.gather``, which is
+    exactly ``repro``'s one-hot contraction for finite logits.  ``aux`` (the
+    MoE balance loss) is 0 for the dense family."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens)
+    lg = logits[:, :-1]
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tokens[:, 1:, None].to(torch.int64))[..., 0]
+    ce = (logz - gold).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

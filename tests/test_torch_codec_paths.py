@@ -6,7 +6,7 @@
   sides and inside one row; the kernels' loops are emulated index by index.
 * Through a monkeypatched C entry, each wrapper hands the kernel the plan,
   and ``takum_encode_into`` its pair and pitch, ``takum_decode_rows`` its row
-  index, scale and output dtype.
+  index (int32 or int64, with its width), scale and output dtype.
 * The plain ``takum_encode_into`` (the model's KV append), from bf16 and f32
   sources, equals ``repro.models.transformer._encode_cache`` of the same
   numpy-seeded input placed at the slot, bit for bit (NaN as NaN), at a
@@ -192,6 +192,9 @@ def test_wrappers_pass_the_plan_pairs_and_pitch(fake_entry):
     plan = codec_plan(4 * d, table.data_ptr(), out.data_ptr(), 2, 2, run=d, src_pitch=d,
                       sms=132, blocks_per_sm=6)
     assert args[12:16] == (plan.grid, plan.vec, plan.head, plan.tail) and plan.vec == 8
+    assert args[16] == 8  # the width of one row id
+    tc.takum_decode_rows(table, rows.to(torch.int32), "t16")
+    assert fake_entry[-1][1][16] == 4  # int32 ids are read at their own width, no cast
 
     # K1 / K2 over one contiguous range
     x = torch.zeros((8, 50))
@@ -204,7 +207,7 @@ def test_wrappers_pass_the_plan_pairs_and_pitch(fake_entry):
     name, args = fake_entry[-1]
     plan = codec_plan(400, bits.data_ptr(), y.data_ptr(), 1, 4, sms=132, blocks_per_sm=6)
     assert name == "repro_decode" and args[1] == 0 and args[3:9] == (1, 400, 400, 1, 0, 0)
-    assert args[12:16] == (plan.grid, plan.vec, plan.head, plan.tail)
+    assert args[12:17] == (plan.grid, plan.vec, plan.head, plan.tail, 0)
 
 
 def test_wrappers_refuse_what_the_launch_cannot_take():
@@ -219,8 +222,8 @@ def test_wrappers_refuse_what_the_launch_cannot_take():
         tc.takum_encode_into(torch.zeros(4, 8), cache[:, :8].view(torch.int8), "t8")
     with pytest.raises(ValueError):  # mx source not whole blocks
         tc.takum_encode_into(torch.zeros(4, 40), torch.zeros(4, 66, dtype=torch.uint8), "mxt8")
-    with pytest.raises(TypeError):
-        tc.takum_decode_rows(cache, torch.tensor([1], dtype=torch.int32), "t8")
+    with pytest.raises(TypeError):  # ids are int32 or int64
+        tc.takum_decode_rows(cache, torch.tensor([1], dtype=torch.int16), "t8")
     with pytest.raises(ValueError):
         tc.takum_decode_rows(cache, torch.tensor([1]), "t8", out_dtype=torch.float16)
 

@@ -30,7 +30,10 @@ K1 and K2 (the vectorised, persistent codec loops) also run at odd element
 counts up to 2^20 + 3, on views offset by 1-15 bytes, into strided
 destinations between canary bytes, as one launch for a pair equal to two
 single ones, from bf16 sources equal to their f32 widening, and as the
-gathered, scaled and cast embedding rows, all bit for bit.
+gathered, scaled and cast embedding rows, all bit for bit; the rows of
+int32 ids equal those of int64 ids, and ids off the table read what the
+plain version reads (wrapped, then clamped).  The training slice's SR
+encoders give the same codes on the card as on the host.
 """
 
 import pytest
@@ -245,6 +248,46 @@ def test_decode_rows_equals_gather_decode_scale_cast(cuda, fmt):
             want = (want if scale is None else want * scale).to(out_dtype)
             assert got.dtype == out_dtype and got.shape == (2, 5, C)
             assert _same_f32(got.float(), want.float()), (impl, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", FMTS + MX_FMTS)
+def test_decode_rows_int32_and_off_table_ids(cuda, fmt):
+    """int32 ids give K1 the rows int64 ids give, and ids off the table
+    ([-V, -1, V, V + 3, -V - 7, 2V]) read what the plain version reads, bit
+    for bit; a launch after them still runs (the context survived)."""
+    wf = wire_format(fmt)
+    V, C = 50, 256
+    L = blockscale.payload_len(C) if wf.is_block_scaled else C
+    table = (torch.randint(0, 256, (V, L), dtype=torch.uint8) if wf.is_block_scaled
+             else _codes(wf, V * L, 61).reshape(V, L)).to(cuda)
+    rows = torch.tensor([[-V, -1, 5, V, V + 3], [-V - 7, 0, V - 1, -2, 2 * V]], device=cuda)
+    for impl in _impls(fmt, "decode"):
+        want = decode_rows_plain(table, rows, fmt, impl)
+        for dt in (torch.int32, torch.int64):
+            got = takum_decode_rows(table, rows.to(dt), fmt, impl)
+            assert _same_f32(got, want), (impl, dt)
+    torch.cuda.synchronize()
+    inside = rows[:, 2:3].contiguous()
+    assert _same_f32(takum_decode_rows(table, inside, fmt), decode_rows_plain(table, inside, fmt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["t8", "t16", "e4m3", "e5m2"])
+def test_sr_encode_on_card_equals_host(cuda, fmt):
+    """The SR quantize of the training slice (plain PyTorch in int64) gives
+    the same scale and codes on the card as on the host, fed one set of
+    draws."""
+    from repro_torch.quant.qtensor import quantize
+
+    x = _rand((300, 257), 62, 1e-3)
+    x[0, :3] = torch.tensor([1e-40, -0.0, 0.0])  # a DAZ'd subnormal, both zeros
+    r = torch.randint(0, 1 << 32, x.shape, generator=torch.Generator().manual_seed(63))
+    host = quantize(x, fmt, scaled=True, rnd_bits=r)
+    card = quantize(x.to(cuda), fmt, scaled=True, rnd_bits=r.to(cuda))
+    assert torch.equal(card.scale.cpu(), host.scale)
+    signed = wire_format(fmt).signed_storage
+    assert torch.equal(card.bits.view(signed).cpu(), host.bits.view(signed))
 
 
 @pytest.mark.gpu
