@@ -44,7 +44,16 @@ Phases, each of which must pass:
       2 x [32, 128] and the prefill's 2 x [8192, 128]) and the embedding
       rows (``takum_decode_rows``: 4 and 1024 ids from a [128256, 4096]
       table, scaled, to bf16), bit for bit against the compositions they
-      replaced.  Each is timed with CUDA events, and the
+      replaced; the bf16 KV append's row carries a ``copy_`` of K and V into
+      their slots as its library call.  Then the other dense archs' new
+      shapes: the tied head, the transposed K3 over the stored table at
+      M = 4 (gemma2's [256000, 2304], llama3.2-3b's [128256, 3072]; t16
+      bits and t8 lut) within K3's limit, timed beside its byte bound and
+      ``torch.matmul(x, decode(e).T)``; K1-mx over gemma2's table in mxt8
+      (the mx tied head); K6 at gemma2's shape (hd 256, softcap 50, a
+      window of 4096 under the length) and granite's (H 48 over one kv
+      head), past 48 KiB of shared memory, timed beside SDPA.  Each is
+      timed with CUDA events, and the
       lut gather's shared-memory bank conflicts are probed by timing K1, K3
       and the transposed K3 (K5's backward) under a broadcast, a random and
       an 8-way-conflict code pattern.  The K3 rows at M = 4 and the K6 rows
@@ -118,6 +127,23 @@ Phases, each of which must pass:
       (``repro_torch.launch.train``, bf16) and the loop under takum with an
       f32 checkpoint, each crashed at step 7 and restarted from its step-4
       checkpoint, end equal to an unbroken run bit for bit.
+  (i) the other dense archs.  (i1) gemma2-2b at published widths and depth
+      (26 layers, tied head, alternating 4096-key local and global layers,
+      post-norms, softcaps) under takum and takum8, B = 4, a 4160-token
+      prompt (longer than the window: the local layers drop keys in the
+      prefill and in every decode step) and 32 decode steps; (i2)
+      llama3.2-3b (28 layers, tied) and musicgen-large (48 layers) under
+      takum, prompt 256; (i3) granite-34b at published widths cut to 8 of 88
+      layers (its 47.2B parameters are 94.5 GB at t16) under takum8, MQA
+      (g = 48 in K6).  Each through ``phase_serving``: launches counted
+      and held to the config's own tree (packed leaves and gains counted
+      from it: one transposed K3 per call for a tied head), warm prefill ms,
+      decode ms/token, peak memory, a profiled decode and prefill.  (i4)
+      each arch at full width and 2 layers, kernel path against
+      ``ops.plain_path()`` under takum and takum8 (and mxt8 for gemma2: the
+      K1-mx head) at f32 and bf16 activations, with phase (e)'s limits;
+      (i5) gemma2's smoke train step, kernels against the plain path bit
+      for bit, with SR and RNE refreshes.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -466,16 +492,25 @@ def phase_model_codecs(torch, dev, rows):
             def slots(c):
                 return [c[i][:, start * Kv * feat:(start + S) * Kv * feat] for i in range(2)]
 
+            lib = None
+            if fmt == "bf16":  # the library's append: a copy_ of K and of V into their slots
+                def lib():
+                    for src, dst in zip((k, v), slots(want)):
+                        dst.view(torch.bfloat16).copy_(src.view(B, -1))
             for impl in impls_of(fmt, "encode"):
                 takum_encode_into((k, v), slots(cache), fmt, impl)
                 encode_into_plain((k, v), slots(want), fmt, impl)
                 check(torch.equal(cache.view(torch.uint8), want.view(torch.uint8)),
                       f"append[{impl}] {fmt} S={S}: the cache differs from the plain version's")
+                if lib is not None:
+                    lib()
+                    check(torch.equal(cache.view(torch.uint8), want.view(torch.uint8)),
+                          f"append {fmt} S={S}: the copy_ differs from the kernel's append")
                 nbytes = 2 * (k.numel() * 2 + B * S * Kv * feat * esz)
                 rows.append(codec_row(
                     torch, "takum_encode_into", fmt, impl, [2, B * S * Kv, hd], 0.0, nbytes,
                     lambda: takum_encode_into((k, v), slots(cache), fmt, impl),
-                    lambda: encode_into_plain((k, v), slots(want), fmt, impl), None, flush))
+                    lambda: encode_into_plain((k, v), slots(want), fmt, impl), lib, flush))
             del k, v, cache, want
         L = blockscale.payload_len(d) if wf.is_block_scaled else d
         table = torch.randint(0, 256, (V, L * esz), generator=gen, device=dev,
@@ -498,6 +533,144 @@ def phase_model_codecs(torch, dev, rows):
         log(f"append / embedding rows {fmt}: bit-exact at the decode step's and the prefill's "
             f"shapes, timed")
     del flush
+
+
+#: the tied heads of phase (c): (arch, V, d) of the packed table [V, d]
+TIED_HEADS = (("gemma2_2b", 256000, 2304), ("llama3_2_3b", 128256, 3072))
+#: K6 at the other archs' decode shapes, phase (c): arch -> (B, H, Kv, S,
+#: hd, length, window, softcap): gemma2's local layer in its last decode
+#: step of phase (i1) (a prompt of 4160, 32 steps; its cache 4194), and
+#: granite's MQA (g = 48) at phase (i3)'s serving shape
+ARCH_ATTENTION = {"gemma2_2b": (4, 8, 4, 4194, 256, 4192, 4096, 50.0),
+                  "granite_34b": (4, 48, 1, 290, 128, 288, 0, 0.0)}
+
+
+def phase_arch_kernels(torch, dev, rows):
+    """The other dense archs' new kernel shapes against their plain
+    versions, timed beside their bound and library call: the tied head, the
+    transposed K3 over the stored table at M = 4 (``ops.matmul_t``, x f32,
+    the matvec), t16 bits and t8 lut, within K3_LIMIT of |x| @ |e|.T; the
+    mx tied head's K1-mx decode of gemma2's table (mxt8 lut, bit for bit);
+    K6 at gemma2's shape (hd 256, softcap 50, a window of 4096 under the
+    length) and granite's (g = 48), t8 lut and bits, within 1e-5 max|v| and
+    lut == bits (both past 48 KiB of shared memory).  Library calls:
+    ``torch.matmul(x, decode(e).T)``; SDPA over the keys repeated to every
+    query head, with the window's mask (SDPA has no softcap)."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels.lut import resolve_impl
+    from repro_torch.kernels.takum_attention import (_valid_keys, decode_attention_plain,
+                                                     takum_decode_attention)
+    from repro_torch.kernels.takum_codec import (decode_2d_plain, encode_2d_plain,
+                                                 takum_decode_2d, takum_encode_2d)
+    from repro_torch.kernels.takum_matmul import takum_matmul_t, takum_matmul_t_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2207)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    F = torch.nn.functional
+    M = 4
+    for arch, V, d in TIED_HEADS:
+        table = torch.randn((V, d), generator=gen, device=dev) * d ** -0.5
+        x = torch.randn((M, d), generator=gen, device=dev)
+        for fmt in ("t16", "t8"):
+            wf = wire_format(fmt)
+            bits = takum_encode_2d(table, fmt)  # K2: bit for bit with its plain version above
+            wd = decode_2d_plain(bits, fmt)
+            scale = torch.matmul(x.abs(), wd.abs().T)
+            got_bits = takum_matmul_t(x, bits, fmt, "bits")
+            loop = takum_matmul_t.last_loop
+            for impl in impls_of(fmt, "decode"):
+                tag = f"head^T[{impl}] {fmt} {arch} [{V}, {d}]"
+                got = got_bits if impl == "bits" else takum_matmul_t(x, bits, fmt, impl)
+                want = takum_matmul_t_plain(x, bits, fmt, decode_impl=impl)
+                ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+                check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|e|.T > {K3_LIMIT}")
+                check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from bits")
+                if impl != resolve_impl(None, fmt):  # time the codec the model runs
+                    continue
+                rate, rate_name = matmul_rate(torch, fmt, torch.float32)
+                b_ms, b_by = bound(M * d * 4 + V * d * wf.nbits // 8 + M * V * 4,
+                                   2.0 * M * V * d, rate)
+                kern = lambda: takum_matmul_t(x, bits, fmt, impl)
+                lib = lambda: torch.matmul(x, wd.T)
+                rows.append(dict(
+                    kernel="takum_matmul_t", fmt=fmt, impl=impl, shape=[M, d, V], x="float32",
+                    arch=arch, loop=loop, max_abs_err=float((got - want).abs().max()),
+                    err_over_absprod=ratio, ms=time_ms(torch, kern, flush=flush),
+                    plain_ms=time_ms(torch, lambda: takum_matmul_t_plain(
+                        x, bits, fmt, decode_impl=impl), flush=flush),
+                    bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
+                    library_ms=time_ms(torch, lib, flush=flush),
+                    device_ms=device_ms(torch, kern, flush=flush),
+                    library_device_ms=device_ms(torch, lib, flush=flush)))
+                del want
+            del bits, wd, scale, got_bits, got
+            log(f"head^T {fmt} {arch} [{V}, {d}] at M = {M} ({loop}): within {K3_LIMIT} of "
+                f"|x|@|e|.T, lut == bits, timed")
+        if arch == "gemma2_2b":  # the mx tied head: K1-mx over the table, then a matmul
+            payload = takum_encode_2d(table, "mxt8")
+            got = takum_decode_2d(payload, "mxt8", "lut")
+            check(same_bits_f32(torch, got, decode_2d_plain(payload, "mxt8", "lut")),
+                  f"K1-mx head mxt8 {arch}: differs from the plain decode")
+            del got
+            rows.append(codec_row(
+                torch, "takum_decode_2d", "mxt8", "lut", [V, d], 0.0,
+                payload.numel() + V * d * 4,
+                lambda: takum_decode_2d(payload, "mxt8", "lut"),
+                lambda: decode_2d_plain(payload, "mxt8", "lut"), None, flush))
+            log(f"K1-mx head mxt8 {arch} [{V}, {d}]: bit-exact, timed")
+            del payload
+        del table, x
+        torch.cuda.empty_cache()
+
+    for arch, (B, H, Kv, S, hd, length, window, cap) in ARCH_ATTENTION.items():
+        fmt = "t8"
+        wf = wire_format(fmt)
+        k8, v8 = (encode_2d_plain(torch.randn((B * S * Kv, hd), generator=gen, device=dev), fmt)
+                  for _ in range(2))
+        kc = k8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+        vc = v8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+        q = torch.randn((B, H, hd), generator=gen, device=dev)
+        vmax = float(decode_2d_plain(v8, fmt).abs().max())
+        args = dict(length=length, window=window, softcap=cap)
+        got_bits = takum_decode_attention(q, kc, vc, fmt, decode_impl="bits", **args)
+        for impl in impls_of(fmt, "decode"):
+            tag = f"K6[{impl}] {fmt} {arch} {[B, H, Kv, S, hd]}"
+            got = takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
+            want = decode_attention_plain(q, kc, vc, fmt, length, window, cap, decode_impl=impl)
+            err = float((got - want).abs().max())
+            check(err <= 1e-5 * vmax, f"{tag}: err {err} > 1e-5 max|v|")
+            check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from K6[bits]")
+            if impl != resolve_impl(None, fmt):
+                continue
+            keys = length - (max(0, length - window) if window else 0)
+            nbytes = q.numel() * 4 * 2 + 2 * B * Kv * keys * hd * wf.nbits // 8
+            b_ms, b_by = bound(nbytes, 4.0 * B * H * keys * hd)
+            g = H // Kv
+            kf = decode_2d_plain(k8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+            vf = decode_2d_plain(v8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+            kf = kf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
+            vf = vf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
+            mask = _valid_keys(length, length, window, dev)[None, :]  # [1, keys] over q's one row
+            q4 = q[:, :, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(q4, kf, vf, attn_mask=mask)
+            kern = lambda: takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
+            rows.append(dict(
+                kernel="takum_decode_attention", fmt=fmt, impl=impl, shape=[B, H, Kv, S, hd],
+                arch=arch, length=length, window=window, softcap=cap, keys_read=keys,
+                max_abs_err=err, ms=time_ms(torch, kern, flush=flush),
+                plain_ms=time_ms(torch, lambda: decode_attention_plain(
+                    q, kc, vc, fmt, length, window, cap, decode_impl=impl), flush=flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, sdpa, flush=flush),
+                device_ms=device_ms(torch, kern, flush=flush),
+                library_device_ms=device_ms(torch, sdpa, flush=flush)))
+            del kf, vf
+        log(f"K6 {fmt} {arch} (H {H}, Kv {Kv}, hd {hd}, length {length}, window {window}, "
+            f"softcap {cap}): within 1e-5 max|v|, lut == bits, timed")
+        del k8, v8, kc, vc
+    del flush
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(torch, dev, rows):
@@ -1473,25 +1646,56 @@ def packed_params(torch, cfg, seed):
     return qp
 
 
-def phase_serving(torch, dev, policy):
-    """Full-depth serving under ``policy``, counted: launches reset just
-    before the prefill and read just after the last decode step.  What
-    earlier phases of the process still hold allocated (it counts in the
-    peak) is recorded beside the peak."""
+def packed_counts(qp):
+    """(packed leaves, packed stacked norm gains) of a packed tree: what
+    packing it launches K2 for, and what loading it launches K1 for."""
+    from repro_torch.models.transformer import GAINS
+    from repro_torch.quant.qtensor import QTensor
+
+    leaves = sum(isinstance(x, QTensor) for x in _leaves(qp))
+    return leaves, sum(isinstance(qp["layers"].get(k), QTensor) for k in GAINS)
+
+
+def expected_packed(cfg):
+    """``packed_counts`` of a packed tree of ``cfg``: the embedding, the
+    stacked gains (ln1, ln2, and gemma2's ln1_post, ln2_post), the seven
+    weights of a layer, and the head unless tied (final_norm is 1-D)."""
+    gains = 4 if cfg.alt_local_global else 2
+    return 1 + gains + 7 + (0 if cfg.tie_embeddings else 1), gains
+
+
+def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STEPS=32):
+    """Serving of ``arch`` (full depth, or cut to ``layers``) under
+    ``policy``, B = 4, an ``S0``-token prompt and ``STEPS`` greedy decode
+    steps, counted: launches reset just before the prefill and read just
+    after the last decode step.  What earlier phases of the process still
+    hold allocated (it counts in the peak) is recorded beside the peak."""
     from repro_torch import configs, serve
+    from repro_torch.core.formats import wire_format
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
     from repro_torch.quant.policy import POLICIES
 
     held_before = torch.cuda.memory_allocated()
-    cfg = configs.get("llama3_8b").with_(quant=POLICIES[policy])
-    B, S0, STEPS = 4, 256, 32
+    cfg = configs.get(arch).with_(quant=POLICIES[policy])
+    full_depth = cfg.num_layers
+    if layers is not None:
+        cfg = cfg.with_(num_layers=layers)
+    tag = f"{arch}/{policy}"
+    B = 4
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    qp = serve.load_params(packed_params(torch, cfg, seed=0))
+    packed = packed_params(torch, cfg, seed=0)
+    n_packed, n_gains = packed_counts(packed)
+    if wire_format(cfg.quant.weights).family != "ieee":
+        check((n_packed, n_gains) == expected_packed(cfg),
+              f"{tag}: packed leaves and gains {(n_packed, n_gains)}, want {expected_packed(cfg)}")
+    qp = serve.load_params(packed)
+    del packed
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pack_counts = ops.launch_counts()
-    check_pack_launches(pack_counts, cfg, policy)
+    check_pack_launches(pack_counts, cfg, tag, n_packed, n_gains)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
@@ -1521,11 +1725,11 @@ def phase_serving(torch, dev, policy):
     t2 = time.perf_counter()
     counts = ops.launch_counts()
 
-    check(tuple(logits.shape) == (B, cfg.vocab_size), f"{policy}: logits shape {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), f"{policy}: non-finite logits after decoding")
+    check(tuple(logits.shape) == (B, cfg.vocab_size), f"{tag}: logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits after decoding")
     L = cfg.num_layers
-    check_launches(counts, cfg, 1 + STEPS, STEPS, policy)
-    check(cache.pos == S0 + STEPS, f"{policy}: cache.pos {cache.pos}")
+    check_launches(counts, cfg, 1 + STEPS, STEPS, tag)
+    check(cache.pos == S0 + STEPS, f"{tag}: cache.pos {cache.pos}")
     decode_s = t2 - t1
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kv_cache_bytes = cache.k.numel() * cache.k.element_size() * 2
@@ -1539,7 +1743,8 @@ def phase_serving(torch, dev, policy):
             decode_s / STEPS * 1e3)
     out = dict(
         arch=cfg.name, policy=policy, weights=cfg.quant.weights, kv_cache=cfg.quant.kv_cache,
-        layers=L, batch=B, prompt=S0, decode_steps=STEPS,
+        layers=L, published_layers=full_depth, batch=B, prompt=S0, decode_steps=STEPS,
+        windows=sorted(set(T._layer_windows(cfg))), tied_head=cfg.tie_embeddings,
         init_and_pack_s=init_s, first_prefill_ms=first_prefill_ms, prefill_ms=(t1 - t0) * 1e3,
         decode_ms_per_token=decode_s / STEPS * 1e3, decode_tokens_per_s=B * STEPS / decode_s,
         max_memory_allocated_gb=peak_gb,
@@ -1555,17 +1760,20 @@ def phase_serving(torch, dev, policy):
     return out
 
 
-def check_launches(counts, cfg, calls, steps, tag, gains_loaded=False):
+def check_launches(counts, cfg, calls, steps, tag, gains=0):
     """Hold the launch counts of a serving run (a prefill and ``steps``
     decode steps: ``calls`` model calls) to what ``cfg``'s policy drives,
     each surface through the codec its format defaults to
     (``lut.resolve_impl(None, ...)``): per call one K2 append per layer
     (``takum_encode_into``: K and V in one launch) and, for packed weights,
-    7 K3 per layer plus the head and one K1 over the embedding rows
-    (``takum_decode_rows``), with two K1 (``takum_decode_2d``) when the run
-    also decoded the norm gains at load; per decode step one K6 per layer.
-    Every other kernel, the other codec's and the old composition's
-    (``takum_encode_2d``) included, must show no launch."""
+    7 K3 per layer, one K1 over the embedding rows (``takum_decode_rows``)
+    and the head: one K3 (untied), one transposed K3 over the stored table
+    (``takum_matmul[impl^T]``, tied, flat format) or one K1-mx decode of
+    the table (``takum_decode_2d``, tied, mx format); per decode step one K6
+    per layer, whatever the layer's window.  ``gains`` more K1
+    (``takum_decode_2d``) where the run also decoded the packed norm gains
+    at load.  Every other kernel, the other codec's and the old
+    composition's (``takum_encode_2d``) included, must show no launch."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
 
@@ -1573,29 +1781,35 @@ def check_launches(counts, cfg, calls, steps, tag, gains_loaded=False):
     want = {f"takum_encode_into[{resolve_impl(None, kv, 'encode')}]": L * calls,
             f"takum_decode_attention[{resolve_impl(None, kv)}]": L * steps}
     if wire_format(w).family != "ieee":  # bf16/f32 weights: every linear is torch.matmul
-        want[f"takum_matmul[{resolve_impl(None, w)}]"] = (7 * L + 1) * calls
-        want[f"takum_decode_rows[{resolve_impl(None, w)}]"] = calls
-        if gains_loaded:
-            want[f"takum_decode_2d[{resolve_impl(None, w)}]"] = 2
+        impl = resolve_impl(None, w)
+        tied = cfg.tie_embeddings
+        want[f"takum_matmul[{impl}]"] = (7 * L + (0 if tied else 1)) * calls
+        want[f"takum_decode_rows[{impl}]"] = calls
+        decodes = gains
+        if tied and wire_format(w).is_block_scaled:
+            decodes += calls
+        elif tied:
+            want[f"takum_matmul[{impl}^T]"] = calls
+        if decodes:
+            want[f"takum_decode_2d[{impl}]"] = decodes
     got = {k: v for k, v in counts.items() if v}
     check(got == want, f"{tag}: launches {got}, want {want}")
 
 
-def check_pack_launches(counts, cfg, tag):
+def check_pack_launches(counts, cfg, tag, leaves, gains):
     """The launches of packing a random tree and loading it
     (``serve.quantize_params`` then ``serve.load_params``): one K2
     (``takum_encode_2d``, the weight format's default encode) per packed
-    leaf, two K1 (``takum_decode_2d``) for the norm gains; none for bf16 /
-    f32 weights."""
+    leaf of the tree (``leaves``) and one K1 (``takum_decode_2d``) per packed
+    stacked norm gain (``gains``); none for bf16 / f32 weights."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
 
     w = cfg.quant.weights
     want = {}
     if wire_format(w).family != "ieee":
-        # embed, ln1, ln2, wq, wk, wv, wo, wi, wg, w2 and the head (final_norm is 1-D)
-        want = {f"takum_encode_2d[{resolve_impl(None, w, 'encode')}]": 11,
-                f"takum_decode_2d[{resolve_impl(None, w)}]": 2}
+        want = {f"takum_encode_2d[{resolve_impl(None, w, 'encode')}]": leaves,
+                f"takum_decode_2d[{resolve_impl(None, w)}]": gains}
     got = {k: v for k, v in counts.items() if v}
     check(got == want, f"{tag}: packing launches {got}, want {want}")
 
@@ -1681,13 +1895,18 @@ def _nbytes(leaf):
 #: the policies of phase (e), in order
 PARITY_POLICIES = ("takum", "takum8", "ofp8", "mxfp8", "mxt8", "bf16")
 #: phase (e) limits at f32 activations, (kernel vs plain, kernel vs the f64
-#: control), for the policies whose own order sensitivity exceeds the 1e-3
-#: of the others (see ``phase_parity``)
-F32_LIMITS = {"mxt8": (2e-3, 1e-3), "takum8": (3e-3, 3e-3)}
+#: control), for the policies (or (arch, policy) pairs of phase (i4)) whose
+#: own order sensitivity exceeds the 1e-3 of the others (see
+#: ``phase_parity``).  llama3.2-3b under takum: the plain path moved 1.59e-3
+#: against its f64 twin (its t8 KV cache differing in 2.5e-4 of its bytes),
+#: the kernel path read 1.20e-3 against the plain path and 1.58e-3 against
+#: the f64 control (H100 80GB HBM3, 700 W)
+F32_LIMITS = {"mxt8": (2e-3, 1e-3), "takum8": (3e-3, 3e-3),
+              ("llama3_2_3b", "takum"): (2e-3, 2e-3)}
 
 
-def phase_parity(torch, dev):
-    """Full width, 2 layers: kernel path vs plain path, teacher-forced with
+def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
+    """``arch`` at full width, 2 layers: kernel path vs plain path, teacher-forced with
     the kernel path's greedy tokens.  Tolerance on max|diff| / max|logit|
     per step: 1e-3 at f32 activations (accumulation order, plus the 8-bit
     KV codes that an order ulp moves across a rounding boundary: one t8
@@ -1701,7 +1920,7 @@ def phase_parity(torch, dev):
     in f64, an equally valid order.  How far it moves the plain path measures
     the model's own order sensitivity, and the kernel path must lie within
     1e-3 of it.  Where that sensitivity alone exceeds 1e-3 (measured by this
-    phase on an H100 80GB HBM3 at 700 W), ``F32_LIMITS`` sets the policy's
+    phase on an H100 80GB HBM3 at 700 W), ``F32_LIMITS`` sets the policy's (or the arch's)
     limits instead: under mxt8 the plain path moved 1.3e-3 against its f64
     twin; under takum8 1.44e-3, and the kernel path read 2.58e-3 against
     either plain run, its t8 KV cache differing from the plain path's in
@@ -1731,14 +1950,15 @@ def phase_parity(torch, dev):
 
     B, S0, STEPS = 4, 64, 8
     results = []
-    for policy in PARITY_POLICIES:
-        f32_tol, f64_tol = F32_LIMITS.get(policy, (1e-3, 1e-3))
+    for policy in policies:
+        f32_tol, f64_tol = F32_LIMITS.get((arch, policy), F32_LIMITS.get(policy, (1e-3, 1e-3)))
         for act, tol in (("f32", f32_tol), ("bf16", 5e-2)):
             quant = dataclasses.replace(named[policy], activations=act)
-            cfg = configs.get("llama3_8b").with_(num_layers=2, quant=quant)
+            cfg = configs.get(arch).with_(num_layers=2, quant=quant)
             ops.reset_launch_counts()
             qp = packed_params(torch, cfg, seed=1)
             pack_counts = {k: v for k, v in ops.launch_counts().items() if v}
+            gains = packed_counts(qp)[1]
             gen = torch.Generator(device=dev)
             gen.manual_seed(11)
             prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
@@ -1771,7 +1991,8 @@ def phase_parity(torch, dev):
                 runs[path] = torch.stack(outs)
                 caches[path] = torch.stack([cache.k, cache.v]).view(torch.uint8)
             k, p = runs["kernel"], runs["plain"]
-            check(bool(torch.isfinite(k).all()), f"{policy}/{act}: non-finite kernel-path logits")
+            tag = f"{arch} {policy}/{act}"
+            check(bool(torch.isfinite(k).all()), f"{tag}: non-finite kernel-path logits")
 
             def rel(a, b):
                 return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).tolist()
@@ -1781,12 +2002,12 @@ def phase_parity(torch, dev):
 
             errs = rel(k, p)
             agree = float((k.argmax(-1) == p.argmax(-1)).float().mean())
-            res = dict(policy=policy, activations=act, tol=tol, max_rel_err=max(errs),
+            res = dict(arch=arch, policy=policy, activations=act, tol=tol, max_rel_err=max(errs),
                        rel_err_per_step=errs, greedy_agreement=agree, launches=counts,
                        pack_launches=pack_counts,
                        kernel_prefill_ms=prefill_ms,
                        kv_bytes_differing_kernel_vs_plain=kv_diff("kernel", "plain"))
-            log(f"parity {policy}/{act}: max rel err {max(errs):.3e} (tol {tol}), per step "
+            log(f"parity {tag}: max rel err {max(errs):.3e} (tol {tol}), per step "
                 f"{[float(f'{e:.2e}') for e in errs]}, greedy agreement {agree:.3f}, KV bytes "
                 f"differing {res['kv_bytes_differing_kernel_vs_plain']:.2e}, kernel-path "
                 f"launches {counts}")
@@ -1795,17 +2016,16 @@ def phase_parity(torch, dev):
                            kernel_vs_f64=rel(k, runs["plain_f64"]),
                            kv_bytes_differing_f64_vs_plain=kv_diff("plain_f64", "plain"))
                 ctrl, kf = max(res["control_f64_vs_plain"]), max(res["kernel_vs_f64"])
-                log(f"parity {policy}/{act}: control plain f64 vs plain {ctrl:.3e} (KV bytes "
+                log(f"parity {tag}: control plain f64 vs plain {ctrl:.3e} (KV bytes "
                     f"differing {res['kv_bytes_differing_f64_vs_plain']:.2e}), kernel vs plain "
                     f"f64 {kf:.3e} (limit {f64_tol})")
             results.append(res)
-            check(max(errs) <= tol, f"{policy}/{act}: kernel vs plain {max(errs)} > {tol}")
+            check(max(errs) <= tol, f"{tag}: kernel vs plain {max(errs)} > {tol}")
             if "plain_f64" in runs:
-                check(kf <= f64_tol,
-                      f"{policy}/{act}: kernel vs f64-accumulated plain {kf} > {f64_tol}")
+                check(kf <= f64_tol, f"{tag}: kernel vs f64-accumulated plain {kf} > {f64_tol}")
             if act == "f32":
-                check(agree == 1.0, f"{policy}/{act}: greedy tokens differ ({agree:.3f})")
-            check_launches(counts, cfg, 1 + STEPS, STEPS, f"{policy}/{act}", gains_loaded=True)
+                check(agree == 1.0, f"{tag}: greedy tokens differ ({agree:.3f})")
+            check_launches(counts, cfg, 1 + STEPS, STEPS, tag, gains=gains)
             del qp, lp, runs, caches, k, p
             torch.cuda.empty_cache()
     return results
@@ -1870,36 +2090,34 @@ def phase_token_ids(torch, dev):
 
 #: llama3-8b's wi leaf of one layer, [d, d_ff] (phase (h2))
 WI_SHAPE = (4096, 14336)
-#: parameter leaves of the dense model (embed, final_norm, lm_head, ln1, ln2,
-#: the four attention and three MLP weights): K1 decodes each one's two
+#: parameter leaves of llama3-8b (embed, final_norm, lm_head, ln1, ln2, the
+#: four attention and three MLP weights): K1 decodes each one's two
 #: quantised moments once a step
 TRAIN_LEAVES = 12
 
 
-def phase_train_exact(torch, dev):
-    """(h1) One train step at smoke size under takum (SR refresh, then RNE
-    refresh: K2), with the kernels and then under ``ops.plain_path()`` from
-    clones of one state, one batch and one generator seed: params, moment
-    codes and scales, the step and the rng equal bit for bit, K1 launched
-    2 x TRAIN_LEAVES times (and K2 as often under RNE).  (h2)
-    ``adamw_update`` on llama3-8b's wi leaf [4096, 14336] with t16 and t8
-    moments, two updates (the second from non-zero moments), kernel path
-    against plain path: codes and params bit for bit, each update timed."""
+def train_steps_exact(torch, dev, arch):
+    """One train step of ``arch``'s smoke config under takum (SR refresh,
+    then RNE refresh: K2), with the kernels and then under
+    ``ops.plain_path()`` from clones of one state, one batch and one
+    generator seed: params, moment codes and scales, the step and the rng
+    equal bit for bit, K1 launched twice per parameter leaf of the tree
+    (its two quantised moments; and K2 as often under RNE)."""
     import dataclasses
 
-    from repro_torch import configs
+    from repro_torch import configs, tree
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.kernels.lut import resolve_impl
-    from repro_torch.optim import adamw_init, adamw_update, generator_draws
     from repro_torch.quant.policy import POLICIES
     from repro_torch.train.step import init_state, make_train_step
 
     out = {}
     for sr in (True, False):
-        cfg = configs.get_smoke("llama3_8b").with_(
+        cfg = configs.get_smoke(arch).with_(
             quant=dataclasses.replace(POLICIES["takum"], stochastic_rounding=sr))
         st = init_state(cfg, 0, device=dev)
+        leaves = len(tree.flatten(st.params)[0])
         batch = SyntheticLM(cfg.vocab_size, 64, 4, seed=17).batch(0)
         step = make_train_step(cfg)
         ops.reset_launch_counts()
@@ -1908,15 +2126,28 @@ def phase_train_exact(torch, dev):
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         with ops.plain_path():
             p_state, p_m = step(clone_tree(st), batch)
-        tag = f"h1 takum {'SR' if sr else 'RNE'}"
+        tag = f"{arch} takum {'SR' if sr else 'RNE'}"
         check(same_tree(torch, k_state, p_state), f"{tag}: kernel and plain steps differ")
         check(k_m["loss"].item() == p_m["loss"].item(), f"{tag}: losses differ")
         dec = f"takum_decode_2d[{resolve_impl(None, 't16')}]"
         enc = f"takum_encode_2d[{resolve_impl(None, 't16', 'encode')}]"
-        want = {dec: 2 * TRAIN_LEAVES, **({} if sr else {enc: 2 * TRAIN_LEAVES})}
+        want = {dec: 2 * leaves, **({} if sr else {enc: 2 * leaves})}
         check(counts == want, f"{tag}: launches {counts}, want {want}")
-        out[tag] = dict(launches=counts, loss=k_m["loss"].item())
+        out[tag] = dict(launches=counts, loss=k_m["loss"].item(), leaves=leaves)
+    return out
 
+
+def phase_train_exact(torch, dev):
+    """(h1) ``train_steps_exact`` of llama3-8b (12 parameter leaves: K1 24
+    a step).  (h2) ``adamw_update`` on llama3-8b's wi leaf [4096, 14336]
+    with t16 and t8 moments, two updates (the second from non-zero
+    moments), kernel path against plain path: codes and params bit for
+    bit, each update timed."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw_init, adamw_update, generator_draws
+
+    out = {f"h1 {k}": v for k, v in train_steps_exact(torch, dev, "llama3_8b").items()}
+    check(all(v["leaves"] == TRAIN_LEAVES for v in out.values()), "h1: llama3-8b's leaves")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     wi = torch.randn(WI_SHAPE, generator=gen, device=dev) * WI_SHAPE[0] ** -0.5
@@ -2116,6 +2347,56 @@ def phase_train_restart(torch, dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase (i): the other dense archs
+# ---------------------------------------------------------------------------
+
+#: phase (i1-i3) serving runs: (arch, policies, layers (None: published
+#: depth), prompt).  gemma2's prompt is longer than its 4096-key window, so
+#: its local layers drop keys in the prefill and in every decode step;
+#: granite is cut to 8 of its 88 layers (its SwiGLU 47.2B parameters are
+#: 94.5 GB at t16, and ``packed_params`` first draws an f32 tree on the card)
+OTHER_ARCHS = (("gemma2_2b", ("takum", "takum8"), None, 4160),
+               ("llama3_2_3b", ("takum",), None, 256),
+               ("musicgen_large", ("takum",), None, 256),
+               ("granite_34b", ("takum8",), 8, 256))
+#: phase (i4): arch -> the policies of its 2-layer kernel-vs-plain parity
+#: (mxt8 on a tied arch: the K1-mx head)
+OTHER_PARITY = {"llama3_2_3b": ("takum", "takum8"), "gemma2_2b": ("takum", "takum8", "mxt8"),
+                "granite_34b": ("takum", "takum8"), "musicgen_large": ("takum", "takum8")}
+
+
+def phase_other_archs(torch, dev, card):
+    """(i1-i3) ``phase_serving`` of each run of ``OTHER_ARCHS``; (i4)
+    ``phase_parity`` of each arch of ``OTHER_PARITY``; (i5)
+    ``train_steps_exact`` of gemma2 (13 parameter leaves)."""
+    from repro_torch import configs
+
+    serving = {}
+    for arch, policies, layers, S0 in OTHER_ARCHS:
+        cfg = configs.get(arch)
+        if cfg.sliding_window:
+            check(S0 > cfg.sliding_window, f"{arch}: the prompt must outrun the window")
+        for policy in policies:
+            t0 = time.perf_counter()
+            r = serving[f"{arch}/{policy}"] = phase_serving(torch, dev, policy, arch, layers, S0)
+            log(f"(i) serving {arch} {policy}, {r['layers']} of {r['published_layers']} layers, "
+                f"B={r['batch']} prompt {S0}: warm prefill {r['prefill_ms']:.1f} ms (first "
+                f"{r['first_prefill_ms']:.1f}), decode {r['decode_ms_per_token']:.2f} ms/token, "
+                f"peak {r['max_memory_allocated_gb']:.2f} GB, launches per decode step "
+                f"(torch.profiler) {r['profile_two_decode_steps']['kernel_launches_per_step']}, "
+                f"counted launches {r['launches']}, packing {r['pack_launches']}; card: {card} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    parity = []
+    for arch, policies in OTHER_PARITY.items():
+        t0 = time.perf_counter()
+        parity += phase_parity(torch, dev, arch, policies)
+        log(f"(i4) parity {arch} {policies} done in {time.perf_counter() - t0:.1f} s")
+    train = train_steps_exact(torch, dev, "gemma2_2b")
+    log("(i5) gemma2 smoke train steps, kernels == plain bit for bit " + json.dumps(train))
+    return dict(serving=serving, parity=parity, train=train)
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -2133,7 +2414,13 @@ KERNEL_INFO = {
                           "src/repro/kernels/takum_matmul.py:56"),
     "takum_matmul_ad": ("K5", "src/repro_torch/kernels/csrc/takum_matmul_wt.cu",
                         "src/repro/kernels/takum_matmul.py:190"),
+    # the tied head: K3's loop reading the stored table transposed (K5's
+    # backward launch as a forward op)
+    "takum_matmul_t": ("K3^T", "src/repro_torch/kernels/csrc/takum_matmul_wt.cu",
+                       "src/repro/kernels/takum_matmul.py:56"),
 }
+#: the launch counter of a summary row's kernel, where it is not its own
+LAUNCH_KEY = {"takum_matmul_t": "takum_matmul[{impl}^T]"}
 
 #: the header that holds each loop of K3, K4 and the transposed K3: a row
 #: with a loop names it as its source, and its C entry's .cu as "entry"
@@ -2205,6 +2492,15 @@ SUMMARY = [
     ("takum_decode_2d", "t8", "lut", [4096, 14336], "train/takum8"),
     ("takum_encode_2d", "t16", "lut", [4096, 14336], "train/takum/init"),
     ("takum_encode_2d", "t8", "lut", [4096, 14336], "train/takum8/init"),
+    # phase (i): the tied head (the transposed K3 over the packed table, x
+    # f32 at M = 4; K1-mx over an mxt8 table), K6 at gemma2's and granite's
+    # decode shapes; the rows are phase (c)'s
+    ("takum_matmul_t", "t16", "bits", [4, 2304, 256000], "gemma2_2b/takum", "float32"),
+    ("takum_matmul_t", "t8", "lut", [4, 2304, 256000], "gemma2_2b/takum8", "float32"),
+    ("takum_matmul_t", "t16", "bits", [4, 3072, 128256], "llama3_2_3b/takum", "float32"),
+    ("takum_decode_2d", "mxt8", "lut", [256000, 2304], "gemma2_2b/mxt8"),
+    ("takum_decode_attention", "t8", "lut", [4, 8, 4, 4194, 256], "gemma2_2b/takum"),
+    ("takum_decode_attention", "t8", "lut", [4, 48, 1, 290, 128], "granite_34b/takum8"),
 ]
 
 
@@ -2288,6 +2584,10 @@ def main() -> int:
     phase_model_codecs(torch, dev, rows)
     log(f"(c) the model's K1 / K2 launches match their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_arch_kernels(torch, dev, rows)
+    log(f"(c) the other archs' head and K6 shapes match their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
     k3_step = k3_decode_step(rows)
     log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
@@ -2336,6 +2636,10 @@ def main() -> int:
     log(f"(h4) restarts equal the unbroken runs {json.dumps(train_restart)}")
     log(f"(h) training done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    other = phase_other_archs(torch, dev, card)
+    log(f"(i) the other dense archs done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -2349,6 +2653,9 @@ def main() -> int:
     for policy in ("takum", "takum8"):
         launches[f"train/{policy}"] = train_full[policy]["step_launches"]
         launches[f"train/{policy}/init"] = train_full[policy]["init_launches"]
+    launches.update({path: r["launches"] for path, r in other["serving"].items()})
+    launches.update({f"{r['arch']}/{r['policy']}": r["launches"] for r in other["parity"]
+                     if r["activations"] == "bf16" and r["policy"] == "mxt8"})
     summary = []
     for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
@@ -2356,7 +2663,8 @@ def main() -> int:
                    and "inputs" not in r)
         tag, source, replaces = KERNEL_INFO[kname]
         name = tag + ("-mx" if fmt.startswith("mx") else "") + ("-lut" if impl == "lut" else "")
-        n = launches[path].get(f"{kname}[{impl}]", 0)
+        n = launches[path].get(LAUNCH_KEY.get(kname, "{kname}[{impl}]").format(
+            kname=kname, impl=impl), 0)
         check(n > 0, f"{name} was never launched on the {path} path")
         loop = row.get("loop")
         summary.append(dict(
@@ -2411,6 +2719,7 @@ def main() -> int:
                      launches={k: v for k, v in ad_counts.items() if v}),
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
+             other_archs=other,
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

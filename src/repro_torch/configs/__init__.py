@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get(arch)`` / ``get_smoke(arch)``
-(counterpart of ``repro.configs``).  Only llama3-8b is ported; the other
-architectures of ``repro`` raise ``NotImplementedError``."""
+(counterpart of ``repro.configs``).  The archs of the dense decoder block
+are ported (llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large);
+the other architectures of ``repro`` raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["llama3_8b"]
+ARCHS = ["musicgen_large", "gemma2_2b", "llama3_8b", "llama3_2_3b", "granite_34b"]
 
 #: every architecture ``repro`` registers; those not in ARCHS wait for a slice
 REPRO_ARCHS = [
@@ -16,7 +17,13 @@ REPRO_ARCHS = [
     "llama3_2_3b", "granite_34b", "hymba_1_5b", "llama3_2_vision_90b", "mamba2_780m",
 ]
 
-ALIASES = {"llama3-8b": "llama3_8b"}
+ALIASES = {
+    "musicgen-large": "musicgen_large",
+    "gemma2-2b": "gemma2_2b",
+    "llama3-8b": "llama3_8b",
+    "llama3.2-3b": "llama3_2_3b",
+    "granite-34b": "granite_34b",
+}
 
 
 def _mod(arch: str):

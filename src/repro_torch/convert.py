@@ -62,7 +62,23 @@ def params_from_numpy(tree: dict, cfg, *, device=None) -> dict:
     emb = out["embed"]
     if tuple(emb.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed shape {tuple(emb.shape)} does not match {cfg.name}")
+    _check_tree(out, cfg)
     return out
+
+
+def _check_tree(params: dict, cfg) -> None:
+    """Refuse a tree whose head or norms do not match ``cfg``: an
+    ``lm_head`` under a tied config or none under an untied one, and
+    gemma2's post-norm gains missing under ``alt_local_global`` or present
+    without it."""
+    if cfg.tie_embeddings == ("lm_head" in params):
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the tree "
+                         f"{'has' if 'lm_head' in params else 'lacks'} an lm_head")
+    layers = params.get("layers", {})
+    for k in ("ln1_post", "ln2_post"):
+        if cfg.alt_local_global != (k in layers):
+            raise ValueError(f"{cfg.name}: alt_local_global={cfg.alt_local_global} but the "
+                             f"tree {'has' if k in layers else 'lacks'} layers.{k}")
 
 
 def _field(t, name: str):

@@ -1,8 +1,10 @@
 """Public entry points of the port's kernels (counterpart of
 ``repro.kernels.ops``): ``encode``, ``decode``, ``matmul``, ``dual_matmul``,
-``decode_attention``, and the model's two codec launches ``encode_into``
-(K2 into strided destinations, a pair per launch: the KV append) and
-``decode_rows`` (K1 over gathered rows, scaled and cast: the embedding).
+``decode_attention``, ``matmul_t`` (the transposed K3: a tied head's
+``x @ embed.T`` over the stored bits), and the model's two codec launches
+``encode_into`` (K2 into strided destinations, a pair per launch: the KV
+append) and ``decode_rows`` (K1 over gathered rows, scaled and cast: the
+embedding).
 
 Each op takes a wire-format handle (a registered name such as 't8', 'e4m3',
 'bf16', 'mxe4m3', a :class:`~repro_torch.core.formats.WireFormat`, or a bare
@@ -48,7 +50,7 @@ from .takum_attention import decode_attention_plain, takum_decode_attention
 from .takum_codec import (decode_2d_plain, decode_rows_plain, encode_2d_plain, encode_into_plain,
                           takum_decode_2d, takum_decode_rows, takum_encode_2d, takum_encode_into)
 from .takum_matmul import (takum_dual_matmul, takum_dual_matmul_plain, takum_matmul,
-                           takum_matmul_plain)
+                           takum_matmul_plain, takum_matmul_t, takum_matmul_t_plain)
 
 #: None: the ops launch the kernels; else they take the plain versions,
 #: the plain matmul accumulating in this dtype (see :func:`plain_path`)
@@ -209,6 +211,16 @@ def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
     if _PLAIN_ACC is None:
         return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt, encode_impl)
     return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt, encode_impl)
+
+
+def matmul_t(x: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
+    """x [M, K] float32 @ decode(w_bits [N, K]).T -> [M, N] float32: the
+    transposed K3 (K5's backward launch), reading the stored bits in place;
+    flat formats only.  Counts on ``takum_matmul`` under ``"impl^T"``."""
+    impl = resolve_impl(decode_impl, wire_format(fmt))
+    if _PLAIN_ACC is None:
+        return takum_matmul_t(x.contiguous(), w_bits.contiguous(), fmt, impl)
+    return takum_matmul_t_plain(x, w_bits, fmt, _PLAIN_ACC, impl)
 
 
 def dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,

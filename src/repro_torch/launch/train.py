@@ -9,8 +9,11 @@ checkpointed loop (``train.TrainLoop``), and prints the cross-entropy from
 the first logged step to the last.  It runs on the card unless
 ``--device cpu``.  Checkpoints are stored in the policy's checkpoint
 format (``f32`` under bf16, so a restarted run equals an unbroken one bit
-for bit; ``t16`` under takum).  ``--arch lm_100m`` (tied embeddings) and a ``--mesh``
-other than ``1x1`` are not ported yet and raise.
+for bit; ``t16`` under takum).  ``--arch`` takes every ported architecture
+of the registry (``configs.ARCHS``: llama3_8b, llama3_2_3b, gemma2_2b,
+granite_34b, musicgen_large, or their aliases such as ``gemma2-2b``) and
+``lm_100m``, the launcher's own tied-embedding config (``repro``'s).  A
+``--mesh`` other than ``1x1`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,16 +25,27 @@ import time
 from repro_torch import configs
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
 from repro_torch.quant.policy import POLICIES
 from repro_torch.train import TrainLoop, TrainLoopConfig
 from repro_torch.train.step import init_state, make_train_step
 
 
+def lm_100m() -> ModelConfig:
+    """~100M-parameter llama-style config for the end-to-end example
+    (``repro.launch.train.lm_100m``)."""
+    return ModelConfig(
+        name="lm-100m", family="dense", num_layers=12, d_model=768,
+        num_heads=12, num_kv_heads=4, d_ff=2048, vocab_size=32768,
+        head_dim=64, rope_theta=10000.0, tie_embeddings=True,
+    )
+
+
 def build(arch: str, *, smoke: bool, policy: str, seq: int, batch: int):
     if arch == "lm_100m":
-        raise NotImplementedError("lm_100m ties its embeddings, which the port has not "
-                                  "ported yet")
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+        cfg = lm_100m()
+    else:
+        cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     return cfg.with_(quant=POLICIES[policy]), SyntheticLM(cfg.vocab_size, seq, batch, seed=17)
 
 

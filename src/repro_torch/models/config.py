@@ -1,11 +1,16 @@
 """Model configuration (counterpart of ``repro.models.config``).
 
-This slice ports the dense decoder with an untied head only: any other
-family raises ``NotImplementedError``, and the fields are those the dense
-path reads (tied embeddings come with the families that use them).
-``remat`` is ``repro``'s knob: ``"block"`` (the default) recomputes each
-layer in the backward (``torch.utils.checkpoint``), ``"none"`` keeps every
-activation.
+The port runs the dense decoder block: ``family`` "dense" (llama3-8b,
+llama3.2-3b, gemma2-2b, granite-34b) and "audio" (musicgen-large, whose
+stubbed EnCodec frontend leaves a decoder over token ids, the dense block
+in ``repro`` too); any other family raises ``NotImplementedError``.  The
+fields are those the dense block reads, with ``repro``'s defaults:
+``tie_embeddings`` (the head is ``embed.T``) and ``alt_local_global``
+(gemma2: even layers attend through ``sliding_window``, odd layers
+globally, with post-norms after attention and MLP and the embedding rows
+scaled by ``sqrt(d_model)``).  ``remat`` is ``repro``'s knob: ``"block"``
+(the default) recomputes each layer in the backward
+(``torch.utils.checkpoint``), ``"none"`` keeps every activation.
 """
 
 from __future__ import annotations
@@ -14,11 +19,14 @@ import dataclasses
 
 from repro_torch.quant.policy import QuantPolicy
 
+#: the families that run the dense decoder block
+DENSE_FAMILIES = ("dense", "audio")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" is ported
+    family: str  # "dense" or "audio" (the dense block) are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -28,19 +36,21 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // num_heads
 
     sliding_window: int = 0  # 0 = full attention
+    alt_local_global: bool = False  # gemma2: even layers local SWA, odd global
     logit_softcap: float = 0.0
     attn_softcap: float = 0.0
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
 
     quant: QuantPolicy = dataclasses.field(default_factory=QuantPolicy)
 
     remat: str = "block"  # none | block (checkpoint each layer)
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in DENSE_FAMILIES:
             raise NotImplementedError(
-                f"family {self.family!r} is not ported yet; only 'dense' is"
+                f"family {self.family!r} is not ported yet; only {DENSE_FAMILIES} are"
             )
         if self.num_heads <= 0 or self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError("num_heads must be a positive multiple of num_kv_heads")

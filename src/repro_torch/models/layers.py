@@ -1,5 +1,6 @@
 """Common model layers (counterpart of ``repro.models.layers``): RMSNorm,
-RoPE, SwiGLU and ``linear`` over packed or plain weights."""
+RoPE, SwiGLU, ``linear`` over packed or plain weights, and ``linear_t``
+(the tied head's ``x @ embed.T`` of ``repro.models.transformer``)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,32 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QTensor):
         w = w.bits
     return torch.matmul(x, w.to(x.dtype))
+
+
+def linear_t(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., K] @ w.T for w [N, K] (a tied head over the embedding
+    table), in x's dtype with f32 accumulation, under ``linear``'s contract.
+
+    A flat packed ``QTensor`` goes through the transposed K3
+    (``ops.matmul_t``) on x cast to f32 (exact), which reads the stored
+    bits in place: no transposed copy.  Its f32 output takes the pow2 scale,
+    then the cast to x's dtype (``repro`` rounds the head's product to x's
+    dtype before widening the logits).  An mx weight's payload is blocked
+    along K, which the transposed K3 cannot read, so the table is decoded
+    through K1-mx (``ops.decode``) and multiplied by one ``torch.matmul``:
+    ``repro``'s own ``x @ head`` over the decoded table, one K1-mx launch a
+    call.  A plain (bf16/f32) weight is one ``torch.matmul`` in x's dtype.
+    """
+    if isinstance(w, QTensor) and w.fmt not in ("bf16", "f32"):
+        if w.block_scaled:
+            table = ops.decode(w.bits, w.fmt)[..., :w.n]
+            return torch.matmul(x, table.T.to(x.dtype))
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        y = w.apply_scale(ops.matmul_t(x2, w.bits, w.fmt))
+        return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+    if isinstance(w, QTensor):
+        w = w.bits
+    return torch.matmul(x, w.T.to(x.dtype))
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

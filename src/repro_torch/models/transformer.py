@@ -1,5 +1,6 @@
 """Dense decoder with packed weights and a packed KV cache (counterpart of
-the dense path of ``repro.models.transformer``).
+the dense path of ``repro.models.transformer``: the "dense" and "audio"
+families, llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large).
 
 Parameters keep ``repro``'s stacked layout: ``layers.attn.wq`` is
 ``[L, d, H*hd]`` and so on, each packed leaf a :class:`QTensor` with one
@@ -24,6 +25,16 @@ is padded before the append, an extra launch that no served config needs:
 llama3-8b's is 128).  The KV cache is updated IN PLACE
 (``repro`` is functional and returns a new cache): ``prefill`` fills a fresh
 cache and ``decode_step`` writes its slot into the cache it is given.
+
+What the archs add to llama3-8b's block, as in ``repro``: a tied head
+(``tie_embeddings``: no ``lm_head``, the logits are ``x @ embed.T`` through
+``layers.linear_t``, the transposed K3 over the packed table); and under
+``alt_local_global`` (gemma2) per-layer windows (:func:`_layer_windows`:
+even layers ``sliding_window``, odd layers global, passed to the prefill's
+attention and to K6), the post-norms ``ln1_post`` / ``ln2_post`` on the
+attention and MLP outputs before each residual add, and the embedding rows
+times ``sqrt(d_model)`` rounded to the activation dtype, a second rounding
+after K1's cast, as ``repro`` multiplies after ``.astype``.
 
 Training runs :func:`loss_fn` over raw f32 (or bf16) parameters with
 autograd: every linear is ``torch.matmul`` (``repro`` trains its f32
@@ -50,7 +61,7 @@ from repro_torch.quant import blockscale
 from repro_torch.quant.qtensor import QTensor
 from .attention import flash_attention
 from .config import ModelConfig
-from .layers import linear, rms_norm, rope, softcap, swiglu
+from .layers import linear, linear_t, rms_norm, rope, softcap, swiglu
 
 
 def _act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,9 +104,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
             "wo": normal((L, dff, d), dff ** -0.5),
         },
     }
+    if cfg.alt_local_global:  # gemma2 post-norms
+        p["layers"]["ln1_post"] = torch.zeros((L, d), dtype=dtype, device=dev)
+        p["layers"]["ln2_post"] = torch.zeros((L, d), dtype=dtype, device=dev)
     p["final_norm"] = torch.zeros((d,), dtype=dtype, device=dev)
-    p["lm_head"] = normal((d, V), d ** -0.5)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal((d, V), d ** -0.5)
     return p
+
+
+#: the stacked norm gains of a layer, in the order ``_block`` takes them
+GAINS = ("ln1", "ln2", "ln1_post", "ln2_post")
+
+
+def _layer_windows(cfg: ModelConfig) -> list[int]:
+    """Each layer's attention window (0: global), ``repro``'s
+    ``_layer_windows``: under ``alt_local_global`` even layers take
+    ``sliding_window`` and odd layers none; otherwise every layer takes
+    ``sliding_window``."""
+    if cfg.alt_local_global:
+        return [cfg.sliding_window if l % 2 == 0 else 0 for l in range(cfg.num_layers)]
+    return [cfg.sliding_window] * cfg.num_layers
 
 
 def _layer(tree, l: int):
@@ -119,6 +148,12 @@ def _gain(g) -> torch.Tensor:
     return g.dequantize() if isinstance(g, QTensor) else g
 
 
+def _gains(layers) -> dict:
+    """The stacked norm gains present in ``layers`` (:data:`GAINS`), as
+    tensors."""
+    return {k: _gain(layers[k]) for k in GAINS if k in layers}
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill, training)
 # ---------------------------------------------------------------------------
@@ -139,27 +174,51 @@ def _embed(params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
     return F.embedding(table_rows(tokens, table.shape[0]), table).to(adt)
 
 
+def _input_rows(cfg: ModelConfig, params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
+    """What the first layer takes: :func:`_embed`'s rows, and under
+    ``alt_local_global`` those rows times ``sqrt(d_model)`` first rounded to
+    ``adt`` (``repro``'s ``x * d**0.5`` on an ``adt`` array): a rounding of
+    its own after the cast, never folded into K1's scale."""
+    x = _embed(params, tokens, adt)
+    if cfg.alt_local_global:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt)
+    return x
+
+
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    return softcap(linear(x, params["lm_head"]).to(torch.float32), cfg.logit_softcap)
+    """Logits in f32, softcapped: ``x @ lm_head``, or ``x @ embed.T`` when
+    tied (``linear_t``: the transposed K3 over a flat packed table)."""
+    y = linear_t(x, params["embed"]) if cfg.tie_embeddings else linear(x, params["lm_head"])
+    return softcap(y.to(torch.float32), cfg.logit_softcap)
 
 
-def _block(cfg: ModelConfig, lp, gain1, gain2, x, positions):
-    """One decoder layer over [B, S, d].  Returns (x, k, v), k/v roped
-    [B, S, Kv, hd] in the activation dtype."""
+def _block(cfg: ModelConfig, lp, gains, window, x, positions):
+    """One decoder layer over [B, S, d] with layer ``l``'s gains (``gains``:
+    name -> [d], those of :data:`GAINS` the config has) and attention
+    ``window``.  Returns (x, k, v), k/v roped [B, S, Kv, hd] in the
+    activation dtype."""
     B, S, _ = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     in_dtype = x.dtype
     a = lp["attn"]
-    h = rms_norm(x, gain1, cfg.norm_eps)
+    h = rms_norm(x, gains["ln1"], cfg.norm_eps)
     q = rope(linear(h, a["wq"]).reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = rope(linear(h, a["wk"]).reshape(B, S, Kv, hd), positions, cfg.rope_theta)
     v = linear(h, a["wv"]).reshape(B, S, Kv, hd)
-    out = flash_attention(q, k, v, cfg.sliding_window, True, cfg.attn_softcap)
-    x = x + linear(out.reshape(B, S, H * hd), a["wo"])
+    out = flash_attention(q, k, v, window, True, cfg.attn_softcap)
+    x = _residual(cfg, x, linear(out.reshape(B, S, H * hd), a["wo"]), gains, "ln1_post")
     m = lp["mlp"]
-    h2 = rms_norm(x, gain2, cfg.norm_eps)
-    x = (x + swiglu(h2, m["wi"], m["wg"], m["wo"])).to(in_dtype)
-    return x, k, v
+    h2 = rms_norm(x, gains["ln2"], cfg.norm_eps)
+    x = _residual(cfg, x, swiglu(h2, m["wi"], m["wg"], m["wo"]), gains, "ln2_post")
+    return x.to(in_dtype), k, v
+
+
+def _residual(cfg: ModelConfig, x, out, gains, post: str):
+    """``x + out``, ``out`` first normed by the post-norm gain ``post`` under
+    ``alt_local_global``."""
+    if cfg.alt_local_global:
+        out = rms_norm(out, gains[post], cfg.norm_eps)
+    return x + out
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool = False,
@@ -172,13 +231,14 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
     ``jax.checkpoint`` of the layer); serving never does."""
     B, S = tokens.shape
     adt = _act_dtype(cfg)
-    x = _embed(params, tokens, adt)
+    x = _input_rows(cfg, params, tokens, adt)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     layers = params["layers"]
-    gains1, gains2 = _gain(layers["ln1"]), _gain(layers["ln2"])
+    gains = _gains(layers)
+    windows = _layer_windows(cfg)
     remat = cfg.remat == "block" and torch.is_grad_enabled() and _needs_grad(params)
     for l in range(cfg.num_layers):
-        args = (cfg, _layer(layers, l), gains1[l], gains2[l], x, positions)
+        args = (cfg, _layer(layers, l), _layer(gains, l), windows[l], x, positions)
         x, k, v = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
         if on_kv is not None:
             on_kv(l, k, v)
@@ -302,15 +362,16 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
         raise ValueError(f"KV cache is full ({S} positions)")
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     adt = _act_dtype(cfg)
-    x = _embed(params, token, adt)
+    x = _input_rows(cfg, params, token, adt)
     positions = torch.full((B, 1), pos, device=token.device)
     layers = params["layers"]
-    gains1, gains2 = _gain(layers["ln1"]), _gain(layers["ln2"])
+    gains = _gains(layers)
+    windows = _layer_windows(cfg)
     for l in range(cfg.num_layers):
-        lp = _layer(layers, l)
+        lp, gl = _layer(layers, l), _layer(gains, l)
         a = lp["attn"]
         in_dtype = x.dtype
-        h = rms_norm(x, gains1[l], cfg.norm_eps)[:, None]  # [B, 1, d]
+        h = rms_norm(x, gl["ln1"], cfg.norm_eps)[:, None]  # [B, 1, d]
         q = rope(linear(h, a["wq"]).reshape(B, 1, H, hd), positions, cfg.rope_theta)
         k_new = rope(linear(h, a["wk"]).reshape(B, 1, Kv, hd), positions, cfg.rope_theta)
         v_new = linear(h, a["wv"]).reshape(B, 1, Kv, hd)
@@ -319,13 +380,14 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
             q[:, 0].to(torch.float32),
             _cache_bits(cfg, cache.k[l]).permute(0, 2, 1, 3),  # [B, Kv, S, feat] view
             _cache_bits(cfg, cache.v[l]).permute(0, 2, 1, 3),
-            cfg.quant.kv_cache, length=pos + 1, window=cfg.sliding_window,
+            cfg.quant.kv_cache, length=pos + 1, window=windows[l],
             softcap=cfg.attn_softcap, scale=hd ** -0.5,
         )
-        x = x + linear(o.reshape(B, 1, H * hd).to(h.dtype), a["wo"])[:, 0]
+        x = _residual(cfg, x, linear(o.reshape(B, 1, H * hd).to(h.dtype), a["wo"])[:, 0], gl,
+                      "ln1_post")
         m = lp["mlp"]
-        h2 = rms_norm(x, gains2[l], cfg.norm_eps)
-        x = (x + swiglu(h2, m["wi"], m["wg"], m["wo"])).to(in_dtype)
+        h2 = rms_norm(x, gl["ln2"], cfg.norm_eps)
+        x = _residual(cfg, x, swiglu(h2, m["wi"], m["wg"], m["wo"]), gl, "ln2_post").to(in_dtype)
     cache.pos = pos + 1
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
     return _head(cfg, params, x), cache

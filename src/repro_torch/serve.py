@@ -51,9 +51,10 @@ def dequantize_params(params: dict) -> dict:
 def load_params(params: dict) -> dict:
     """Make a packed tree ready to serve: decode, once and through K1, the
     packed leaves that no matmul reads (the stacked norm gains
-    ``layers.ln1``/``ln2``).  Every other leaf is passed through as it is,
-    so the weights and the embedding stay packed."""
-    layers = {k: dequantize(v) if k in ("ln1", "ln2") and isinstance(v, QTensor) else v
+    ``layers.ln1``/``ln2``, and gemma2's ``ln1_post``/``ln2_post``).  Every
+    other leaf is passed through as it is, so the weights and the embedding
+    (a tied head's table too) stay packed."""
+    layers = {k: dequantize(v) if k in T.GAINS and isinstance(v, QTensor) else v
               for k, v in params["layers"].items()}
     return {**params, "layers": layers}
 

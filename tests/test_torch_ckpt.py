@@ -19,7 +19,7 @@
   an f32 checkpoint (the SR draws seeded from the restored rng).
 * ``launch.train``'s ``main`` (``python -m repro_torch.launch.train``) at
   ``--smoke --steps 20 --device cpu`` (batch 4, sequence 32): the CE falls;
-  ``lm_100m`` and a mesh other than 1x1 raise.
+  a mesh other than 1x1 raises; ``lm_100m`` (tied embeddings) builds.
 """
 
 import json
@@ -331,8 +331,9 @@ def test_launcher_ce_falls(tmp_path, capsys):
 
 
 def test_launcher_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="tie"):
-        launch.main(["--arch", "lm_100m", "--device", "cpu"])
+    # lm_100m ties its embeddings, which the port now serves and trains
+    cfg, _ = launch.build("lm_100m", smoke=False, policy="takum", seq=8, batch=1)
+    assert cfg.name == "lm-100m" and cfg.tie_embeddings
     with pytest.raises(NotImplementedError, match="mesh"):
         launch.main(["--smoke", "--mesh", "2x4", "--device", "cpu"])
 

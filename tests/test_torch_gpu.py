@@ -1131,3 +1131,82 @@ def test_mma_f32_all_positive_rows_within_limit(cuda, fmt, K):
         got = takum_matmul(x, w, fmt, decode_impl=impl)
         assert takum_matmul.last_loop == "mma_f32"
         assert float(((got.double() - exact).abs() / exact).max()) <= 4e-6, impl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16", "e4m3", "e5m2"))
+def test_tied_head_transposed_matmul_within_limit(cuda, fmt):
+    """A tied head, ``layers.linear_t`` over a packed table [V, d] (V = 1000,
+    d = 96): the transposed K3 on the stored bits at M = 4 (the matvec) and
+    37 (the wgmma tile), bf16 and f32 x, within K3's limit of |x| @ |e|.T
+    times the table's pow2 scale, one transposed launch a call and no K1."""
+    from repro_torch.models.layers import linear_t
+    from repro_torch.quant.qtensor import quantize
+
+    table = _rand((1000, 96), 61, 96 ** -0.5)
+    e = quantize(table, fmt, scaled=True)
+    ec = quantize(table.to(cuda), fmt, scaled=True)
+    assert torch.equal(ec.bits.cpu().view(torch.uint8), e.bits.view(torch.uint8))
+    wd = ref.codec_decode_ref(e.bits, fmt) * e.scale
+    impl = "bits" if fmt == "t16" else "lut"
+    for M, dt in ((4, torch.bfloat16), (4, torch.float32), (37, torch.float32)):
+        x = _rand((M, 96), 62 + M).to(dt)
+        ops.reset_launch_counts()
+        got = linear_t(x.to(cuda), ec)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == {f"takum_matmul[{impl}^T]": 1}, counts
+        assert got.dtype == dt and got.shape == (M, 1000)
+        want = linear_t(x, e)
+        lim = 4e-6 * (x.float().abs() @ wd.abs().T)
+        if dt == torch.bfloat16:  # both cast the f32 product to bf16: one bf16 step apart
+            lim = lim + want.float().abs() * 2.0 ** -7
+        assert ((got.cpu().float() - want.float()).abs() <= lim).all(), (M, dt)
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+def test_mx_tied_head_is_one_k1_mx_and_a_matmul(cuda):
+    """An mx table's tied head decodes the table through one K1-mx launch and
+    multiplies it by ``torch.matmul``: no transposed K3; equal to the plain
+    version (the decode is exact, the matmul the same call)."""
+    from repro_torch.models.layers import linear_t
+    from repro_torch.quant.qtensor import quantize
+
+    table = _rand((1000, 80), 63, 80 ** -0.5)  # d = 80: a padded last block
+    e = quantize(table.to(cuda), "mxt8")
+    x = _rand((4, 80), 64).to(cuda)
+    ops.reset_launch_counts()
+    got = linear_t(x, e)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"takum_decode_2d[lut]": 1}, counts
+    with ops.plain_path():
+        want = linear_t(x, e)
+    assert _same_f32(got, want)
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("t8", "t16", "bf16", "mxt8"))
+@pytest.mark.parametrize("shape", ["gemma2", "granite"])
+def test_attention_past_48k_shared_memory(cuda, fmt, shape):
+    """K6 where its shared memory takes the > 48 KiB opt-in: gemma2's head dim
+    256 (H 8, Kv 4) and granite's MQA, g = 48 (H 48, Kv 1), with a window
+    shorter than the length and a softcap of 50: within 1e-5 max|v| of the
+    plain version, lut equal to bits."""
+    H, Kv, hd = (8, 4, 256) if shape == "gemma2" else (48, 1, 128)
+    B, S = 2, 300
+    kv = takum_encode_2d(_rand((B * S * Kv, hd), 110), fmt).reshape(B, S, Kv, -1)
+    vv = takum_encode_2d(_rand((B * S * Kv, hd), 111), fmt).reshape(B, S, Kv, -1)
+    k, v = kv.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3)
+    q = _rand((B, H, hd), 112)
+    vmax = ref.codec_decode_ref(vv.reshape(-1, vv.shape[-1]), fmt)[:, :hd].abs().max()
+    for length, window, cap in ((290, 100, 50.0), (300, 0, 50.0), (37, 16, 0.0)):
+        args = dict(length=length, window=window, softcap=cap)
+        bits = takum_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), fmt,
+                                      decode_impl="bits", **args)
+        for impl in IMPLS:
+            got = takum_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), fmt,
+                                         decode_impl=impl, **args)
+            assert _same_f32(got, bits)
+            want = decode_attention_plain(q, k, v, fmt, length, window, cap, decode_impl=impl)
+            assert (got.cpu() - want).abs().max() <= 1e-5 * vmax, (length, window, impl)

@@ -303,7 +303,7 @@ def test_mx_scale_bytes_survive_the_converter():
     scale = rng.integers(0, 256, (6, 2)).astype(np.uint8)
     scale[0] = [0, 255]
     jq = JQTensor(jnp.asarray(bits), "mxt8", jnp.asarray(scale))
-    cfg = configs.get_smoke("llama3_8b").with_(vocab_size=6, d_model=50)
+    cfg = configs.get_smoke("llama3_8b").with_(vocab_size=6, d_model=50, tie_embeddings=True)
     leaf = {"bits": bits, "fmt": "mxt8", "scale": scale}
     q = convert.params_from_numpy({"embed": leaf}, cfg, device="cpu")["embed"]
     assert isinstance(q, QTensor) and q.n == 50 and tuple(q.shape) == (6, 50)
@@ -328,7 +328,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
-        configs.get("gemma2_2b")
+        configs.get("dbrx_132b")
     with pytest.raises(NotImplementedError):
         configs.get_smoke("llama3_8b").with_(family="moe")
 
