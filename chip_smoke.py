@@ -144,6 +144,26 @@ Phases, each of which must pass:
       K1-mx head) at f32 and bf16 activations, with phase (e)'s limits;
       (i5) gemma2's smoke train step, kernels against the plain path bit
       for bit, with SR and RNE refreshes.
+  (j) the MoE family (dbrx-132b: 16 experts, top 4; kimi-k2-1t-a32b: 384
+      experts, top 8, a shared expert), every expert one K3 launch per
+      weight over its slice of the stacked leaf (dbrx 53 K3 a layer and
+      call, kimi 1160).  Phase (c) first holds K3 at the routers' narrow N
+      (4, 8, 16, 384; f32 and bf16 x; M = 4, 24, 1024; t8 and t16) to its
+      limit and times the routers, the experts' wi at M = 4 and dbrx's at
+      M = 320 (its prefill tile), K6 at dbrx's g = 6 and one MoE layer's
+      decode launches against the byte bound of all its experts.  (j0) the
+      chunked packed build (``chunked_packed_params``: leaf by leaf, chunk
+      by chunk, no f32 copy of a whole leaf) equals ``quantize_params`` of
+      the same draws at smoke size, bit for bit; (j1) serving at published
+      widths, depth cut to fit: dbrx under takum8 at 8 of 40 layers and
+      under takum at 4, kimi under takum8 at 2 of 61, B = 4, prompt 256, 32
+      decode steps, through ``phase_serving`` (launches counted, the pairs
+      capacity dropped in the prefill, the profiled decode step's launches
+      and idle share); (j2) the 2-layer (kimi 1-layer) kernel path against
+      the plain path at f32 and bf16 activations with phase (e)'s limits
+      and its f64 control, routing flips between the paths logged with
+      their margins (one above ``FLIP_MARGIN`` fails); (j3) kimi's smoke
+      train step, kernels against the plain path bit for bit.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -1658,10 +1678,23 @@ def packed_counts(qp):
 
 def expected_packed(cfg):
     """``packed_counts`` of a packed tree of ``cfg``: the embedding, the
-    stacked gains (ln1, ln2, and gemma2's ln1_post, ln2_post), the seven
-    weights of a layer, and the head unless tied (final_norm is 1-D)."""
+    stacked gains (ln1, ln2, and gemma2's ln1_post, ln2_post), the weights
+    of a layer (4 attention and 3 MLP; a moe layer's router and 3 stacked
+    expert leaves instead of the MLP, and 3 shared-expert leaves), and the
+    head unless tied (final_norm is 1-D)."""
     gains = 4 if cfg.alt_local_global else 2
-    return 1 + gains + 7 + (0 if cfg.tie_embeddings else 1), gains
+    mlp = 4 + (3 if cfg.num_shared_experts else 0) if cfg.family == "moe" else 3
+    return 1 + gains + 4 + mlp + (0 if cfg.tie_embeddings else 1), gains
+
+
+def k3_per_layer(cfg):
+    """K3 launches of one layer in one model call: the 4 attention linears
+    and SwiGLU's 3, or for moe the router, 3 per expert (every expert runs)
+    and 3 for the shared expert: dbrx 4 + 1 + 48 = 53, kimi 4 + 1 + 1152 +
+    3 = 1160."""
+    if cfg.family != "moe":
+        return 7
+    return 4 + 1 + 3 * cfg.num_experts + (3 if cfg.num_shared_experts else 0)
 
 
 def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STEPS=32):
@@ -1685,7 +1718,11 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     B = 4
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    packed = packed_params(torch, cfg, seed=0)
+    moe = cfg.family == "moe"
+    if moe:  # leaf by leaf: no f32 copy of a whole leaf (104 GB and more at full depth)
+        packed, k2_launches = chunked_packed_params(torch, cfg, 0, dev)
+    else:
+        packed = packed_params(torch, cfg, seed=0)
     n_packed, n_gains = packed_counts(packed)
     if wire_format(cfg.quant.weights).family != "ieee":
         check((n_packed, n_gains) == expected_packed(cfg),
@@ -1695,7 +1732,7 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pack_counts = ops.launch_counts()
-    check_pack_launches(pack_counts, cfg, tag, n_packed, n_gains)
+    check_pack_launches(pack_counts, cfg, tag, k2_launches if moe else n_packed, n_gains)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
@@ -1703,11 +1740,14 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     step = serve.make_serve_step(cfg)
 
     # an uncounted prefill first: the counted one then finds every kernel of
-    # its shapes loaded (cuBLAS's among them), whatever earlier phases ran
-    t0 = time.perf_counter()
-    prefill(qp, {"tokens": prompt})
-    torch.cuda.synchronize()
-    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    # its shapes loaded (cuBLAS's among them), whatever earlier phases ran;
+    # for moe it also reads the routing (the pairs capacity dropped)
+    routes = []
+    with record_routing(routes) if moe else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        prefill(qp, {"tokens": prompt})
+        torch.cuda.synchronize()
+        first_prefill_ms = (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1755,6 +1795,13 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
         first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
         profile_prefill=prefill_trace, profile_two_decode_steps=trace,
     )
+    if moe:
+        out.update(k2_pack_launches=k2_launches, k3_per_layer=k3_per_layer(cfg),
+                   capacity=routes[0]["capacity"],
+                   prefill_pairs_dropped_share=1 - sum(float(r["keep"].float().mean())
+                                                       for r in routes) / len(routes),
+                   prefill_pairs_dropped_by_layer=[1 - float(r["keep"].float().mean())
+                                                   for r in routes])
     del qp, logits
     torch.cuda.empty_cache()
     return out
@@ -1766,7 +1813,7 @@ def check_launches(counts, cfg, calls, steps, tag, gains=0):
     each surface through the codec its format defaults to
     (``lut.resolve_impl(None, ...)``): per call one K2 append per layer
     (``takum_encode_into``: K and V in one launch) and, for packed weights,
-    7 K3 per layer, one K1 over the embedding rows (``takum_decode_rows``)
+    ``k3_per_layer`` K3 per layer, one K1 over the embedding rows (``takum_decode_rows``)
     and the head: one K3 (untied), one transposed K3 over the stored table
     (``takum_matmul[impl^T]``, tied, flat format) or one K1-mx decode of
     the table (``takum_decode_2d``, tied, mx format); per decode step one K6
@@ -1783,7 +1830,7 @@ def check_launches(counts, cfg, calls, steps, tag, gains=0):
     if wire_format(w).family != "ieee":  # bf16/f32 weights: every linear is torch.matmul
         impl = resolve_impl(None, w)
         tied = cfg.tie_embeddings
-        want[f"takum_matmul[{impl}]"] = (7 * L + (0 if tied else 1)) * calls
+        want[f"takum_matmul[{impl}]"] = (k3_per_layer(cfg) * L + (0 if tied else 1)) * calls
         want[f"takum_decode_rows[{impl}]"] = calls
         decodes = gains
         if tied and wire_format(w).is_block_scaled:
@@ -1852,8 +1899,9 @@ def profile_decode(torch, step, qp, logits, cache):
 
 
 #: the namespaces of K3's kernels (the tensor-core tile, the FMA tile, the
-#: matvec and its combine pass) in the profiler's kernel names
-K3_NAMESPACES = ("repro_mma::", "repro_mm::", "repro_mv::")
+#: matvec and its combine pass, the f32-x wgmma tile: a MoE prefill's wo
+#: launches over the f32 h) in the profiler's kernel names
+K3_NAMESPACES = ("repro_mma::", "repro_mm::", "repro_mv::", "repro_wg::")
 
 
 def profile_prefill(torch, prefill, qp, prompt):
@@ -1905,9 +1953,10 @@ F32_LIMITS = {"mxt8": (2e-3, 1e-3), "takum8": (3e-3, 3e-3),
               ("llama3_2_3b", "takum"): (2e-3, 2e-3)}
 
 
-def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
-    """``arch`` at full width, 2 layers: kernel path vs plain path, teacher-forced with
-    the kernel path's greedy tokens.  Tolerance on max|diff| / max|logit|
+def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=2, steps=8):
+    """``arch`` at full width, ``layers`` layers: kernel path vs plain path,
+    teacher-forced with the kernel path's greedy tokens over ``steps``
+    decode steps.  Tolerance on max|diff| / max|logit|
     per step: 1e-3 at f32 activations (accumulation order, plus the 8-bit
     KV codes that an order ulp moves across a rounding boundary: one t8
     code step is about 12 % of the value), 5e-2 at bf16 activations (an
@@ -1937,7 +1986,22 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
     the path that drives K1-mx and K3-mx, under bf16 (bf16 weights and KV
     cache) the one that drives the bits codec of K2 and K6.  Every reading
     (per-step errors, the control, the share of KV-cache bytes in which the
-    runs differ) is logged before it is checked."""
+    runs differ) is logged before it is checked.
+
+    A moe arch's tree is ``chunked_packed_params``'s, and every path's
+    router probs are recorded per layer and call (``record_routing``): a
+    token whose top-k expert set differs between the kernel and the plain
+    path is a routing flip, logged with its margin (the plain path's k-th
+    minus (k+1)-th prob) and the paths' largest probs difference for that
+    token.  A flipped token's output moves by O(1) and the row's later
+    tokens attend to it, so a row leaves the logit comparison (and the
+    greedy agreement) from the call of its first flip on.  At f32 a row's
+    first flips at a margin above ``FLIP_MARGIN`` are a fault.  At bf16 the
+    paths' probs differ by up to 2e-2 (an order ulp flips an activation's
+    bf16 rounding, and the 8-bit KV codes follow: phase (e)'s bf16 logits
+    differ by 4e-3 to 1.25e-2), so every flip's margin must lie under twice
+    its token's probs difference (the two swapped probs can each move by
+    that much), and more than half the calls must keep a row."""
     import dataclasses
 
     from repro_torch import configs, serve
@@ -1948,28 +2012,31 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
     routes = {"kernel": contextlib.nullcontext, "plain": ops.plain_path,
               "plain_f64": lambda: ops.plain_path(torch.float64)}
 
-    B, S0, STEPS = 4, 64, 8
+    B, S0, STEPS = 4, 64, steps
     results = []
     for policy in policies:
         f32_tol, f64_tol = F32_LIMITS.get((arch, policy), F32_LIMITS.get(policy, (1e-3, 1e-3)))
         for act, tol in (("f32", f32_tol), ("bf16", 5e-2)):
             quant = dataclasses.replace(named[policy], activations=act)
-            cfg = configs.get(arch).with_(num_layers=2, quant=quant)
+            cfg = configs.get(arch).with_(num_layers=layers, quant=quant)
+            moe = cfg.family == "moe"
             ops.reset_launch_counts()
-            qp = packed_params(torch, cfg, seed=1)
+            qp = chunked_packed_params(torch, cfg, 1, dev)[0] if moe else packed_params(torch, cfg, 1)
             pack_counts = {k: v for k, v in ops.launch_counts().items() if v}
             gains = packed_counts(qp)[1]
             gen = torch.Generator(device=dev)
             gen.manual_seed(11)
             prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
-            runs, caches = {}, {}
+            runs, caches, routing = {}, {}, {}
             fed = None
             paths = ("kernel", "plain")
             if act == "f32" and quant.weights in ("t16", "t8", "mxt8"):
                 paths += ("plain_f64",)
             for path in paths:
                 ops.reset_launch_counts()
-                with routes[path]():
+                routing[path] = []
+                with routes[path](), (record_routing(routing[path]) if moe
+                                      else contextlib.nullcontext()):
                     lp = serve.load_params(qp)
                     logits, cache = serve.make_prefill_step(cfg, S0 + STEPS)(lp, {"tokens": prompt})
                     outs, toks = [logits], []
@@ -1994,14 +2061,30 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
             tag = f"{arch} {policy}/{act}"
             check(bool(torch.isfinite(k).all()), f"{tag}: non-finite kernel-path logits")
 
+            keep, flips = None, []
+            if moe:  # rows whose routing flipped leave the comparison from that call on
+                flips = routing_flips(routing["kernel"], routing["plain"], layers)
+                first = {}
+                for c, layer, r, *_ in flips:
+                    first.setdefault(r, (c, layer))
+                keep = torch.ones((STEPS + 1, B), dtype=torch.bool, device=dev)
+                for r, (c, _) in first.items():
+                    keep[c:, r] = False
+                primary = [f for f in flips if (f[0], f[1]) == first[f[2]]]
+
             def rel(a, b):
-                return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).tolist()
+                d, m = (a - b).abs().amax(dim=2), b.abs().amax(dim=2)  # [steps + 1, B]
+                if keep is None:
+                    return (d.amax(1) / m.amax(1)).tolist()
+                return [float(d[i][keep[i]].max() / m[i][keep[i]].max())
+                        for i in range(d.shape[0]) if keep[i].any()]
 
             def kv_diff(a, b):
                 return float((caches[a] != caches[b]).float().mean())
 
             errs = rel(k, p)
-            agree = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+            same = k.argmax(-1) == p.argmax(-1)
+            agree = float((same if keep is None else same[keep]).float().mean())
             res = dict(arch=arch, policy=policy, activations=act, tol=tol, max_rel_err=max(errs),
                        rel_err_per_step=errs, greedy_agreement=agree, launches=counts,
                        pack_launches=pack_counts,
@@ -2011,6 +2094,15 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
                 f"{[float(f'{e:.2e}') for e in errs]}, greedy agreement {agree:.3f}, KV bytes "
                 f"differing {res['kv_bytes_differing_kernel_vs_plain']:.2e}, kernel-path "
                 f"launches {counts}")
+            if moe:
+                res.update(routing_flips=flips, primary_flips=primary, routed_tokens=sum(
+                    r["gate_idx"].shape[0] * r["gate_idx"].shape[1] for r in routing["plain"]),
+                    min_margin=min(float(r["margin"].min()) for r in routing["plain"]),
+                    rows_left_out_from_call={r: c for r, (c, _) in first.items()})
+                log(f"parity {tag}: {len(flips)} routing flips of {res['routed_tokens']} "
+                    f"routed tokens (call, layer, row, token, margin, probs diff): {flips}; "
+                    f"the first of each row {primary}; rows left out from call "
+                    f"{res['rows_left_out_from_call']}; smallest margin {res['min_margin']:.3g}")
             if "plain_f64" in runs:
                 res.update(control_f64_vs_plain=rel(runs["plain_f64"], p),
                            kernel_vs_f64=rel(k, runs["plain_f64"]),
@@ -2020,13 +2112,20 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES):
                     f"differing {res['kv_bytes_differing_f64_vs_plain']:.2e}), kernel vs plain "
                     f"f64 {kf:.3e} (limit {f64_tol})")
             results.append(res)
+            if moe and act == "f32":
+                check(all(f[4] <= FLIP_MARGIN for f in primary),
+                      f"{tag}: a row's first routing flip at a margin above {FLIP_MARGIN}")
+            if moe:  # every flip a near tie the paths' own probs difference explains
+                check(all(f[4] < 2 * f[5] for f in flips),
+                      f"{tag}: a routing flip at a margin above twice the probs difference")
+                check(len(errs) > STEPS // 2, f"{tag}: too few rows kept ({errs})")
             check(max(errs) <= tol, f"{tag}: kernel vs plain {max(errs)} > {tol}")
             if "plain_f64" in runs:
                 check(kf <= f64_tol, f"{tag}: kernel vs f64-accumulated plain {kf} > {f64_tol}")
             if act == "f32":
                 check(agree == 1.0, f"{tag}: greedy tokens differ ({agree:.3f})")
             check_launches(counts, cfg, 1 + STEPS, STEPS, tag, gains=gains)
-            del qp, lp, runs, caches, k, p
+            del qp, lp, runs, caches, k, p, routing
             torch.cuda.empty_cache()
     return results
 
@@ -2397,6 +2496,417 @@ def phase_other_archs(torch, dev, card):
     return dict(serving=serving, parity=parity, train=train)
 
 
+# ---------------------------------------------------------------------------
+# phase (j): the MoE family (dbrx-132b, kimi-k2-1t-a32b)
+# ---------------------------------------------------------------------------
+
+#: elements of one drawn chunk of a 2-D leaf (rows of the embedding, the head)
+CHUNK_ELEMS = 1 << 26
+
+
+def leaf_chunks(shape):
+    """The chunks a leaf is drawn in: each trailing [r, c] matrix of a leaf
+    of 3 or more axes (a layer's, or a layer's expert's), blocks of rows of
+    a 2-D leaf (at most ``CHUNK_ELEMS`` elements), a 1-D leaf whole."""
+    import itertools
+
+    if len(shape) >= 3:
+        return list(itertools.product(*map(range, shape[:-2])))
+    if len(shape) == 2:
+        rows = max(1, CHUNK_ELEMS // shape[1])
+        return [slice(r, min(r + rows, shape[0])) for r in range(0, shape[0], rows)]
+    return [slice(None)]
+
+
+def draw_chunk(torch, spec, j, i, seed, dev):
+    """Chunk ``i`` of leaf ``j`` (``param_specs``' order): f32 normal times
+    the leaf's std from a generator of its own (seed, leaf, chunk), or zeros."""
+    path, shape, std = spec
+    c = leaf_chunks(shape)[i]
+    cshape = shape[-2:] if isinstance(c, tuple) else (len(range(*c.indices(shape[0]))),
+                                                        *shape[1:])
+    if not std:
+        return torch.zeros(cshape, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed((seed * 1000003 + j) * 1000003 + i)
+    return torch.randn(cshape, generator=gen, device=dev) * std
+
+
+def pow2_of_ms(torch, ms):
+    """``qtensor.pow2_scale``'s power of two from a leaf's mean square."""
+    from repro_torch.core import takum
+
+    rms = torch.sqrt(torch.clamp(ms, min=1e-30))
+    e = torch.round(torch.log2(rms))
+    exact = takum.pow2_f32(torch.nan_to_num(e, nan=0.0, posinf=0.0).to(torch.int64))
+    return torch.where(torch.isfinite(e), exact, torch.exp2(e))
+
+
+def chunked_packed_params(torch, cfg, seed, dev):
+    """``serve.quantize_params`` of a random tree of ``cfg``, built leaf by
+    leaf and chunk by chunk (``leaf_chunks``) so that no f32 copy of a whole
+    leaf exists on the card: a flat format's pow2 scale is ``pow2_scale`` of
+    the whole leaf (its mean square accumulated over the chunks in f64, then
+    rounded to f32), then each chunk is drawn again, divided by it and packed
+    by K2 into its slice of the leaf's bits; an mx leaf packs chunk by chunk
+    (its scales are per 32-block of the last axis); IEEE weights and 1-D
+    leaves are cast chunk by chunk.  Returns (tree, K2 launches: one per
+    packed chunk).
+
+    What it saves, against ``packed_params``' whole f32 tree drawn on the
+    card (phase (j1), ``T.param_specs``' sizes): dbrx-132b takum8 at 8
+    layers, 109.2 GB f32 for a 27.3 GB packed tree (its largest leaf, the
+    stacked experts' wi, 33.8 GB f32); dbrx takum at 4 layers, 57.1 GB for
+    28.5 GB (16.9 GB); kimi-k2 takum8 at 2 layers, 146.1 GB for 36.5 GB
+    (45.1 GB).  The transient here is one chunk (a [6144, 10752] f32 expert
+    matrix, 264 MB; a row block of the embedding or the head, 268 MB) and
+    its quotient."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import blockscale
+    from repro_torch.quant.qtensor import QTensor
+
+    wf = wire_format(cfg.quant.weights)
+    tree, k2 = {}, 0
+    for j, spec in enumerate(T.param_specs(cfg)):
+        path, shape, _ = spec
+        chunks = leaf_chunks(shape)
+        draws = (lambda: (draw_chunk(torch, spec, j, i, seed, dev) for i in range(len(chunks))))
+        if wf.family == "ieee" or len(shape) < 2:  # quantize_params' cast
+            dt = torch.bfloat16 if wf.name == "bf16" else torch.float32
+            leaf = torch.empty(shape, dtype=dt, device=dev)
+            for c, x in zip(chunks, draws()):
+                leaf[c] = x.to(dt)
+        elif wf.is_block_scaled:
+            payload = torch.empty((*shape[:-1], blockscale.payload_len(shape[-1])),
+                                  dtype=torch.uint8, device=dev)
+            for c, x in zip(chunks, draws()):
+                payload[c] = ops.encode(blockscale.pad_block(x), wf)
+                k2 += 1
+            leaf = QTensor.from_payload(payload, wf.name, shape[-1])
+        else:
+            ss = torch.zeros((), dtype=torch.float64, device=dev)
+            for x in draws():
+                ss += torch.sum(torch.square(x), dtype=torch.float64)
+            scale = pow2_of_ms(torch, (ss / math.prod(shape)).to(torch.float32))
+            bits = torch.empty(shape, dtype=wf.signed_storage, device=dev)
+            for c, x in zip(chunks, draws()):
+                bits[c] = ops.encode(x / scale, wf).view(wf.signed_storage)
+                k2 += 1
+            leaf = QTensor(bits.view(wf.storage), wf.name, scale)
+        T.set_path(tree, path, leaf)
+    return tree, k2
+
+
+def check_chunked_build(torch, dev):
+    """At each MoE arch's smoke config under takum, takum8 and mxt8 (and
+    llama3-8b's under takum): ``chunked_packed_params`` equals
+    ``serve.quantize_params`` of the same draws assembled whole, bit for bit
+    (bits, scales, mx payloads), with one K2 launch per packed chunk."""
+    from repro_torch import configs, serve
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.policy import POLICIES, QuantPolicy
+
+    named = {**POLICIES, "mxt8": QuantPolicy(weights="mxt8", kv_cache="mxt8")}
+    cases = 0
+    for arch, policy in (("dbrx_132b", "takum"), ("dbrx_132b", "takum8"),
+                         ("kimi_k2_1t_a32b", "takum8"), ("kimi_k2_1t_a32b", "mxt8"),
+                         ("llama3_8b", "takum")):
+        cfg = configs.get_smoke(arch).with_(quant=named[policy])
+        ops.reset_launch_counts()
+        got, k2 = chunked_packed_params(torch, cfg, 3, dev)
+        n = sum(ops.launch_counts().values())
+        check(n == k2 and k2 > 0, f"chunked build {arch}/{policy}: {n} launches, {k2} chunks")
+        whole = {}
+        for j, spec in enumerate(T.param_specs(cfg)):
+            path, shape, _ = spec
+            parts = [draw_chunk(torch, spec, j, i, 3, dev) for i in range(len(leaf_chunks(shape)))]
+            leaf = (torch.stack(parts).reshape(shape) if len(shape) >= 3
+                    else torch.cat(parts) if len(shape) == 2 else parts[0])
+            T.set_path(whole, path, leaf)
+        want = serve.quantize_params(cfg, whole)
+        check(same_tree(torch, got, want),
+              f"chunked build {arch}/{policy}: differs from quantize_params of the same draws")
+        cases += 1
+    return cases
+
+
+#: at f32 activations, a batch row's first routing flip between the kernel
+#: and the plain path at a margin (k-th minus (k+1)-th router prob) above
+#: this is a fault (phase (j2)); the row's later flips follow from it (the
+#: flipped token's output moves by O(1) and later tokens attend to it)
+FLIP_MARGIN = 1e-4
+
+
+@contextlib.contextmanager
+def record_routing(out):
+    """Inside the block, every ``moe.moe_block`` call appends its routing to
+    ``out``: probs, gate_idx, keep, capacity and each token's margin."""
+    from repro_torch.models import moe
+
+    block = moe.moe_block
+
+    def recorded(x, *a, top_k, capacity_factor, **kw):
+        trace = {}
+        y = block(x, *a, top_k=top_k, capacity_factor=capacity_factor, trace=trace, **kw)
+        top = trace["probs"].topk(top_k + 1, dim=-1).values
+        out.append(dict(trace, margin=top[..., -2] - top[..., -1],
+                        capacity=moe.capacity(capacity_factor, top_k, x.shape[1],
+                                              trace["probs"].shape[-1])))
+        return y
+
+    moe.moe_block = recorded
+    try:
+        yield out
+    finally:
+        moe.moe_block = block
+
+
+def routing_flips(got, want, layers):
+    """Tokens whose top-k expert set differs between two runs' recorded
+    routings (``record_routing``, the same calls of ``layers`` layers in the
+    same order): (call, layer, row, token, margin in ``want``, the largest
+    difference of the two runs' probs for that token)."""
+    flips = []
+    for n, (a, b) in enumerate(zip(got, want)):
+        differ = (a["gate_idx"].sort(-1).values != b["gate_idx"].sort(-1).values).any(-1)
+        for r, t in differ.nonzero().tolist():
+            flips.append((n // layers, n % layers, r, t, float(b["margin"][r, t]),
+                          float((a["probs"][r, t] - b["probs"][r, t]).abs().max())))
+    return flips
+
+
+#: phase (c) for the MoE family: K3 at the narrow routers' N, every x kind
+#: and the decode / prefill rows (M = 4, 24 and 1024) over K = 6144
+NARROW_N = (4, 8, 16, 384)
+NARROW_M = (4, 24, 1024)
+#: the expert weights of the served archs: (arch, K, N) of wi / wg
+EXPERT_SHAPES = (("dbrx_132b", 6144, 10752), ("kimi_k2_1t_a32b", 7168, 2048))
+#: the routers: (arch, d, E)
+ROUTERS = (("dbrx_132b", 6144, 16), ("kimi_k2_1t_a32b", 7168, 384))
+#: K6 at dbrx's group of 6 (H 48 over 8 kv heads) at (j1)'s last decode step
+DBRX_ATTENTION = (4, 48, 8, 290, 128, 288)
+#: one MoE layer's decode launches: (arch, d, d_ff, experts)
+MOE_DECODE_LAYERS = (("dbrx_132b", 6144, 10752, 16), ("kimi_k2_1t_a32b", 7168, 2048, 384))
+
+
+def k3_row(torch, flush, fmt, impl, xm, w, wd, tag, timed=True, **extra):
+    """K3 (``takum_matmul``) on x ``xm`` over packed ``w`` (decoded ``wd``)
+    against its plain version within K3_LIMIT of |x| @ |w| and lut == bits
+    where the format has both; timed (events and device time), beside its
+    bound and ``torch.matmul(x, decode(w))``, when ``timed``."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels.takum_matmul import takum_matmul, takum_matmul_plain
+
+    M, K = xm.shape
+    N = wd.shape[1]
+    wf = wire_format(fmt)
+    scale = torch.matmul(xm.float().abs(), wd.abs())
+    got = takum_matmul(xm, w, fmt, decode_impl=impl)
+    loop = takum_matmul.last_loop
+    want = takum_matmul_plain(xm, w, fmt, decode_impl=impl)
+    ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|w| > {K3_LIMIT}")
+    if impl == "lut":
+        check(same_bits_f32(torch, got, takum_matmul(xm, w, fmt, decode_impl="bits")),
+              f"{tag}: differs from K3[bits]")
+    row = dict(kernel="takum_matmul", fmt=fmt, impl=impl, shape=[M, K, N],
+               x=str(xm.dtype)[6:], loop=loop, max_abs_err=float((got - want).abs().max()),
+               err_over_absprod=ratio, **extra)
+    if timed:
+        rate, rate_name = matmul_rate(torch, fmt, xm.dtype)
+        b_ms, b_by = bound(M * K * xm.element_size() + K * N * wf.nbits // 8 + M * N * 4,
+                           2.0 * M * N * K, rate)
+        kern = lambda: takum_matmul(xm, w, fmt, decode_impl=impl)
+        lib = lambda: torch.matmul(xm.float(), wd)
+        row.update(ms=time_ms(torch, kern, flush=flush),
+                   plain_ms=time_ms(torch, lambda: takum_matmul_plain(xm, w, fmt, decode_impl=impl),
+                                    flush=flush),
+                   bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
+                   library_ms=time_ms(torch, lib, flush=flush),
+                   device_ms=device_ms(torch, kern, flush=flush),
+                   library_device_ms=device_ms(torch, lib, flush=flush))
+    return row
+
+
+def phase_moe_kernels(torch, dev, rows):
+    """Phase (c) for the MoE family.  K3 at the narrow routers' widths (N 4,
+    8, 16, 384; the wgmma tile stages a weight row under 16 bytes by
+    cp.async), f32 and bf16 x, M = 4, 24, 1024, t8 lut and t16 bits, within
+    K3_LIMIT of its plain version; timed rows: the routers (f32 x, t8 lut,
+    M = 4 and 1024 over dbrx's [6144, 16] and kimi's [7168, 384]), the
+    experts' wi at M = 4 (bf16 x: dbrx's [6144, 10752] t8 lut and t16 bits,
+    kimi's [7168, 2048] t8 lut) and at M = 320, dbrx's prefill tile (t8 lut,
+    t16 bits); K6 at dbrx's g = 6, t8 lut, within 1e-5 max|v| and lut ==
+    bits, beside SDPA.  Then one MoE layer's decode launches: the 3E expert
+    K3 of a decode step (M = 4: bf16 x for wi and wg, the f32 h for wo),
+    t8 lut, dbrx (48) and kimi (1152), device time against the byte bound
+    of reading every expert once (returned, not a kernel row)."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels.takum_attention import decode_attention_plain, takum_decode_attention
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
+    from repro_torch.kernels.takum_matmul import takum_matmul
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2301)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    F = torch.nn.functional
+    narrow = 0
+    for N in NARROW_N:
+        K = 7168 if N == 384 else 6144
+        wf32 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        for fmt, impl in (("t8", "lut"), ("t16", "bits")):
+            w = encode_2d_plain(wf32, fmt)
+            wd = decode_2d_plain(w, fmt)
+            for M in NARROW_M:
+                for xdt in (torch.float32, torch.bfloat16):
+                    xm = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+                    router = (xdt == torch.float32 and fmt == "t8" and M in (4, 1024)
+                              and (K, N) in ((6144, 16), (7168, 384)))
+                    row = k3_row(torch, flush, fmt, impl, xm, w, wd,
+                                 f"K3[{impl}] {fmt} narrow {M}x{K}x{N} x {str(xdt)[6:]}",
+                                 timed=router, use="router" if router else "narrow")
+                    narrow += 1
+                    if router:
+                        rows.append(row)
+        del wf32
+    log(f"(c) K3 at the narrow N {NARROW_N} x M {NARROW_M} x f32 / bf16 x x t8 / t16: "
+        f"{narrow} cases within {K3_LIMIT} of |x|@|w|")
+
+    for arch, K, N in EXPERT_SHAPES:
+        wf32 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        cases = [("t8", "lut", 4)] + ([("t16", "bits", 4), ("t8", "lut", 320), ("t16", "bits", 320)]
+                                      if arch == "dbrx_132b" else [])
+        for fmt, impl, M in cases:
+            w = encode_2d_plain(wf32, fmt)
+            wd = decode_2d_plain(w, fmt)
+            xm = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            rows.append(k3_row(torch, flush, fmt, impl, xm, w, wd,
+                               f"K3[{impl}] {fmt} expert {arch} {M}x{K}x{N}", use="expert",
+                               arch=arch))
+            del w, wd
+        del wf32
+        log(f"(c) K3 over {arch}'s expert [{K}, {N}]: within {K3_LIMIT}, timed")
+
+    B, H, Kv, S, hd, length = DBRX_ATTENTION
+    fmt = "t8"
+    k8, v8 = (encode_2d_plain(torch.randn((B * S * Kv, hd), generator=gen, device=dev), fmt)
+              for _ in range(2))
+    kc = k8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+    vc = v8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+    q = torch.randn((B, H, hd), generator=gen, device=dev)
+    vmax = float(decode_2d_plain(v8, fmt).abs().max())
+    got_bits = takum_decode_attention(q, kc, vc, fmt, decode_impl="bits", length=length)
+    got = takum_decode_attention(q, kc, vc, fmt, decode_impl="lut", length=length)
+    want = decode_attention_plain(q, kc, vc, fmt, length, 0, 0.0, decode_impl="lut")
+    err = float((got - want).abs().max())
+    check(err <= 1e-5 * vmax, f"K6[lut] t8 dbrx g=6: err {err} > 1e-5 max|v|")
+    check(same_bits_f32(torch, got, got_bits), "K6[lut] t8 dbrx g=6: differs from K6[bits]")
+    g = H // Kv
+    kf = decode_2d_plain(k8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+    vf = decode_2d_plain(v8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+    kf = kf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
+    vf = vf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
+    q4 = q[:, :, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(q4, kf, vf)
+    kern = lambda: takum_decode_attention(q, kc, vc, fmt, decode_impl="lut", length=length)
+    b_ms, b_by = bound(q.numel() * 4 * 2 + 2 * B * Kv * length * hd, 4.0 * B * H * length * hd)
+    rows.append(dict(
+        kernel="takum_decode_attention", fmt=fmt, impl="lut", shape=[B, H, Kv, S, hd],
+        arch="dbrx_132b", length=length, window=0, softcap=0.0, keys_read=length,
+        max_abs_err=err, ms=time_ms(torch, kern, flush=flush),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(
+            q, kc, vc, fmt, length, 0, 0.0, decode_impl="lut"), flush=flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, sdpa, flush=flush),
+        device_ms=device_ms(torch, kern, flush=flush),
+        library_device_ms=device_ms(torch, sdpa, flush=flush)))
+    log(f"(c) K6 t8 dbrx (H {H}, Kv {Kv}, g {g}, length {length}): within 1e-5 max|v|, "
+        f"lut == bits, timed")
+    del k8, v8, kc, vc, kf, vf
+
+    layer_rows = []
+    for arch, d, f_, E in MOE_DECODE_LAYERS:
+        fmt = "t8"
+        w_in = [encode_2d_plain(torch.randn((d, f_), generator=gen, device=dev) * d ** -0.5, fmt)
+                for _ in range(2 * E)]
+        w_out = [encode_2d_plain(torch.randn((f_, d), generator=gen, device=dev) * f_ ** -0.5, fmt)
+                 for _ in range(E)]
+        xb = torch.randn((4, d), generator=gen, device=dev).to(torch.bfloat16)
+        h = torch.randn((4, f_), generator=gen, device=dev)
+
+        def layer():
+            for e in range(E):
+                takum_matmul(xb, w_in[2 * e], fmt)
+                takum_matmul(xb, w_in[2 * e + 1], fmt)
+                takum_matmul(h, w_out[e], fmt)
+
+        nbytes = 3 * E * d * f_
+        b_ms, b_by = bound(nbytes, 0)
+        dev_ms = device_ms(torch, layer, reps=3, flush=flush)
+        layer_rows.append(dict(arch=arch, fmt=fmt, impl="lut", experts=E, launches=3 * E,
+                               expert_bytes=nbytes, device_ms=dev_ms, bound_ms=b_ms,
+                               bound_by=b_by, ms=time_ms(torch, layer, reps=3, warmup=1)))
+        log(f"(c) one {arch} MoE layer's {3 * E} expert K3 at M = 4, t8 lut: device "
+            f"{dev_ms:.4f} ms against the byte bound {b_ms:.4f} ({nbytes / 1e9:.2f} GB)")
+        del w_in, w_out
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return dict(narrow_cases=narrow, moe_layer_decode=layer_rows)
+
+
+#: phase (j1) serving runs: (arch, policy, layers) at published widths, B =
+#: 4, prompt 256, 32 decode steps: the depth cut so that the packed tree
+#: fits the card with room (``chunked_packed_params``' docstring)
+MOE_RUNS = (("dbrx_132b", "takum8", 8), ("dbrx_132b", "takum", 4),
+            ("kimi_k2_1t_a32b", "takum8", 2))
+#: phase (j2): (arch, policies, layers, decode steps) of the kernel-vs-plain
+#: parity at full width: 4 decode steps, not phase (e)'s 8, since the plain
+#: path decodes each of dbrx's 96 expert matrices on every call (t16 bits:
+#: 25 ms each on an H100; 8 steps took 83 s for dbrx)
+MOE_PARITY = (("dbrx_132b", ("takum", "takum8"), 2, 4), ("kimi_k2_1t_a32b", ("takum8",), 1, 4))
+
+
+def phase_moe(torch, dev, card):
+    """(j0) ``check_chunked_build`` at smoke size; (j1) ``phase_serving`` of
+    each run of ``MOE_RUNS``; (j2) ``phase_parity`` of each entry of
+    ``MOE_PARITY`` at f32 and bf16 activations, routing flips counted;
+    (j3) ``train_steps_exact`` of kimi's smoke config (16 parameter leaves,
+    4-D expert moments)."""
+    chunked = check_chunked_build(torch, dev)
+    log(f"(j0) the chunked packed build equals quantize_params of the same draws "
+        f"({chunked} smoke trees)")
+    serving = {}
+    for arch, policy, layers in MOE_RUNS:
+        t0 = time.perf_counter()
+        r = serving[f"{arch}/{policy}"] = phase_serving(torch, dev, policy, arch, layers)
+        log(f"(j1) serving {arch} {policy}, {r['layers']} of {r['published_layers']} layers, "
+            f"B={r['batch']} prompt {r['prompt']}: warm prefill {r['prefill_ms']:.1f} ms (first "
+            f"{r['first_prefill_ms']:.1f}), decode {r['decode_ms_per_token']:.2f} ms/token, "
+            f"peak {r['max_memory_allocated_gb']:.2f} GB, packed {r['weight_bytes'] / 1e9:.2f} GB "
+            f"(K2 {r['k2_pack_launches']} chunks), launches per decode step (torch.profiler) "
+            f"{r['profile_two_decode_steps']['kernel_launches_per_step']}, device busy "
+            f"{r['profile_two_decode_steps']['device_busy_ms']} ms over two steps, idle share "
+            f"{r['profile_two_decode_steps']['idle_share']}, of the counted step "
+            f"{r['profile_two_decode_steps'].get('idle_share_of_counted_step')}; prefill pairs "
+            f"dropped {r['prefill_pairs_dropped_share']:.4f} (capacity {r['capacity']}); "
+            f"counted launches {r['launches']}; card: {card} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    parity = []
+    for arch, policies, layers, steps in MOE_PARITY:
+        t0 = time.perf_counter()
+        parity += phase_parity(torch, dev, arch, policies, layers, steps)
+        log(f"(j2) parity {arch} {policies} at {layers} layers done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    train = train_steps_exact(torch, dev, "kimi_k2_1t_a32b")
+    check(all(v["leaves"] == 16 for v in train.values()), "j3: kimi smoke's 16 leaves")
+    log("(j3) kimi smoke train steps, kernels == plain bit for bit " + json.dumps(train))
+    return dict(chunked_build_cases=chunked, serving=serving, parity=parity, train=train)
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -2501,6 +3011,21 @@ SUMMARY = [
     ("takum_decode_2d", "mxt8", "lut", [256000, 2304], "gemma2_2b/mxt8"),
     ("takum_decode_attention", "t8", "lut", [4, 8, 4, 4194, 256], "gemma2_2b/takum"),
     ("takum_decode_attention", "t8", "lut", [4, 48, 1, 290, 128], "granite_34b/takum8"),
+    # phase (j): the MoE family's new K3 shapes (the experts' wi at M = 4,
+    # the decode step's matvec, and at M = 320, dbrx's prefill tile; the
+    # routers, f32 x, at N = 16 and 384) and K6 at dbrx's g = 6, each with
+    # the launches of the (j1) serving run that gives it that shape (the
+    # kimi routers' M = 1024 row: the f32-activation path of (j2))
+    ("takum_matmul", "t8", "lut", [4, 6144, 10752], "dbrx_132b/takum8"),
+    ("takum_matmul", "t16", "bits", [4, 6144, 10752], "dbrx_132b/takum"),
+    ("takum_matmul", "t8", "lut", [4, 7168, 2048], "kimi_k2_1t_a32b/takum8"),
+    ("takum_matmul", "t8", "lut", [320, 6144, 10752], "dbrx_132b/takum8"),
+    ("takum_matmul", "t16", "bits", [320, 6144, 10752], "dbrx_132b/takum"),
+    ("takum_matmul", "t8", "lut", [4, 6144, 16], "dbrx_132b/takum8", "float32"),
+    ("takum_matmul", "t8", "lut", [1024, 6144, 16], "dbrx_132b/takum8", "float32"),
+    ("takum_matmul", "t8", "lut", [4, 7168, 384], "kimi_k2_1t_a32b/takum8", "float32"),
+    ("takum_matmul", "t8", "lut", [1024, 7168, 384], "kimi_k2_1t_a32b/takum8", "float32"),
+    ("takum_decode_attention", "t8", "lut", [4, 48, 8, 290, 128], "dbrx_132b/takum8"),
 ]
 
 
@@ -2588,6 +3113,10 @@ def main() -> int:
     phase_arch_kernels(torch, dev, rows)
     log(f"(c) the other archs' head and K6 shapes match their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    moe_kernels = phase_moe_kernels(torch, dev, rows)
+    log(f"(c) the MoE archs' router, expert and K6 shapes match their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
     k3_step = k3_decode_step(rows)
     log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
@@ -2640,6 +3169,10 @@ def main() -> int:
     other = phase_other_archs(torch, dev, card)
     log(f"(i) the other dense archs done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    moe = phase_moe(torch, dev, card)
+    log(f"(j) the MoE family done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -2656,6 +3189,9 @@ def main() -> int:
     launches.update({path: r["launches"] for path, r in other["serving"].items()})
     launches.update({f"{r['arch']}/{r['policy']}": r["launches"] for r in other["parity"]
                      if r["activations"] == "bf16" and r["policy"] == "mxt8"})
+    launches.update({path: r["launches"] for path, r in moe["serving"].items()})
+    launches.update({f"{r['arch']}/{r['policy']}/f32": r["launches"] for r in moe["parity"]
+                     if r["activations"] == "f32"})
     summary = []
     for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
@@ -2719,7 +3255,7 @@ def main() -> int:
                      launches={k: v for k, v in ad_counts.items() if v}),
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
-             other_archs=other,
+             other_archs=other, moe_kernels=moe_kernels, moe=moe,
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

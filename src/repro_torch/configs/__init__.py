@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get(arch)`` / ``get_smoke(arch)``
 (counterpart of ``repro.configs``).  The archs of the dense decoder block
-are ported (llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large);
-the other architectures of ``repro`` raise ``NotImplementedError``."""
+(llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large) and of the
+MoE family (dbrx-132b, kimi-k2-1t-a32b) are ported; the other architectures
+of ``repro`` raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["musicgen_large", "gemma2_2b", "llama3_8b", "llama3_2_3b", "granite_34b"]
+ARCHS = ["musicgen_large", "kimi_k2_1t_a32b", "dbrx_132b", "gemma2_2b", "llama3_8b",
+         "llama3_2_3b", "granite_34b"]
 
 #: every architecture ``repro`` registers; those not in ARCHS wait for a slice
 REPRO_ARCHS = [
@@ -19,6 +21,8 @@ REPRO_ARCHS = [
 
 ALIASES = {
     "musicgen-large": "musicgen_large",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "dbrx-132b": "dbrx_132b",
     "gemma2-2b": "gemma2_2b",
     "llama3-8b": "llama3_8b",
     "llama3.2-3b": "llama3_2_3b",

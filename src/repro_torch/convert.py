@@ -66,11 +66,21 @@ def params_from_numpy(tree: dict, cfg, *, device=None) -> dict:
     return out
 
 
+#: a moe layer's leaves, and those of its shared expert
+MOE_LEAVES = ("router", "wi", "wg", "wo")
+SHARED_LEAVES = ("wi_s", "wg_s", "wo_s")
+
+
 def _check_tree(params: dict, cfg) -> None:
-    """Refuse a tree whose head or norms do not match ``cfg``: an
-    ``lm_head`` under a tied config or none under an untied one, and
-    gemma2's post-norm gains missing under ``alt_local_global`` or present
-    without it."""
+    """Refuse a tree whose head, norms or MLP do not match ``cfg``: an
+    ``lm_head`` under a tied config or none under an untied one; gemma2's
+    post-norm gains missing under ``alt_local_global`` or present without
+    it; ``layers.mlp`` where the family is "moe" or ``layers.moe`` where it
+    is not; a moe tree lacking ``layers.moe`` or a leaf of
+    :data:`MOE_LEAVES`, whose experts
+    are not ``num_experts``, or whose shared-expert leaves
+    (:data:`SHARED_LEAVES`) are missing under ``num_shared_experts`` or
+    present without it."""
     if cfg.tie_embeddings == ("lm_head" in params):
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the tree "
                          f"{'has' if 'lm_head' in params else 'lacks'} an lm_head")
@@ -79,6 +89,21 @@ def _check_tree(params: dict, cfg) -> None:
         if cfg.alt_local_global != (k in layers):
             raise ValueError(f"{cfg.name}: alt_local_global={cfg.alt_local_global} but the "
                              f"tree {'has' if k in layers else 'lacks'} layers.{k}")
+    moe = cfg.family == "moe"
+    if "moe" in layers and not moe or moe and "mlp" in layers:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} but the tree has "
+                         f"layers.{'mlp' if moe else 'moe'}")
+    if moe:
+        if "moe" not in layers:
+            raise ValueError(f"{cfg.name}: family 'moe' but the tree lacks layers.moe")
+        mp = layers["moe"]
+        for k in MOE_LEAVES + SHARED_LEAVES:
+            if (k in MOE_LEAVES or cfg.num_shared_experts > 0) != (k in mp):
+                raise ValueError(f"{cfg.name}: num_shared_experts={cfg.num_shared_experts} but "
+                                 f"the tree {'has' if k in mp else 'lacks'} layers.moe.{k}")
+        if mp["router"].shape[-1] != cfg.num_experts or mp["wi"].shape[1] != cfg.num_experts:
+            raise ValueError(f"{cfg.name}: the tree's experts do not number "
+                             f"num_experts={cfg.num_experts}")
 
 
 def _field(t, name: str):

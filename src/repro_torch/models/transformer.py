@@ -1,6 +1,7 @@
-"""Dense decoder with packed weights and a packed KV cache (counterpart of
-the dense path of ``repro.models.transformer``: the "dense" and "audio"
-families, llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large).
+"""Decoder with packed weights and a packed KV cache (counterpart of the
+dense and MoE paths of ``repro.models.transformer``: the "dense" and
+"audio" families, llama3-8b, llama3.2-3b, gemma2-2b, granite-34b,
+musicgen-large, and the "moe" family, dbrx-132b and kimi-k2-1t-a32b).
 
 Parameters keep ``repro``'s stacked layout: ``layers.attn.wq`` is
 ``[L, d, H*hd]`` and so on, each packed leaf a :class:`QTensor` with one
@@ -14,7 +15,14 @@ scale and the cast to the activation dtype in one kernel; the packed norm
 gains are decoded by K1 once, at load); each layer's KV append is one K2
 launch (``ops.encode_into``: K and V as a pair, the activations widened in
 registers, written straight into their cache slots); and the decode step
-reads the cache through K6.  No call names a codec, so each kernel
+reads the cache through K6.  A "moe" layer replaces the MLP by
+``moe.moe_block`` (``layers.moe``: the f32 router ``[L, d, E]``, the
+experts ``wi`` / ``wg`` ``[L, E, d, f]`` and ``wo`` ``[L, E, f, d]``, and
+kimi's shared expert ``wi_s`` / ``wg_s`` / ``wo_s``): per layer and call
+one K3 over the router, three per expert (every expert) and three for the
+shared expert; the decode step passes ``[B, 1, d]``, as ``repro`` does,
+so each expert's capacity is one slot a row.  Each layer's balance loss
+adds into ``forward``'s ``aux``.  No call names a codec, so each kernel
 takes its format's default (``kernels/lut.py``, as in ``repro``): the table
 ("lut") codec for t8 weights and caches (and mxt8's elements), the e4m3 /
 e5m2 cache read and the t16 weight packing; the bits codec elsewhere.  An mx KV cache (``mxe4m3``, ``mxe5m2``,
@@ -60,6 +68,7 @@ from repro_torch.kernels.takum_codec import table_rows
 from repro_torch.quant import blockscale
 from repro_torch.quant.qtensor import QTensor
 from .attention import flash_attention
+from . import moe
 from .config import ModelConfig
 from .layers import linear, linear_t, rms_norm, rope, softcap, swiglu
 
@@ -73,43 +82,72 @@ def _act_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+def param_specs(cfg: ModelConfig) -> list:
+    """Every parameter leaf of ``cfg`` in ``repro``'s layout, as (path,
+    shape, std) in the order :func:`init_params` draws them; std 0 for the
+    norm gains, which start at zero.  A moe layer's ``layers.moe`` holds
+    the router ``[L, d, E]`` (drawn in f32 whatever the dtype, as in
+    ``repro``), the experts ``wi`` / ``wg`` ``[L, E, d, f]`` and ``wo``
+    ``[L, E, f, d]``, and with ``num_shared_experts`` the shared expert's
+    ``wi_s`` / ``wg_s`` ``[L, d, fs]`` and ``wo_s`` ``[L, fs, d]``, fs =
+    ``d_ff * num_shared_experts``; the other families' ``layers.mlp`` the
+    SwiGLU ``wi`` / ``wg`` / ``wo``."""
+    d, L, V, f = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    specs = [(("embed",), (V, d), d ** -0.5),
+             (("layers", "ln1"), (L, d), 0.0), (("layers", "ln2"), (L, d), 0.0),
+             (("layers", "attn", "wq"), (L, d, H * hd), d ** -0.5),
+             (("layers", "attn", "wk"), (L, d, Kv * hd), d ** -0.5),
+             (("layers", "attn", "wv"), (L, d, Kv * hd), d ** -0.5),
+             (("layers", "attn", "wo"), (L, H * hd, d), (H * hd) ** -0.5)]
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        specs += [(("layers", "moe", "router"), (L, d, E), d ** -0.5),
+                  (("layers", "moe", "wi"), (L, E, d, f), d ** -0.5),
+                  (("layers", "moe", "wg"), (L, E, d, f), d ** -0.5),
+                  (("layers", "moe", "wo"), (L, E, f, d), f ** -0.5)]
+        if cfg.num_shared_experts:
+            fs = f * cfg.num_shared_experts
+            specs += [(("layers", "moe", "wi_s"), (L, d, fs), d ** -0.5),
+                      (("layers", "moe", "wg_s"), (L, d, fs), d ** -0.5),
+                      (("layers", "moe", "wo_s"), (L, fs, d), fs ** -0.5)]
+    else:
+        specs += [(("layers", "mlp", "wi"), (L, d, f), d ** -0.5),
+                  (("layers", "mlp", "wg"), (L, d, f), d ** -0.5),
+                  (("layers", "mlp", "wo"), (L, f, d), f ** -0.5)]
+    if cfg.alt_local_global:  # gemma2 post-norms
+        specs += [(("layers", "ln1_post"), (L, d), 0.0), (("layers", "ln2_post"), (L, d), 0.0)]
+    specs.append((("final_norm",), (d,), 0.0))
+    if not cfg.tie_embeddings:
+        specs.append((("lm_head",), (d, V), d ** -0.5))
+    return specs
+
+
+def set_path(tree: dict, path: tuple, leaf) -> None:
+    """``tree[path[0]][path[1]]... = leaf``, making the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                 dtype=torch.float32) -> dict:
-    """Random parameters in ``repro``'s layout, drawn from a seeded
-    ``torch.Generator`` on ``device`` (the card unless ``device='cpu'``).
-    The draws differ from ``repro``'s jax PRNG; tests feed ``repro``'s
-    parameters through :func:`repro_torch.convert.params_from_numpy`."""
+    """Random parameters in ``repro``'s layout (:func:`param_specs`), drawn
+    in order from a seeded ``torch.Generator`` on ``device`` (the card
+    unless ``device='cpu'``).  The draws differ from ``repro``'s jax PRNG;
+    tests feed ``repro``'s parameters through
+    :func:`repro_torch.convert.params_from_numpy`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    d, L, V, dff = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
-    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen, device=dev, dtype=dtype) * scale
-
-    p = {"embed": normal((V, d), d ** -0.5)}
-    p["layers"] = {
-        "ln1": torch.zeros((L, d), dtype=dtype, device=dev),
-        "ln2": torch.zeros((L, d), dtype=dtype, device=dev),
-        "attn": {
-            "wq": normal((L, d, H * hd), d ** -0.5),
-            "wk": normal((L, d, Kv * hd), d ** -0.5),
-            "wv": normal((L, d, Kv * hd), d ** -0.5),
-            "wo": normal((L, H * hd, d), (H * hd) ** -0.5),
-        },
-        "mlp": {
-            "wi": normal((L, d, dff), d ** -0.5),
-            "wg": normal((L, d, dff), d ** -0.5),
-            "wo": normal((L, dff, d), dff ** -0.5),
-        },
-    }
-    if cfg.alt_local_global:  # gemma2 post-norms
-        p["layers"]["ln1_post"] = torch.zeros((L, d), dtype=dtype, device=dev)
-        p["layers"]["ln2_post"] = torch.zeros((L, d), dtype=dtype, device=dev)
-    p["final_norm"] = torch.zeros((d,), dtype=dtype, device=dev)
-    if not cfg.tie_embeddings:
-        p["lm_head"] = normal((d, V), d ** -0.5)
+    p: dict = {}
+    for path, shape, std in param_specs(cfg):
+        if not std:
+            leaf = torch.zeros(shape, dtype=dtype, device=dev)
+        else:
+            dt = torch.float32 if path[-1] == "router" else dtype
+            leaf = torch.randn(shape, generator=gen, device=dev, dtype=dt) * std
+        set_path(p, path, leaf)
     return p
 
 
@@ -192,11 +230,25 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return softcap(y.to(torch.float32), cfg.logit_softcap)
 
 
+def _mlp_or_moe(cfg: ModelConfig, lp, h2):
+    """The layer's MLP over [B, S, d]: SwiGLU, or for "moe" the routed
+    experts (``moe.moe_block``).  Returns (out, aux): the balance loss, None
+    for the dense block."""
+    if cfg.family == "moe":
+        mp = lp["moe"]
+        shared = (mp["wi_s"], mp["wg_s"], mp["wo_s"]) if cfg.num_shared_experts else None
+        return moe.moe_block(h2, mp["router"], mp["wi"], mp["wg"], mp["wo"], shared,
+                             top_k=cfg.experts_per_token,
+                             capacity_factor=cfg.moe_capacity_factor)
+    m = lp["mlp"]
+    return swiglu(h2, m["wi"], m["wg"], m["wo"]), None
+
+
 def _block(cfg: ModelConfig, lp, gains, window, x, positions):
     """One decoder layer over [B, S, d] with layer ``l``'s gains (``gains``:
     name -> [d], those of :data:`GAINS` the config has) and attention
-    ``window``.  Returns (x, k, v), k/v roped [B, S, Kv, hd] in the
-    activation dtype."""
+    ``window``.  Returns (x, k, v, aux), k/v roped [B, S, Kv, hd] in the
+    activation dtype, aux the layer's balance loss (f32; None when dense)."""
     B, S, _ = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     in_dtype = x.dtype
@@ -207,10 +259,10 @@ def _block(cfg: ModelConfig, lp, gains, window, x, positions):
     v = linear(h, a["wv"]).reshape(B, S, Kv, hd)
     out = flash_attention(q, k, v, window, True, cfg.attn_softcap)
     x = _residual(cfg, x, linear(out.reshape(B, S, H * hd), a["wo"]), gains, "ln1_post")
-    m = lp["mlp"]
     h2 = rms_norm(x, gains["ln2"], cfg.norm_eps)
-    x = _residual(cfg, x, swiglu(h2, m["wi"], m["wg"], m["wo"]), gains, "ln2_post")
-    return x.to(in_dtype), k, v
+    out, aux = _mlp_or_moe(cfg, lp, h2)
+    x = _residual(cfg, x, out, gains, "ln2_post")
+    return x.to(in_dtype), k, v, aux
 
 
 def _residual(cfg: ModelConfig, x, out, gains, post: str):
@@ -222,10 +274,11 @@ def _residual(cfg: ModelConfig, x, out, gains, post: str):
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool = False,
-            on_kv=None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] f32 (``last_only``: [B, 1, V], the
-    head applied to the last position only).  ``on_kv(l, k, v)`` receives
-    each layer's roped K and V [B, S, Kv, hd] (the prefill's cache fill).
+            on_kv=None):
+    """tokens [B, S] -> (logits [B, S, V] f32, aux) (``last_only``: logits
+    [B, 1, V], the head applied to the last position only); aux is the sum
+    of the layers' MoE balance losses (f32; None for the dense block).
+    ``on_kv(l, k, v)`` receives each layer's roped K and V [B, S, Kv, hd] (the prefill's cache fill).
     Where autograd records and a parameter needs a gradient, each layer runs
     under ``checkpoint`` when ``cfg.remat == "block"`` (``repro``'s
     ``jax.checkpoint`` of the layer); serving never does."""
@@ -237,15 +290,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
     gains = _gains(layers)
     windows = _layer_windows(cfg)
     remat = cfg.remat == "block" and torch.is_grad_enabled() and _needs_grad(params)
+    aux = None
     for l in range(cfg.num_layers):
         args = (cfg, _layer(layers, l), _layer(gains, l), windows[l], x, positions)
-        x, k, v = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
+        x, k, v, aux_l = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
         if on_kv is not None:
             on_kv(l, k, v)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
-    return _head(cfg, params, x)
+    return _head(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
@@ -253,14 +309,15 @@ def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
     ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.  ``batch["tokens"]``
     [B, S] int32 or int64.  The gold logit is ``torch.gather``, which is
     exactly ``repro``'s one-hot contraction for finite logits.  ``aux`` (the
-    MoE balance loss) is 0 for the dense family."""
+    MoE balance loss summed over the layers) is 0 for the dense family."""
     tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens)
+    logits, aux = forward(cfg, params, tokens)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     lg = logits[:, :-1]
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tokens[:, 1:, None].to(torch.int64))[..., 0]
     ce = (logz - gold).mean()
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -346,7 +403,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | 
     def on_kv(l, k, v):
         _append_kv(cfg, cache, l, k, v, 0)
 
-    logits = forward(cfg, params, tokens, last_only=True, on_kv=on_kv)
+    logits, _ = forward(cfg, params, tokens, last_only=True, on_kv=on_kv)
     cache.pos = S
     return logits[:, 0], cache
 
@@ -385,9 +442,12 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
         )
         x = _residual(cfg, x, linear(o.reshape(B, 1, H * hd).to(h.dtype), a["wo"])[:, 0], gl,
                       "ln1_post")
-        m = lp["mlp"]
         h2 = rms_norm(x, gl["ln2"], cfg.norm_eps)
-        x = _residual(cfg, x, swiglu(h2, m["wi"], m["wg"], m["wo"]), gl, "ln2_post").to(in_dtype)
+        if cfg.family == "moe":  # [B, 1, d], as repro passes it
+            out = _mlp_or_moe(cfg, lp, h2[:, None])[0][:, 0]
+        else:
+            out = _mlp_or_moe(cfg, lp, h2)[0]
+        x = _residual(cfg, x, out, gl, "ln2_post").to(in_dtype)
     cache.pos = pos + 1
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
     return _head(cfg, params, x), cache

@@ -1210,3 +1210,100 @@ def test_attention_past_48k_shared_memory(cuda, fmt, shape):
             assert _same_f32(got, bits)
             want = decode_attention_plain(q, k, v, fmt, length, window, cap, decode_impl=impl)
             assert (got.cpu() - want).abs().max() <= 1e-5 * vmax, (length, window, impl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("fmt", ("t8", "t16", "mxt8"))
+@pytest.mark.parametrize("N", (4, 8, 16, 384))
+def test_k3_at_the_routers_narrow_n(cuda, N, fmt, xdt):
+    """K3 over a router's width, N = 4, 8, 16 (4 to 32 bytes a weight row:
+    the wgmma tile stages rows under 16 bytes by cp.async) and 384, at the
+    matvec (M = 4) and both tiles (M = 24, 1024), within K3's limit of its
+    plain version (mxt8: N padded to a 32-block in the payload)."""
+    K = 768
+    w32 = _rand((K, N), 120 + N, K ** -0.5)
+    mx = fmt.startswith("mx")
+    w = takum_encode_2d(blockscale.pad_block(w32) if mx else w32, fmt)
+    wd = ref.codec_decode_ref(w, fmt)[:, :N]
+    for M in (4, 24, 1024):
+        x = _rand((M, K), 121 + M).to(xdt)
+        got = takum_matmul(x.to(cuda), w.to(cuda), fmt, n=N if mx else None).cpu()
+        want = takum_matmul_plain(x, w, fmt, n=N if mx else None)
+        assert got.shape == (M, N) and torch.isfinite(got).all()
+        lim = 4e-6 * (x.float().abs() @ wd.abs())
+        assert ((got - want).abs() <= lim).all(), (M, takum_matmul.last_loop)
+
+
+def _moe_cfg(policy, act):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.quant.policy import POLICIES
+
+    return configs.get_smoke("kimi_k2_1t_a32b").with_(
+        d_model=256, d_ff=384, num_heads=4, num_kv_heads=2, head_dim=64, num_experts=8,
+        quant=dataclasses.replace(POLICIES[policy], activations=act))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ("f32", "bf16"))
+@pytest.mark.parametrize("policy", ("takum", "takum8"))
+def test_moe_block_kernel_path_against_plain(cuda, policy, act):
+    """``moe.moe_block`` at d = 256, f = 384, 8 experts, top 2, a shared
+    expert, packed t16 / t8 weights: the kernel path (K3 for the router,
+    every expert and the shared expert) against ``ops.plain_path()`` on the
+    same inputs, the gate indices equal wherever the top-k margin is at
+    least 1e-5, the output within 1e-5 of max|y| (f32 results: the experts'
+    products stay f32 under bf16 x), aux within 1e-6; one router, 3 per
+    expert and 3 shared K3 launches."""
+    from repro_torch import serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = _moe_cfg(policy, act)
+    qp = serve.quantize_params(cfg, T.init_params(cfg, 5, device=cuda))
+    mp = {k: v[0] for k, v in qp["layers"]["moe"].items()}
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    x = _rand((3, 40, 256), 130).to(dt).to(cuda)
+    args = (mp["router"], mp["wi"], mp["wg"], mp["wo"], (mp["wi_s"], mp["wg_s"], mp["wo_s"]))
+    kw = dict(top_k=2, capacity_factor=1.25)
+    ops.reset_launch_counts()
+    kt, pt = {}, {}
+    got, aux = moe.moe_block(x, *args, trace=kt, **kw)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    impl = "bits" if policy == "takum" else "lut"
+    assert counts == {f"takum_matmul[{impl}]": 1 + 3 * 8 + 3}, counts
+    with ops.plain_path():
+        want, paux = moe.moe_block(x, *args, trace=pt, **kw)
+    top = pt["probs"].topk(3, dim=-1).values
+    ok = (top[..., 1] - top[..., 2]) >= 1e-5
+    assert ok.float().mean() > 0.99
+    assert torch.equal(kt["gate_idx"][ok], pt["gate_idx"][ok])
+    assert got.dtype == torch.float32 and want.dtype == torch.float32
+    assert (got - want)[ok].abs().max() <= 1e-5 * want[ok].abs().max()
+    assert abs(float(aux) - float(paux)) <= 1e-6
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+def test_moe_serve_step_launches_per_layer(cuda):
+    """A decode step of a 2-layer MoE config (8 experts, a shared expert)
+    under takum8 on the card: per layer 4 + 1 + 3 * 8 + 3 = 32 K3 launches
+    (every expert, the empty ones too), one K2 append and one K6, plus the
+    head's K3 and the embedding rows' K1; finite logits."""
+    from repro_torch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = _moe_cfg("takum8", "bf16")
+    qp = serve.load_params(serve.quantize_params(cfg, T.init_params(cfg, 6, device=cuda)))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), device=cuda)
+    logits, cache = serve.make_prefill_step(cfg, 20)(qp, {"tokens": tokens})
+    ops.reset_launch_counts()
+    logits, cache = serve.make_serve_step(cfg)(qp, {"token": logits.argmax(-1)}, cache)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    L = cfg.num_layers
+    assert counts == {"takum_matmul[lut]": L * 32 + 1, "takum_encode_into[lut]": L,
+                      "takum_decode_attention[lut]": L, "takum_decode_rows[lut]": 1}, counts
+    assert torch.isfinite(logits).all() and cache.pos == 17
+    ops.reset_launch_counts()

@@ -328,9 +328,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
-        configs.get("dbrx_132b")
+        configs.get("mamba2_780m")
     with pytest.raises(NotImplementedError):
-        configs.get_smoke("llama3_8b").with_(family="moe")
+        configs.get_smoke("llama3_8b").with_(family="ssm")
 
 
 def test_port_imports_neither_jax_nor_repro():
