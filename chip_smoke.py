@@ -164,6 +164,31 @@ Phases, each of which must pass:
       and its f64 control, routing flips between the paths logged with
       their margins (one above ``FLIP_MARGIN`` fails); (j3) kimi's smoke
       train step, kernels against the plain path bit for bit.
+  (k) the ssm and hybrid families (mamba2-780m: the Mamba-2 mixer alone,
+      2 K3 a layer and call, no K/V; hymba-1.5b: attention and the mixer
+      in parallel, then the MLP on f32 x: 9 K3, one K2 and one K6 a layer).
+      Phase (c) first holds K3 at M = 4 over the mixers' in_proj (bf16 x;
+      mamba2 [1536, 6448], hymba [1600, 3257], an odd N whose t16 rows
+      are no 16-byte multiple) and hymba's head [1600, 32001], K3 on f32 x
+      at M = 1024 over mamba2's out_proj [3072, 1536] (the wgmma tile),
+      the transposed K3 over mamba2's tied table [50280, 1536] at M = 4
+      and K6 at hymba's shape (H 25 over 5 kv heads, hd 64, length 2080, a
+      1024-key window), t16 bits and t8 lut, each against its plain version
+      and timed beside its bound and library call.  (k1) serving at
+      published widths and full depth, B = 4, 32 decode steps, under takum
+      and takum8: mamba2-780m (48 layers, prompt 4096: 16 SSD chunks of
+      256) and hymba-1.5b (32 layers, prompt 2048, past its window in the
+      prefill and every decode step), through ``phase_serving``: launches
+      counted and held (packing 10 / 19 K2, loading 7 / 8 K1: the gains and
+      the mixer's six small leaves), warm and first prefill, decode
+      ms/token, peak memory, the profiled decode step's launches, idle
+      share and device time by class (K3, K6, K1 / K2, plain PyTorch);
+      (k2) each at full width and 2 layers, kernel path against
+      ``ops.plain_path()`` under takum and takum8 at f32 and bf16
+      activations with phase (e)'s limits and its f64 control (mamba2 a
+      512-token prompt, two chunks; hymba 1056, past its window), the conv
+      tails and SSM states after the prefill and after the last step held
+      to the same limits.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -565,69 +590,133 @@ ARCH_ATTENTION = {"gemma2_2b": (4, 8, 4, 4194, 256, 4192, 4096, 50.0),
                   "granite_34b": (4, 48, 1, 290, 128, 288, 0, 0.0)}
 
 
-def phase_arch_kernels(torch, dev, rows):
-    """The other dense archs' new kernel shapes against their plain
-    versions, timed beside their bound and library call: the tied head, the
-    transposed K3 over the stored table at M = 4 (``ops.matmul_t``, x f32,
-    the matvec), t16 bits and t8 lut, within K3_LIMIT of |x| @ |e|.T; the
-    mx tied head's K1-mx decode of gemma2's table (mxt8 lut, bit for bit);
-    K6 at gemma2's shape (hd 256, softcap 50, a window of 4096 under the
-    length) and granite's (g = 48), t8 lut and bits, within 1e-5 max|v| and
-    lut == bits (both past 48 KiB of shared memory).  Library calls:
-    ``torch.matmul(x, decode(e).T)``; SDPA over the keys repeated to every
-    query head, with the window's mask (SDPA has no softcap)."""
+def tied_head_rows(torch, gen, flush, rows, arch, V, d, M=4):
+    """The transposed K3 over a tied table ``[V, d]`` at M = ``M`` (x f32,
+    the matvec), t16 bits and t8 lut, within K3_LIMIT of |x| @ |e|.T and
+    lut == bits, one timed row per format (the codec the model runs) beside
+    its bound and ``torch.matmul(x, decode(e).T)``.  Returns the table."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.kernels.lut import resolve_impl
+    from repro_torch.kernels.takum_codec import decode_2d_plain, takum_encode_2d
+    from repro_torch.kernels.takum_matmul import takum_matmul_t, takum_matmul_t_plain
+
+    dev = flush.device
+    table = torch.randn((V, d), generator=gen, device=dev) * d ** -0.5
+    x = torch.randn((M, d), generator=gen, device=dev)
+    for fmt in ("t16", "t8"):
+        wf = wire_format(fmt)
+        bits = takum_encode_2d(table, fmt)  # K2: bit for bit with its plain version above
+        wd = decode_2d_plain(bits, fmt)
+        scale = torch.matmul(x.abs(), wd.abs().T)
+        got_bits = takum_matmul_t(x, bits, fmt, "bits")
+        loop = takum_matmul_t.last_loop
+        for impl in impls_of(fmt, "decode"):
+            tag = f"head^T[{impl}] {fmt} {arch} [{V}, {d}]"
+            got = got_bits if impl == "bits" else takum_matmul_t(x, bits, fmt, impl)
+            want = takum_matmul_t_plain(x, bits, fmt, decode_impl=impl)
+            ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+            check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|e|.T > {K3_LIMIT}")
+            check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from bits")
+            if impl != resolve_impl(None, fmt):  # time the codec the model runs
+                continue
+            rate, rate_name = matmul_rate(torch, fmt, torch.float32)
+            b_ms, b_by = bound(M * d * 4 + V * d * wf.nbits // 8 + M * V * 4,
+                               2.0 * M * V * d, rate)
+            kern = lambda: takum_matmul_t(x, bits, fmt, impl)
+            lib = lambda: torch.matmul(x, wd.T)
+            rows.append(dict(
+                kernel="takum_matmul_t", fmt=fmt, impl=impl, shape=[M, d, V], x="float32",
+                arch=arch, loop=loop, max_abs_err=float((got - want).abs().max()),
+                err_over_absprod=ratio, ms=time_ms(torch, kern, flush=flush),
+                plain_ms=time_ms(torch, lambda: takum_matmul_t_plain(
+                    x, bits, fmt, decode_impl=impl), flush=flush),
+                bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
+                library_ms=time_ms(torch, lib, flush=flush),
+                device_ms=device_ms(torch, kern, flush=flush),
+                library_device_ms=device_ms(torch, lib, flush=flush)))
+            del want
+        del bits, wd, scale, got_bits, got
+        log(f"head^T {fmt} {arch} [{V}, {d}] at M = {M} ({loop}): within {K3_LIMIT} of "
+            f"|x|@|e|.T, lut == bits, timed")
+    return table
+
+
+def attention_row(torch, gen, flush, rows, arch, shape):
+    """K6 at ``shape`` = (B, H, Kv, S, hd, length, window, softcap), t8 lut
+    and bits, within 1e-5 max|v| and lut == bits; one timed row (the lut
+    codec the model runs) beside its bound and SDPA over the keys repeated
+    to every query head with the window's mask (SDPA has no softcap)."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
     from repro_torch.kernels.takum_attention import (_valid_keys, decode_attention_plain,
                                                      takum_decode_attention)
-    from repro_torch.kernels.takum_codec import (decode_2d_plain, encode_2d_plain,
-                                                 takum_decode_2d, takum_encode_2d)
-    from repro_torch.kernels.takum_matmul import takum_matmul_t, takum_matmul_t_plain
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
+
+    dev = flush.device
+    F = torch.nn.functional
+    B, H, Kv, S, hd, length, window, cap = shape
+    fmt = "t8"
+    wf = wire_format(fmt)
+    k8, v8 = (encode_2d_plain(torch.randn((B * S * Kv, hd), generator=gen, device=dev), fmt)
+              for _ in range(2))
+    kc = k8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+    vc = v8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+    q = torch.randn((B, H, hd), generator=gen, device=dev)
+    vmax = float(decode_2d_plain(v8, fmt).abs().max())
+    args = dict(length=length, window=window, softcap=cap)
+    got_bits = takum_decode_attention(q, kc, vc, fmt, decode_impl="bits", **args)
+    for impl in impls_of(fmt, "decode"):
+        tag = f"K6[{impl}] {fmt} {arch} {[B, H, Kv, S, hd]}"
+        got = takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
+        want = decode_attention_plain(q, kc, vc, fmt, length, window, cap, decode_impl=impl)
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * vmax, f"{tag}: err {err} > 1e-5 max|v|")
+        check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from K6[bits]")
+        if impl != resolve_impl(None, fmt):
+            continue
+        keys = length - (max(0, length - window) if window else 0)
+        nbytes = q.numel() * 4 * 2 + 2 * B * Kv * keys * hd * wf.nbits // 8
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * keys * hd)
+        g = H // Kv
+        kf = decode_2d_plain(k8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+        vf = decode_2d_plain(v8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
+        kf = kf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
+        vf = vf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
+        mask = _valid_keys(length, length, window, dev)[None, :]  # [1, keys] over q's one row
+        q4 = q[:, :, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(q4, kf, vf, attn_mask=mask)
+        kern = lambda: takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
+        rows.append(dict(
+            kernel="takum_decode_attention", fmt=fmt, impl=impl, shape=[B, H, Kv, S, hd],
+            arch=arch, length=length, window=window, softcap=cap, keys_read=keys,
+            max_abs_err=err, ms=time_ms(torch, kern, flush=flush),
+            plain_ms=time_ms(torch, lambda: decode_attention_plain(
+                q, kc, vc, fmt, length, window, cap, decode_impl=impl), flush=flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, sdpa, flush=flush),
+            device_ms=device_ms(torch, kern, flush=flush),
+            library_device_ms=device_ms(torch, sdpa, flush=flush)))
+        del kf, vf
+    log(f"K6 {fmt} {arch} (H {H}, Kv {Kv}, hd {hd}, length {length}, window {window}, "
+        f"softcap {cap}): within 1e-5 max|v|, lut == bits, timed")
+
+
+def phase_arch_kernels(torch, dev, rows):
+    """The other dense archs' new kernel shapes against their plain
+    versions, timed beside their bound and library call: the tied head, the
+    transposed K3 over the stored table at M = 4 (``ops.matmul_t``, x f32,
+    the matvec), t16 bits and t8 lut (``tied_head_rows``); the mx tied
+    head's K1-mx decode of gemma2's table (mxt8 lut, bit for bit); K6 at
+    gemma2's shape (hd 256, softcap 50, a window of 4096 under the length)
+    and granite's (g = 48), t8 lut and bits (``attention_row``; both past 48
+    KiB of shared memory)."""
+    from repro_torch.kernels.takum_codec import decode_2d_plain, takum_decode_2d, takum_encode_2d
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2207)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    F = torch.nn.functional
-    M = 4
     for arch, V, d in TIED_HEADS:
-        table = torch.randn((V, d), generator=gen, device=dev) * d ** -0.5
-        x = torch.randn((M, d), generator=gen, device=dev)
-        for fmt in ("t16", "t8"):
-            wf = wire_format(fmt)
-            bits = takum_encode_2d(table, fmt)  # K2: bit for bit with its plain version above
-            wd = decode_2d_plain(bits, fmt)
-            scale = torch.matmul(x.abs(), wd.abs().T)
-            got_bits = takum_matmul_t(x, bits, fmt, "bits")
-            loop = takum_matmul_t.last_loop
-            for impl in impls_of(fmt, "decode"):
-                tag = f"head^T[{impl}] {fmt} {arch} [{V}, {d}]"
-                got = got_bits if impl == "bits" else takum_matmul_t(x, bits, fmt, impl)
-                want = takum_matmul_t_plain(x, bits, fmt, decode_impl=impl)
-                ratio = float(((got - want).abs() / scale.clamp(min=1e-30)).max())
-                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
-                check(ratio <= K3_LIMIT, f"{tag}: err {ratio:.3g} of |x|@|e|.T > {K3_LIMIT}")
-                check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from bits")
-                if impl != resolve_impl(None, fmt):  # time the codec the model runs
-                    continue
-                rate, rate_name = matmul_rate(torch, fmt, torch.float32)
-                b_ms, b_by = bound(M * d * 4 + V * d * wf.nbits // 8 + M * V * 4,
-                                   2.0 * M * V * d, rate)
-                kern = lambda: takum_matmul_t(x, bits, fmt, impl)
-                lib = lambda: torch.matmul(x, wd.T)
-                rows.append(dict(
-                    kernel="takum_matmul_t", fmt=fmt, impl=impl, shape=[M, d, V], x="float32",
-                    arch=arch, loop=loop, max_abs_err=float((got - want).abs().max()),
-                    err_over_absprod=ratio, ms=time_ms(torch, kern, flush=flush),
-                    plain_ms=time_ms(torch, lambda: takum_matmul_t_plain(
-                        x, bits, fmt, decode_impl=impl), flush=flush),
-                    bound_ms=b_ms, bound_by=b_by, bound_rate=rate_name,
-                    library_ms=time_ms(torch, lib, flush=flush),
-                    device_ms=device_ms(torch, kern, flush=flush),
-                    library_device_ms=device_ms(torch, lib, flush=flush)))
-                del want
-            del bits, wd, scale, got_bits, got
-            log(f"head^T {fmt} {arch} [{V}, {d}] at M = {M} ({loop}): within {K3_LIMIT} of "
-                f"|x|@|e|.T, lut == bits, timed")
+        table = tied_head_rows(torch, gen, flush, rows, arch, V, d)
         if arch == "gemma2_2b":  # the mx tied head: K1-mx over the table, then a matmul
             payload = takum_encode_2d(table, "mxt8")
             got = takum_decode_2d(payload, "mxt8", "lut")
@@ -641,54 +730,10 @@ def phase_arch_kernels(torch, dev, rows):
                 lambda: decode_2d_plain(payload, "mxt8", "lut"), None, flush))
             log(f"K1-mx head mxt8 {arch} [{V}, {d}]: bit-exact, timed")
             del payload
-        del table, x
+        del table
         torch.cuda.empty_cache()
-
-    for arch, (B, H, Kv, S, hd, length, window, cap) in ARCH_ATTENTION.items():
-        fmt = "t8"
-        wf = wire_format(fmt)
-        k8, v8 = (encode_2d_plain(torch.randn((B * S * Kv, hd), generator=gen, device=dev), fmt)
-                  for _ in range(2))
-        kc = k8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
-        vc = v8.reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
-        q = torch.randn((B, H, hd), generator=gen, device=dev)
-        vmax = float(decode_2d_plain(v8, fmt).abs().max())
-        args = dict(length=length, window=window, softcap=cap)
-        got_bits = takum_decode_attention(q, kc, vc, fmt, decode_impl="bits", **args)
-        for impl in impls_of(fmt, "decode"):
-            tag = f"K6[{impl}] {fmt} {arch} {[B, H, Kv, S, hd]}"
-            got = takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
-            want = decode_attention_plain(q, kc, vc, fmt, length, window, cap, decode_impl=impl)
-            err = float((got - want).abs().max())
-            check(err <= 1e-5 * vmax, f"{tag}: err {err} > 1e-5 max|v|")
-            check(same_bits_f32(torch, got, got_bits), f"{tag}: differs from K6[bits]")
-            if impl != resolve_impl(None, fmt):
-                continue
-            keys = length - (max(0, length - window) if window else 0)
-            nbytes = q.numel() * 4 * 2 + 2 * B * Kv * keys * hd * wf.nbits // 8
-            b_ms, b_by = bound(nbytes, 4.0 * B * H * keys * hd)
-            g = H // Kv
-            kf = decode_2d_plain(k8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
-            vf = decode_2d_plain(v8, fmt).reshape(B, S, Kv, hd).permute(0, 2, 1, 3)
-            kf = kf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
-            vf = vf.repeat_interleave(g, dim=1)[:, :, :length].contiguous()
-            mask = _valid_keys(length, length, window, dev)[None, :]  # [1, keys] over q's one row
-            q4 = q[:, :, None, :]
-            sdpa = lambda: F.scaled_dot_product_attention(q4, kf, vf, attn_mask=mask)
-            kern = lambda: takum_decode_attention(q, kc, vc, fmt, decode_impl=impl, **args)
-            rows.append(dict(
-                kernel="takum_decode_attention", fmt=fmt, impl=impl, shape=[B, H, Kv, S, hd],
-                arch=arch, length=length, window=window, softcap=cap, keys_read=keys,
-                max_abs_err=err, ms=time_ms(torch, kern, flush=flush),
-                plain_ms=time_ms(torch, lambda: decode_attention_plain(
-                    q, kc, vc, fmt, length, window, cap, decode_impl=impl), flush=flush),
-                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, sdpa, flush=flush),
-                device_ms=device_ms(torch, kern, flush=flush),
-                library_device_ms=device_ms(torch, sdpa, flush=flush)))
-            del kf, vf
-        log(f"K6 {fmt} {arch} (H {H}, Kv {Kv}, hd {hd}, length {length}, window {window}, "
-            f"softcap {cap}): within 1e-5 max|v|, lut == bits, timed")
-        del k8, v8, kc, vc
+    for arch, shape in ARCH_ATTENTION.items():
+        attention_row(torch, gen, flush, rows, arch, shape)
     del flush
     torch.cuda.empty_cache()
 
@@ -1667,31 +1712,47 @@ def packed_params(torch, cfg, seed):
 
 
 def packed_counts(qp):
-    """(packed leaves, packed stacked norm gains) of a packed tree: what
-    packing it launches K2 for, and what loading it launches K1 for."""
+    """(packed leaves, packed leaves that loading decodes) of a packed tree:
+    what packing it launches K2 for, and what ``serve.load_params``
+    launches K1 for (the stacked norm gains and the mixer's six small
+    ``MambaParams`` leaves)."""
+    from repro_torch.models.mamba2 import SMALL_LEAVES
     from repro_torch.models.transformer import GAINS
     from repro_torch.quant.qtensor import QTensor
 
+    layers = qp["layers"]
     leaves = sum(isinstance(x, QTensor) for x in _leaves(qp))
-    return leaves, sum(isinstance(qp["layers"].get(k), QTensor) for k in GAINS)
+    decoded = [layers.get(k) for k in GAINS]
+    if "ssm" in layers:
+        decoded += [getattr(layers["ssm"], k) for k in SMALL_LEAVES]
+    return leaves, sum(isinstance(x, QTensor) for x in decoded)
 
 
 def expected_packed(cfg):
     """``packed_counts`` of a packed tree of ``cfg``: the embedding, the
-    stacked gains (ln1, ln2, and gemma2's ln1_post, ln2_post), the weights
-    of a layer (4 attention and 3 MLP; a moe layer's router and 3 stacked
-    expert leaves instead of the MLP, and 3 shared-expert leaves), and the
-    head unless tied (final_norm is 1-D)."""
-    gains = 4 if cfg.alt_local_global else 2
+    stacked gains (ln1, ln2, and gemma2's ln1_post, ln2_post; an ssm layer
+    has ln1 alone), the weights of a layer (4 attention and 3 MLP; a moe
+    layer's router and 3 stacked expert leaves instead of the MLP, and 3
+    shared-expert leaves; an ssm layer none of them; ssm and hybrid add the
+    mixer's 8 stacked leaves, 6 of which loading decodes), and the head
+    unless tied (final_norm is 1-D): mamba2 (10, 7), hymba (19, 8)."""
+    gains = 4 if cfg.alt_local_global else 1 if cfg.family == "ssm" else 2
     mlp = 4 + (3 if cfg.num_shared_experts else 0) if cfg.family == "moe" else 3
-    return 1 + gains + 4 + mlp + (0 if cfg.tie_embeddings else 1), gains
+    weights = 0 if cfg.family == "ssm" else 4 + mlp
+    mixer = 8 if cfg.family in ("ssm", "hybrid") else 0
+    decoded = gains + (6 if mixer else 0)
+    return 1 + gains + weights + mixer + (0 if cfg.tie_embeddings else 1), decoded
 
 
 def k3_per_layer(cfg):
     """K3 launches of one layer in one model call: the 4 attention linears
     and SwiGLU's 3, or for moe the router, 3 per expert (every expert runs)
     and 3 for the shared expert: dbrx 4 + 1 + 48 = 53, kimi 4 + 1 + 1152 +
-    3 = 1160."""
+    3 = 1160; the mixer's in_proj and out_proj: ssm 2, hybrid 7 + 2 = 9."""
+    if cfg.family == "ssm":
+        return 2
+    if cfg.family == "hybrid":
+        return 9
     if cfg.family != "moe":
         return 7
     return 4 + 1 + 3 * cfg.num_experts + (3 if cfg.num_shared_experts else 0)
@@ -1773,6 +1834,8 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     decode_s = t2 - t1
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kv_cache_bytes = cache.k.numel() * cache.k.element_size() * 2
+    state_bytes = sum(t.numel() * t.element_size() for t in (cache.conv, cache.ssm)
+                      if t is not None)
     trace = profile_decode(torch, step, qp, logits, cache)
     del cache
     prefill_trace = profile_prefill(torch, prefill, qp, prompt)
@@ -1790,7 +1853,7 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
         max_memory_allocated_gb=peak_gb,
         allocated_before_gb=held_before / 1e9,
         weight_bytes=sum(_nbytes(v) for v in _leaves(qp)),
-        kv_cache_bytes=kv_cache_bytes,
+        kv_cache_bytes=kv_cache_bytes, recurrent_state_bytes=state_bytes,
         launches=counts, pack_launches={k: v for k, v in pack_counts.items() if v},
         first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
         profile_prefill=prefill_trace, profile_two_decode_steps=trace,
@@ -1817,16 +1880,18 @@ def check_launches(counts, cfg, calls, steps, tag, gains=0):
     and the head: one K3 (untied), one transposed K3 over the stored table
     (``takum_matmul[impl^T]``, tied, flat format) or one K1-mx decode of
     the table (``takum_decode_2d``, tied, mx format); per decode step one K6
-    per layer, whatever the layer's window.  ``gains`` more K1
-    (``takum_decode_2d``) where the run also decoded the packed norm gains
-    at load.  Every other kernel, the other codec's and the old
+    per layer, whatever the layer's window; an ssm config none of K2 or
+    K6.  ``gains`` more K1 (``takum_decode_2d``) where the run also decoded
+    the packed leaves of loading (``packed_counts``) itself.  Every other kernel, the other codec's and the old
     composition's (``takum_encode_2d``) included, must show no launch."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
 
     L, kv, w = cfg.num_layers, cfg.quant.kv_cache, cfg.quant.weights
-    want = {f"takum_encode_into[{resolve_impl(None, kv, 'encode')}]": L * calls,
-            f"takum_decode_attention[{resolve_impl(None, kv)}]": L * steps}
+    want = {}
+    if cfg.family != "ssm":  # an ssm layer has no K/V: no append, no K6
+        want = {f"takum_encode_into[{resolve_impl(None, kv, 'encode')}]": L * calls,
+                f"takum_decode_attention[{resolve_impl(None, kv)}]": L * steps}
     if wire_format(w).family != "ieee":  # bf16/f32 weights: every linear is torch.matmul
         impl = resolve_impl(None, w)
         tied = cfg.tie_embeddings
@@ -1848,7 +1913,8 @@ def check_pack_launches(counts, cfg, tag, leaves, gains):
     (``serve.quantize_params`` then ``serve.load_params``): one K2
     (``takum_encode_2d``, the weight format's default encode) per packed
     leaf of the tree (``leaves``) and one K1 (``takum_decode_2d``) per packed
-    stacked norm gain (``gains``); none for bf16 / f32 weights."""
+    leaf that loading decodes (``gains``: the stacked norm gains and the
+    mixer's six small leaves); none for bf16 / f32 weights."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
 
@@ -1892,10 +1958,30 @@ def profile_decode(torch, step, qp, logits, cache):
     kernels = sum(ev.count for ev in prof.key_averages()
                   if "CUDA" in str(getattr(ev, "device_type", ""))
                   and not ev.key.startswith(("Memcpy", "Memset")))
+    split = dict.fromkeys(("k3", "k6", "k1_k2", "plain"), 0.0)
+    for k, v in by_name.items():
+        split[kernel_class(k)] += v / 2
     return dict(wall_ms=wall_ms, device_busy_ms=busy if busy else None,
                 idle_share=(1 - busy / wall_ms) if busy else None,
                 kernel_launches_per_step=kernels / 2,
+                device_ms_per_step_by_class=split,
                 top_kernels_ms=[[k[:80], v] for k, v in top])
+
+
+def kernel_class(name):
+    """Which of the port's kernels a profiled device kernel is: "k3" (K3's
+    loops and the matvec's combine), "k6" (K6's split and combine), "k1_k2"
+    (the codec kernels), else "plain" (PyTorch's own kernels: the SSM's,
+    the norms', the residual's, the prefill attention's)."""
+    if any(ns in name for ns in K3_NAMESPACES):
+        return "k3"
+    if "(anonymous namespace)::split_kernel" in name or \
+            "(anonymous namespace)::combine_kernel" in name:
+        return "k6"
+    if any(f"(anonymous namespace)::{k}_kernel" in name
+           for k in ("decode", "encode", "mx_decode", "mx_encode")):
+        return "k1_k2"
+    return "plain"
 
 
 #: the namespaces of K3's kernels (the tensor-core tile, the FMA tile, the
@@ -1928,8 +2014,13 @@ def profile_prefill(torch, prefill, qp, prompt):
 
 
 def _leaves(tree):
+    """The leaves of nested dicts and NamedTuples (``MambaParams``), a
+    QTensor one leaf."""
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -1953,7 +2044,8 @@ F32_LIMITS = {"mxt8": (2e-3, 1e-3), "takum8": (3e-3, 3e-3),
               ("llama3_2_3b", "takum"): (2e-3, 2e-3)}
 
 
-def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=2, steps=8):
+def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=2, steps=8,
+                 S0=64):
     """``arch`` at full width, ``layers`` layers: kernel path vs plain path,
     teacher-forced with the kernel path's greedy tokens over ``steps``
     decode steps.  Tolerance on max|diff| / max|logit|
@@ -2001,7 +2093,14 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
     bf16 rounding, and the 8-bit KV codes follow: phase (e)'s bf16 logits
     differ by 4e-3 to 1.25e-2), so every flip's margin must lie under twice
     its token's probs difference (the two swapped probs can each move by
-    that much), and more than half the calls must keep a row."""
+    that much), and more than half the calls must keep a row.
+
+    An ssm or hybrid arch's recurrent cache is held too: each path's conv
+    tails and SSM states (all layers) after the prefill and after the last
+    step, the kernel path within the logits' limit of the plain path
+    (max|diff| / max|value| of each tensor), the plain path's own distance
+    to its f64 twin recorded beside it (and setting the limit where it is
+    larger, ``F32_LIMITS``)."""
     import dataclasses
 
     from repro_torch import configs, serve
@@ -2012,7 +2111,7 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
     routes = {"kernel": contextlib.nullcontext, "plain": ops.plain_path,
               "plain_f64": lambda: ops.plain_path(torch.float64)}
 
-    B, S0, STEPS = 4, 64, steps
+    B, STEPS = 4, steps
     results = []
     for policy in policies:
         f32_tol, f64_tol = F32_LIMITS.get((arch, policy), F32_LIMITS.get(policy, (1e-3, 1e-3)))
@@ -2027,7 +2126,7 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
             gen = torch.Generator(device=dev)
             gen.manual_seed(11)
             prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
-            runs, caches, routing = {}, {}, {}
+            runs, caches, routing, states = {}, {}, {}, {}
             fed = None
             paths = ("kernel", "plain")
             if act == "f32" and quant.weights in ("t16", "t8", "mxt8"):
@@ -2039,6 +2138,8 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                                       else contextlib.nullcontext()):
                     lp = serve.load_params(qp)
                     logits, cache = serve.make_prefill_step(cfg, S0 + STEPS)(lp, {"tokens": prompt})
+                    if cache.ssm is not None:
+                        states[path] = [cache.conv.float().clone(), cache.ssm.clone()]
                     outs, toks = [logits], []
                     for i in range(STEPS):
                         tok = torch.argmax(logits, -1) if fed is None else fed[i]
@@ -2055,6 +2156,8 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                     torch.cuda.synchronize()
                     prefill_ms = (time.perf_counter() - t0) * 1e3
                 fed = toks
+                if cache.ssm is not None:
+                    states[path] += [cache.conv.float().clone(), cache.ssm.clone()]
                 runs[path] = torch.stack(outs)
                 caches[path] = torch.stack([cache.k, cache.v]).view(torch.uint8)
             k, p = runs["kernel"], runs["plain"]
@@ -2079,7 +2182,9 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                 return [float(d[i][keep[i]].max() / m[i][keep[i]].max())
                         for i in range(d.shape[0]) if keep[i].any()]
 
-            def kv_diff(a, b):
+            def kv_diff(a, b):  # None where there is no KV cache (ssm)
+                if not caches[a].numel():
+                    return None
                 return float((caches[a] != caches[b]).float().mean())
 
             errs = rel(k, p)
@@ -2092,7 +2197,7 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                        kv_bytes_differing_kernel_vs_plain=kv_diff("kernel", "plain"))
             log(f"parity {tag}: max rel err {max(errs):.3e} (tol {tol}), per step "
                 f"{[float(f'{e:.2e}') for e in errs]}, greedy agreement {agree:.3f}, KV bytes "
-                f"differing {res['kv_bytes_differing_kernel_vs_plain']:.2e}, kernel-path "
+                f"differing {res['kv_bytes_differing_kernel_vs_plain']}, kernel-path "
                 f"launches {counts}")
             if moe:
                 res.update(routing_flips=flips, primary_flips=primary, routed_tokens=sum(
@@ -2103,13 +2208,24 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                     f"routed tokens (call, layer, row, token, margin, probs diff): {flips}; "
                     f"the first of each row {primary}; rows left out from call "
                     f"{res['rows_left_out_from_call']}; smallest margin {res['min_margin']:.3g}")
+            def state_rel(a, b):  # conv, ssm after the prefill, then after the last step
+                return [float((x - y).abs().max() / y.abs().max())
+                        for x, y in zip(states[a], states[b])]
+
+            if states:
+                res.update(state_kernel_vs_plain=state_rel("kernel", "plain"))
+                if "plain_f64" in states:
+                    res.update(state_f64_vs_plain=state_rel("plain_f64", "plain"))
+                log(f"parity {tag}: conv tail, SSM state (after the prefill, after the last "
+                    f"step) kernel vs plain {res['state_kernel_vs_plain']}, plain f64 vs plain "
+                    f"{res.get('state_f64_vs_plain')}")
             if "plain_f64" in runs:
                 res.update(control_f64_vs_plain=rel(runs["plain_f64"], p),
                            kernel_vs_f64=rel(k, runs["plain_f64"]),
                            kv_bytes_differing_f64_vs_plain=kv_diff("plain_f64", "plain"))
                 ctrl, kf = max(res["control_f64_vs_plain"]), max(res["kernel_vs_f64"])
                 log(f"parity {tag}: control plain f64 vs plain {ctrl:.3e} (KV bytes "
-                    f"differing {res['kv_bytes_differing_f64_vs_plain']:.2e}), kernel vs plain "
+                    f"differing {res['kv_bytes_differing_f64_vs_plain']}), kernel vs plain "
                     f"f64 {kf:.3e} (limit {f64_tol})")
             results.append(res)
             if moe and act == "f32":
@@ -2120,12 +2236,15 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                       f"{tag}: a routing flip at a margin above twice the probs difference")
                 check(len(errs) > STEPS // 2, f"{tag}: too few rows kept ({errs})")
             check(max(errs) <= tol, f"{tag}: kernel vs plain {max(errs)} > {tol}")
+            if states:
+                check(max(res["state_kernel_vs_plain"]) <= tol,
+                      f"{tag}: recurrent state kernel vs plain {res['state_kernel_vs_plain']} > {tol}")
             if "plain_f64" in runs:
                 check(kf <= f64_tol, f"{tag}: kernel vs f64-accumulated plain {kf} > {f64_tol}")
             if act == "f32":
                 check(agree == 1.0, f"{tag}: greedy tokens differ ({agree:.3f})")
             check_launches(counts, cfg, 1 + STEPS, STEPS, tag, gains=gains)
-            del qp, lp, runs, caches, k, p, routing
+            del qp, lp, runs, caches, k, p, routing, states
             torch.cuda.empty_cache()
     return results
 
@@ -2907,6 +3026,106 @@ def phase_moe(torch, dev, card):
     return dict(chunked_build_cases=chunked, serving=serving, parity=parity, train=train)
 
 
+# ---------------------------------------------------------------------------
+# phase (k): the ssm and hybrid families (mamba2-780m, hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+#: phase (c)'s K3 rows for the SSM archs: (arch, weight, M, K, N, x dtype):
+#: the mixers' in_proj at M = 4 (bf16 x, the decode step; hymba's N = 3257
+#: odd: a t16 row pitch that is no 16-byte multiple), hymba's untied head,
+#: and mamba2's out_proj on the f32 y at M = 1024 (the prefill's wgmma tile)
+SSM_K3 = (("mamba2_780m", "in_proj", 4, 1536, 6448, "bfloat16"),
+          ("hymba_1_5b", "in_proj", 4, 1600, 3257, "bfloat16"),
+          ("hymba_1_5b", "lm_head", 4, 1600, 32001, "bfloat16"),
+          ("mamba2_780m", "out_proj", 1024, 3072, 1536, "float32"))
+#: mamba2's tied head: (arch, V, d)
+SSM_TIED_HEAD = ("mamba2_780m", 50280, 1536)
+#: K6 at hymba's last decode step of (k1): (B, H, Kv, S, hd, length,
+#: window, softcap), g = 5, a window of 1024 under the length
+HYMBA_ATTENTION = (4, 25, 5, 2080, 64, 2080, 1024, 0.0)
+#: phase (k1) serving runs: (arch, policies, layers (None: published depth),
+#: prompt): mamba2's 4096 tokens are 16 SSD chunks of 256, hymba's 2048 run
+#: past its 1024-key window
+SSM_RUNS = (("mamba2_780m", ("takum", "takum8"), None, 4096),
+            ("hymba_1_5b", ("takum", "takum8"), None, 2048))
+#: phase (k2): (arch, policies, prompt) of the 2-layer kernel-vs-plain parity:
+#: mamba2 two chunks of 256, hymba past its window (1056: six chunks of 176)
+SSM_PARITY = (("mamba2_780m", ("takum", "takum8"), 512), ("hymba_1_5b", ("takum", "takum8"), 1056))
+
+
+def phase_ssm_kernels(torch, dev, rows):
+    """Phase (c) for the SSM archs: K3 at ``SSM_K3``'s shapes, t16 bits and
+    t8 lut, within K3_LIMIT of |x| @ |w| (``k3_row``, timed beside its bound
+    and ``torch.matmul(x, decode(w))``); the transposed K3 over mamba2's
+    tied table at M = 4 (``tied_head_rows``); K6 at hymba's shape, t8 lut
+    and bits (``attention_row``)."""
+    from repro_torch.kernels.takum_codec import decode_2d_plain, encode_2d_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2401)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for arch, leaf, M, K, N, xdt in SSM_K3:
+        wf32 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        xm = torch.randn((M, K), generator=gen, device=dev).to(getattr(torch, xdt))
+        for fmt, impl in (("t16", "bits"), ("t8", "lut")):
+            w = encode_2d_plain(wf32, fmt)
+            wd = decode_2d_plain(w, fmt)
+            rows.append(k3_row(torch, flush, fmt, impl, xm, w, wd,
+                               f"K3[{impl}] {fmt} {arch} {leaf} {M}x{K}x{N} x {xdt}",
+                               use=leaf, arch=arch))
+            del w, wd
+        del wf32
+        log(f"(c) K3 over {arch}'s {leaf} [{K}, {N}] at M = {M}, x {xdt}: within {K3_LIMIT}, "
+            f"timed")
+    tied_head_rows(torch, gen, flush, rows, *SSM_TIED_HEAD)  # the table it returns is dropped
+    torch.cuda.empty_cache()
+    attention_row(torch, gen, flush, rows, "hymba_1_5b", HYMBA_ATTENTION)
+    del flush
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(torch, dev, card):
+    """(k1) ``phase_serving`` of each run of ``SSM_RUNS`` at published widths
+    and depth (launches held by ``check_launches``: 2 K3 a layer for ssm
+    and no K2 or K6; 9 K3, 1 K2 and 1 K6 a layer for hybrid), the decode
+    step's device time split by ``kernel_class``; (k2) ``phase_parity`` of
+    each entry of ``SSM_PARITY`` at 2 layers, f32 and bf16 activations, the
+    conv tails and SSM states held beside the logits."""
+    from repro_torch import configs
+
+    serving = {}
+    for arch, policies, layers, S0 in SSM_RUNS:
+        cfg = configs.get(arch)
+        if cfg.sliding_window:
+            check(S0 > cfg.sliding_window, f"{arch}: the prompt must outrun the window")
+        for policy in policies:
+            t0 = time.perf_counter()
+            r = serving[f"{arch}/{policy}"] = phase_serving(torch, dev, policy, arch, layers, S0)
+            prof = r["profile_two_decode_steps"]
+            log(f"(k1) serving {arch} {policy}, {r['layers']} of {r['published_layers']} layers, "
+                f"B={r['batch']} prompt {S0}: warm prefill {r['prefill_ms']:.1f} ms (first "
+                f"{r['first_prefill_ms']:.1f}), decode {r['decode_ms_per_token']:.2f} ms/token, "
+                f"peak {r['max_memory_allocated_gb']:.2f} GB, packed "
+                f"{r['weight_bytes'] / 1e9:.2f} GB, recurrent state "
+                f"{r['recurrent_state_bytes'] / 1e6:.1f} MB, KV {r['kv_cache_bytes'] / 1e6:.1f} "
+                f"MB, launches per decode step (torch.profiler) "
+                f"{prof['kernel_launches_per_step']}, device busy {prof['device_busy_ms']} ms "
+                f"over two steps, idle share {prof['idle_share']}, of the counted step "
+                f"{prof.get('idle_share_of_counted_step')}; decode device ms a step by class "
+                f"{prof['device_ms_per_step_by_class']}; prefill busy "
+                f"{r['profile_prefill']['device_busy_ms']} ms, K3 share "
+                f"{r['profile_prefill']['k3_share']}; counted launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }, packing "
+                f"{r['pack_launches']}; card: {card} ({time.perf_counter() - t0:.1f} s)")
+    parity = []
+    for arch, policies, S0 in SSM_PARITY:
+        t0 = time.perf_counter()
+        parity += phase_parity(torch, dev, arch, policies, S0=S0)
+        log(f"(k2) parity {arch} {policies} at 2 layers, prompt {S0}, done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return dict(serving=serving, parity=parity)
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -3026,6 +3245,22 @@ SUMMARY = [
     ("takum_matmul", "t8", "lut", [4, 7168, 384], "kimi_k2_1t_a32b/takum8", "float32"),
     ("takum_matmul", "t8", "lut", [1024, 7168, 384], "kimi_k2_1t_a32b/takum8", "float32"),
     ("takum_decode_attention", "t8", "lut", [4, 48, 8, 290, 128], "dbrx_132b/takum8"),
+    # phase (k): the SSM archs' new shapes, each with the launches of the
+    # (k1) serving run that gives it that shape: the mixers' in_proj at
+    # M = 4 (hymba's odd N), hymba's head, mamba2's out_proj on the f32 y
+    # (its prefill's M = 16384 takes the same wgmma tile as the row's
+    # M = 1024), mamba2's tied head, K6 at hymba's window
+    ("takum_matmul", "t16", "bits", [4, 1536, 6448], "mamba2_780m/takum"),
+    ("takum_matmul", "t8", "lut", [4, 1536, 6448], "mamba2_780m/takum8"),
+    ("takum_matmul", "t16", "bits", [4, 1600, 3257], "hymba_1_5b/takum"),
+    ("takum_matmul", "t8", "lut", [4, 1600, 3257], "hymba_1_5b/takum8"),
+    ("takum_matmul", "t16", "bits", [4, 1600, 32001], "hymba_1_5b/takum"),
+    ("takum_matmul", "t8", "lut", [4, 1600, 32001], "hymba_1_5b/takum8"),
+    ("takum_matmul", "t16", "bits", [1024, 3072, 1536], "mamba2_780m/takum", "float32"),
+    ("takum_matmul", "t8", "lut", [1024, 3072, 1536], "mamba2_780m/takum8", "float32"),
+    ("takum_matmul_t", "t16", "bits", [4, 1536, 50280], "mamba2_780m/takum", "float32"),
+    ("takum_matmul_t", "t8", "lut", [4, 1536, 50280], "mamba2_780m/takum8", "float32"),
+    ("takum_decode_attention", "t8", "lut", [4, 25, 5, 2080, 64], "hymba_1_5b/takum"),
 ]
 
 
@@ -3117,6 +3352,10 @@ def main() -> int:
     moe_kernels = phase_moe_kernels(torch, dev, rows)
     log(f"(c) the MoE archs' router, expert and K6 shapes match their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_ssm_kernels(torch, dev, rows)
+    log(f"(c) the SSM archs' mixer, head and K6 shapes match their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
     k3_step = k3_decode_step(rows)
     log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
@@ -3173,6 +3412,10 @@ def main() -> int:
     moe = phase_moe(torch, dev, card)
     log(f"(j) the MoE family done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    ssm = phase_ssm(torch, dev, card)
+    log(f"(k) the ssm and hybrid families done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -3192,6 +3435,7 @@ def main() -> int:
     launches.update({path: r["launches"] for path, r in moe["serving"].items()})
     launches.update({f"{r['arch']}/{r['policy']}/f32": r["launches"] for r in moe["parity"]
                      if r["activations"] == "f32"})
+    launches.update({path: r["launches"] for path, r in ssm["serving"].items()})
     summary = []
     for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
@@ -3255,7 +3499,7 @@ def main() -> int:
                      launches={k: v for k, v in ad_counts.items() if v}),
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
-             other_archs=other, moe_kernels=moe_kernels, moe=moe,
+             other_archs=other, moe_kernels=moe_kernels, moe=moe, ssm=ssm,
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -2,7 +2,10 @@
 
 ``params_from_numpy(tree, cfg)`` takes ``repro``'s parameter tree with every
 leaf as numpy: a plain array, or a packed leaf given as
-``{"bits", "fmt", "scale"}`` (a ``QTensor``'s fields).  Bits and scale are
+``{"bits", "fmt", "scale"}`` (a ``QTensor``'s fields).  ``repro``'s
+``MambaParams`` (``layers.ssm`` of the ssm and hybrid archs) may come as
+that NamedTuple or as a dict of its eight fields; either becomes the port's
+:class:`~repro_torch.models.mamba2.MambaParams`.  Bits and scale are
 kept unchanged: a flat format's scale is its f32 power of two; an mx
 format's bits are the element bytes [..., n] and its scale the uint8 E8M0
 bytes [..., ceil(n/32)], which are interleaved into the port's payload.
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.core.formats import wire_format
 from repro_torch.device import resolve_device
+from repro_torch.models.mamba2 import MambaParams
 from repro_torch.quant import blockscale
 from repro_torch.quant.qtensor import QTensor
 
@@ -50,6 +54,10 @@ def _leaf(x, device):
             return QTensor.from_payload(payload, wf.name, n)
         scale = None if x["scale"] is None else _tensor(x["scale"], device).to(torch.float32)
         return QTensor(bits, wf.name, scale)
+    if getattr(x, "_fields", None) == MambaParams._fields:
+        return MambaParams(*(_leaf(v, device) for v in x))
+    if isinstance(x, dict) and set(x) == set(MambaParams._fields):
+        return MambaParams(**{k: _leaf(x[k], device) for k in MambaParams._fields})
     if isinstance(x, dict):
         return {k: _leaf(v, device) for k, v in x.items()}
     return _tensor(x, device)
@@ -71,31 +79,50 @@ MOE_LEAVES = ("router", "wi", "wg", "wo")
 SHARED_LEAVES = ("wi_s", "wg_s", "wo_s")
 
 
+#: per family, the layer blocks a tree must hold (of ``attn``, ``mlp``,
+#: ``moe``, ``ssm``); the others it must not
+FAMILY_BLOCKS = {"dense": ("attn", "mlp"), "audio": ("attn", "mlp"), "moe": ("attn", "moe"),
+                 "ssm": ("ssm",), "hybrid": ("attn", "mlp", "ssm")}
+
+
 def _check_tree(params: dict, cfg) -> None:
-    """Refuse a tree whose head, norms or MLP do not match ``cfg``: an
-    ``lm_head`` under a tied config or none under an untied one; gemma2's
-    post-norm gains missing under ``alt_local_global`` or present without
-    it; ``layers.mlp`` where the family is "moe" or ``layers.moe`` where it
-    is not; a moe tree lacking ``layers.moe`` or a leaf of
-    :data:`MOE_LEAVES`, whose experts
-    are not ``num_experts``, or whose shared-expert leaves
+    """Refuse a tree whose head, norms or layer blocks do not match
+    ``cfg``: an ``lm_head`` under a tied config or none under an untied
+    one; and where the tree has ``layers``: gemma2's post-norm gains missing under ``alt_local_global`` or
+    present without it; a layer block of ``attn``, ``mlp``, ``moe`` and
+    ``ssm`` missing where the family has it or present where it has not
+    (:data:`FAMILY_BLOCKS`), and ``ln2`` likewise (every family but "ssm"); an ``ssm`` that is
+    not a :class:`MambaParams` or whose ``in_proj`` is not ``[L, d, 2 d_in +
+    2 N + nh]``; a moe tree lacking a leaf of :data:`MOE_LEAVES`, whose
+    experts are not ``num_experts``, or whose shared-expert leaves
     (:data:`SHARED_LEAVES`) are missing under ``num_shared_experts`` or
     present without it."""
     if cfg.tie_embeddings == ("lm_head" in params):
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the tree "
                          f"{'has' if 'lm_head' in params else 'lacks'} an lm_head")
-    layers = params.get("layers", {})
+    if "layers" not in params:  # a partial tree (the embedding alone): nothing more to hold
+        return
+    layers = params["layers"]
+    want = FAMILY_BLOCKS[cfg.family]
+    for k in ("attn", "mlp", "moe", "ssm", "ln2"):
+        wanted = k in want or (k == "ln2" and cfg.family != "ssm")
+        if wanted != (k in layers):
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} but the tree "
+                             f"{'has' if k in layers else 'lacks'} layers.{k}")
+    if "ssm" in layers:
+        pr = layers["ssm"]
+        d_in = cfg.ssm_expand * cfg.d_model if cfg.family == "ssm" else cfg.d_model
+        N = cfg.ssm_state
+        width = 2 * d_in + 2 * N + d_in // cfg.ssm_head_dim
+        if not isinstance(pr, MambaParams) or tuple(pr.in_proj.shape) != (
+                cfg.num_layers, cfg.d_model, width):
+            raise ValueError(f"{cfg.name}: layers.ssm is not a MambaParams with in_proj "
+                             f"[{cfg.num_layers}, {cfg.d_model}, {width}]")
     for k in ("ln1_post", "ln2_post"):
         if cfg.alt_local_global != (k in layers):
             raise ValueError(f"{cfg.name}: alt_local_global={cfg.alt_local_global} but the "
                              f"tree {'has' if k in layers else 'lacks'} layers.{k}")
-    moe = cfg.family == "moe"
-    if "moe" in layers and not moe or moe and "mlp" in layers:
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} but the tree has "
-                         f"layers.{'mlp' if moe else 'moe'}")
-    if moe:
-        if "moe" not in layers:
-            raise ValueError(f"{cfg.name}: family 'moe' but the tree lacks layers.moe")
+    if cfg.family == "moe":
         mp = layers["moe"]
         for k in MOE_LEAVES + SHARED_LEAVES:
             if (k in MOE_LEAVES or cfg.num_shared_experts > 0) != (k in mp):

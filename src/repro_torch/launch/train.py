@@ -11,8 +11,8 @@ the first logged step to the last.  It runs on the card unless
 format (``f32`` under bf16, so a restarted run equals an unbroken one bit
 for bit; ``t16`` under takum).  ``--arch`` takes every ported architecture
 of the registry (``configs.ARCHS``: llama3_8b, llama3_2_3b, gemma2_2b,
-granite_34b, musicgen_large, dbrx_132b, kimi_k2_1t_a32b, or their aliases
-such as ``gemma2-2b``) and
+granite_34b, musicgen_large, dbrx_132b, kimi_k2_1t_a32b, mamba2_780m,
+hymba_1_5b, or their aliases such as ``gemma2-2b``) and
 ``lm_100m``, the launcher's own tied-embedding config (``repro``'s).  A
 ``--mesh`` other than ``1x1`` is not ported yet and raises.
 """

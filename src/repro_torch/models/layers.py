@@ -1,6 +1,8 @@
 """Common model layers (counterpart of ``repro.models.layers``): RMSNorm,
-RoPE, SwiGLU, ``linear`` over packed or plain weights, and ``linear_t``
-(the tied head's ``x @ embed.T`` of ``repro.models.transformer``)."""
+RoPE, SwiGLU, ``linear`` over packed or plain weights, ``linear_t`` (the
+tied head's ``x @ embed.T`` of ``repro.models.transformer``) and
+``promoted_linear`` (the ``x @ w`` that ``repro``'s MoE and Mamba-2 blocks
+write with jnp's type promotion)."""
 
 from __future__ import annotations
 
@@ -26,6 +28,22 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QTensor):
         w = w.bits
     return torch.matmul(x, w.to(x.dtype))
+
+
+def promoted_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` under jnp's type promotion: a packed
+    ``QTensor`` through K3 on x as given (f32 or bf16), its f32 output times
+    the pow2 scale and kept in f32 (``repro`` dequantizes the weight to f32
+    before its ``@`` or einsum); a plain weight (a tensor, or a bf16 / f32
+    QTensor) through one ``torch.matmul`` in the promoted dtype of x and
+    w."""
+    if isinstance(w, QTensor) and w.fmt not in ("bf16", "f32"):
+        y = w.apply_scale(ops.matmul(x.reshape(-1, x.shape[-1]), w.bits, w.fmt, n=w.n))
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    if isinstance(w, QTensor):
+        w = w.bits
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
 
 
 def linear_t(x: torch.Tensor, w) -> torch.Tensor:

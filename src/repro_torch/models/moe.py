@@ -34,8 +34,9 @@ port computes the same function with gathers:
 - **Balance loss** ``E * sum(mean(probs) * routed_fraction)``, the routed
   fraction counting every top-k choice, kept or dropped.
 
-The products follow jnp's type promotion, as ``repro``'s einsums over its
-serve step's dequantised f32 weights do, not ``layers.linear``: a packed
+The products follow jnp's type promotion (``layers.promoted_linear``), as
+``repro``'s einsums over its serve step's dequantised f32 weights do, not
+``layers.linear``: a packed
 weight's K3 output stays in f32 (x's dtype as given: bf16 x is exact in
 K3's f32 products), so under bf16 activations ``h``, ``ye`` and the sum are
 f32 and the ``wo`` launch takes f32 x; a plain weight multiplies in the
@@ -52,23 +53,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
-from repro_torch.quant.qtensor import QTensor
-
-
-def expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x [..., K] @ w [K, N]`` under jnp's type promotion: a packed
-    ``QTensor`` through K3 on x as given (f32 or bf16), its f32 output times
-    the pow2 scale and kept in f32 (``repro`` dequantizes the weight to f32
-    before its einsum); a plain weight (a tensor, or a bf16 / f32 QTensor)
-    through one ``torch.matmul`` in the promoted dtype of x and w."""
-    if isinstance(w, QTensor) and w.fmt not in ("bf16", "f32"):
-        y = w.apply_scale(ops.matmul(x.reshape(-1, x.shape[-1]), w.bits, w.fmt, n=w.n))
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    if isinstance(w, QTensor):
-        w = w.bits
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dt), w.to(dt))
+from .layers import promoted_linear
 
 
 def _silu(g: torch.Tensor) -> torch.Tensor:
@@ -174,7 +159,7 @@ def moe_block(x: torch.Tensor, router_w, wi, wg, wo, shared, *, top_k: int,
     B, S, d = x.shape
     E = router_w.shape[-1]
     k = top_k
-    logits = expert_matmul(x.to(torch.float32), router_w).to(torch.float32)  # [B, S, E]
+    logits = promoted_linear(x.to(torch.float32), router_w).to(torch.float32)  # [B, S, E]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = lax_top_k(probs, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -183,13 +168,13 @@ def moe_block(x: torch.Tensor, router_w, wi, wg, wo, shared, *, top_k: int,
     xe = route.dispatch(x)
     ye = []
     for e in range(E):
-        h = _silu(expert_matmul(xe[e], wg[e])) * expert_matmul(xe[e], wi[e])
-        ye.append(expert_matmul(h, wo[e]))
+        h = _silu(promoted_linear(xe[e], wg[e])) * promoted_linear(xe[e], wi[e])
+        ye.append(promoted_linear(h, wo[e]))
     y = route.combine(torch.stack(ye), gate_vals.to(x.dtype))
 
     if shared is not None:
         wi_s, wg_s, wo_s = shared
-        y = y + expert_matmul(_silu(expert_matmul(x, wg_s)) * expert_matmul(x, wi_s), wo_s)
+        y = y + promoted_linear(_silu(promoted_linear(x, wg_s)) * promoted_linear(x, wi_s), wo_s)
 
     aux = load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k), E, k)
     if trace is not None:

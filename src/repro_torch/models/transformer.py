@@ -1,7 +1,8 @@
-"""Decoder with packed weights and a packed KV cache (counterpart of the
-dense and MoE paths of ``repro.models.transformer``: the "dense" and
-"audio" families, llama3-8b, llama3.2-3b, gemma2-2b, granite-34b,
-musicgen-large, and the "moe" family, dbrx-132b and kimi-k2-1t-a32b).
+"""Decoder with packed weights and a packed KV cache (counterpart of
+``repro.models.transformer`` but its vlm branch: the "dense" and "audio"
+families, llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large,
+the "moe" family, dbrx-132b and kimi-k2-1t-a32b, the "ssm" family,
+mamba2-780m, and the "hybrid" family, hymba-1.5b).
 
 Parameters keep ``repro``'s stacked layout: ``layers.attn.wq`` is
 ``[L, d, H*hd]`` and so on, each packed leaf a :class:`QTensor` with one
@@ -33,6 +34,20 @@ is padded before the append, an extra launch that no served config needs:
 llama3-8b's is 128).  The KV cache is updated IN PLACE
 (``repro`` is functional and returns a new cache): ``prefill`` fills a fresh
 cache and ``decode_step`` writes its slot into the cache it is given.
+
+The ssm and hybrid layers run ``models/mamba2.py``'s mixer over the layer's
+``layers.ssm`` (a :class:`~.mamba2.MambaParams` of stacked leaves): an
+"ssm" layer is ``x + mixer(norm(x))`` (no attention, no MLP, no K/V), added
+in f32 (the mixer's output is f32, jnp's promotion over the dequantized
+weights) and cast back to the input dtype; a "hybrid" layer adds ``0.5 *
+(attention + mixer)`` over one shared norm, which makes x f32 under bf16
+activations, so its MLP runs on f32 x (K3's f32-x paths) and the cast
+back comes at the end of the layer, as in ``repro``.  Per layer and call
+the mixer launches two K3 (``in_proj``, ``out_proj``); the SSD, the conv,
+the recurrence and the norms are plain PyTorch (``repro``'s are jnp).  The
+cache carries each layer's conv tail ``conv`` [L, B, w-1, F] (the dtype of
+the prefill's projection) and SSM state ``ssm`` [L, B, nh, N, hd] (f32),
+written in place like K/V; an "ssm" config allocates no K/V.
 
 What the archs add to llama3-8b's block, as in ``repro``: a tied head
 (``tie_embeddings``: no ``lm_head``, the logits are ``x @ embed.T`` through
@@ -71,10 +86,25 @@ from .attention import flash_attention
 from . import moe
 from .config import ModelConfig
 from .layers import linear, linear_t, rms_norm, rope, softcap, swiglu
+from .mamba2 import MambaCache, MambaParams, mamba_decode_step, mamba_forward
 
 
 def _act_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.quant.activations == "bf16" else torch.float32
+
+
+def _chunk_of(S: int, want: int) -> int:
+    """``repro``'s chunk length: the largest divisor of S not above ``want``."""
+    c = min(S, want)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _ssm_d_in(cfg: ModelConfig) -> int:
+    """The mixer's inner width: ``ssm_expand * d_model`` for "ssm",
+    ``d_model`` for "hybrid"."""
+    return cfg.ssm_expand * cfg.d_model if cfg.family == "ssm" else cfg.d_model
 
 
 # ---------------------------------------------------------------------------
@@ -90,16 +120,22 @@ def param_specs(cfg: ModelConfig) -> list:
     ``repro``), the experts ``wi`` / ``wg`` ``[L, E, d, f]`` and ``wo``
     ``[L, E, f, d]``, and with ``num_shared_experts`` the shared expert's
     ``wi_s`` / ``wg_s`` ``[L, d, fs]`` and ``wo_s`` ``[L, fs, d]``, fs =
-    ``d_ff * num_shared_experts``; the other families' ``layers.mlp`` the
-    SwiGLU ``wi`` / ``wg`` / ``wo``."""
+    ``d_ff * num_shared_experts``; the dense and hybrid families'
+    ``layers.mlp`` the SwiGLU ``wi`` / ``wg`` / ``wo``.  An "ssm" layer
+    holds ``ln1`` and ``layers.ssm`` only; a "hybrid" layer the attention,
+    the MLP and ``layers.ssm``.  ``layers.ssm`` holds :class:`MambaParams`'
+    leaves (``conv_w`` drawn at std 0.2; std None for the constants that
+    ``repro``'s ``init_mamba`` fills: ``a_log = log(linspace(1, 16, nh))``,
+    ``dt_bias = -4.6``, ``D = 1``)."""
     d, L, V, f = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    specs = [(("embed",), (V, d), d ** -0.5),
-             (("layers", "ln1"), (L, d), 0.0), (("layers", "ln2"), (L, d), 0.0),
-             (("layers", "attn", "wq"), (L, d, H * hd), d ** -0.5),
-             (("layers", "attn", "wk"), (L, d, Kv * hd), d ** -0.5),
-             (("layers", "attn", "wv"), (L, d, Kv * hd), d ** -0.5),
-             (("layers", "attn", "wo"), (L, H * hd, d), (H * hd) ** -0.5)]
+    specs = [(("embed",), (V, d), d ** -0.5), (("layers", "ln1"), (L, d), 0.0)]
+    if cfg.family != "ssm":
+        specs += [(("layers", "ln2"), (L, d), 0.0),
+                  (("layers", "attn", "wq"), (L, d, H * hd), d ** -0.5),
+                  (("layers", "attn", "wk"), (L, d, Kv * hd), d ** -0.5),
+                  (("layers", "attn", "wv"), (L, d, Kv * hd), d ** -0.5),
+                  (("layers", "attn", "wo"), (L, H * hd, d), (H * hd) ** -0.5)]
     if cfg.family == "moe":
         E = cfg.num_experts
         specs += [(("layers", "moe", "router"), (L, d, E), d ** -0.5),
@@ -111,10 +147,18 @@ def param_specs(cfg: ModelConfig) -> list:
             specs += [(("layers", "moe", "wi_s"), (L, d, fs), d ** -0.5),
                       (("layers", "moe", "wg_s"), (L, d, fs), d ** -0.5),
                       (("layers", "moe", "wo_s"), (L, fs, d), fs ** -0.5)]
-    else:
+    elif cfg.family != "ssm":
         specs += [(("layers", "mlp", "wi"), (L, d, f), d ** -0.5),
                   (("layers", "mlp", "wg"), (L, d, f), d ** -0.5),
                   (("layers", "mlp", "wo"), (L, f, d), f ** -0.5)]
+    if cfg.family in ("ssm", "hybrid"):
+        d_in, N, w = _ssm_d_in(cfg), cfg.ssm_state, cfg.ssm_conv_width
+        nh, F = d_in // cfg.ssm_head_dim, d_in + 2 * cfg.ssm_state
+        ssm = (("in_proj", (L, d, 2 * d_in + 2 * N + nh), d ** -0.5), ("conv_w", (L, w, F), 0.2),
+               ("conv_b", (L, F), 0.0), ("a_log", (L, nh), None), ("dt_bias", (L, nh), None),
+               ("D", (L, nh), None), ("norm_g", (L, d_in), 0.0),
+               ("out_proj", (L, d_in, d), d_in ** -0.5))
+        specs += [(("layers", "ssm", name), shape, std) for name, shape, std in ssm]
     if cfg.alt_local_global:  # gemma2 post-norms
         specs += [(("layers", "ln1_post"), (L, d), 0.0), (("layers", "ln2_post"), (L, d), 0.0)]
     specs.append((("final_norm",), (d,), 0.0))
@@ -130,6 +174,15 @@ def set_path(tree: dict, path: tuple, leaf) -> None:
     tree[path[-1]] = leaf
 
 
+def _constant(name: str, shape, dtype, device) -> torch.Tensor:
+    """``repro``'s ``init_mamba`` constants, stacked over layers."""
+    if name == "a_log":
+        nh = shape[-1]
+        row = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32).to(dtype))
+        return row.to(device).expand(shape).clone()
+    return torch.full(shape, -4.6 if name == "dt_bias" else 1.0, dtype=dtype, device=device)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                 dtype=torch.float32) -> dict:
     """Random parameters in ``repro``'s layout (:func:`param_specs`), drawn
@@ -142,12 +195,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     gen.manual_seed(seed)
     p: dict = {}
     for path, shape, std in param_specs(cfg):
-        if not std:
+        if std is None:
+            leaf = _constant(path[-1], shape, dtype, dev)
+        elif not std:
             leaf = torch.zeros(shape, dtype=dtype, device=dev)
         else:
             dt = torch.float32 if path[-1] == "router" else dtype
             leaf = torch.randn(shape, generator=gen, device=dev, dtype=dt) * std
         set_path(p, path, leaf)
+    if "ssm" in p["layers"]:
+        p["layers"]["ssm"] = MambaParams(**p["layers"]["ssm"])
     return p
 
 
@@ -166,9 +223,12 @@ def _layer_windows(cfg: ModelConfig) -> list[int]:
 
 
 def _layer(tree, l: int):
-    """Layer ``l`` of a stacked parameter tree (views, no copies)."""
+    """Layer ``l`` of a stacked parameter tree (views, no copies); a
+    :class:`MambaParams` is a node, each of its leaves sliced."""
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
+    if isinstance(tree, MambaParams):
+        return MambaParams(*(_layer(v, l) for v in tree))
     return tree[l]
 
 
@@ -177,6 +237,8 @@ def _needs_grad(tree) -> bool:
     (packed QTensors never do)."""
     if isinstance(tree, dict):
         return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, MambaParams):
+        return any(_needs_grad(v) for v in tree)
     return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
@@ -244,25 +306,43 @@ def _mlp_or_moe(cfg: ModelConfig, lp, h2):
     return swiglu(h2, m["wi"], m["wg"], m["wo"]), None
 
 
-def _block(cfg: ModelConfig, lp, gains, window, x, positions):
+def _mixer(cfg: ModelConfig, pr, h, collect: bool):
+    """The Mamba-2 mixer over h [B, S, d]: (y f32-promoted [B, S, d], the
+    post-sequence :class:`MambaCache` when ``collect``, else None)."""
+    out = mamba_forward(pr, h, N=cfg.ssm_state, hd=cfg.ssm_head_dim,
+                        chunk=_chunk_of(h.shape[1], cfg.ssm_chunk), return_state=collect)
+    return out if collect else (out, None)
+
+
+def _block(cfg: ModelConfig, lp, gains, window, x, positions, collect: bool = False):
     """One decoder layer over [B, S, d] with layer ``l``'s gains (``gains``:
     name -> [d], those of :data:`GAINS` the config has) and attention
-    ``window``.  Returns (x, k, v, aux), k/v roped [B, S, Kv, hd] in the
-    activation dtype, aux the layer's balance loss (f32; None when dense)."""
+    ``window``.  Returns (x, k, v, aux, mc), k/v roped [B, S, Kv, hd] in the
+    activation dtype (None for "ssm"), aux the layer's balance loss (f32;
+    None but for moe), mc the mixer's post-sequence cache (ssm and hybrid,
+    when ``collect``; else None)."""
     B, S, _ = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     in_dtype = x.dtype
-    a = lp["attn"]
     h = rms_norm(x, gains["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        y, mc = _mixer(cfg, lp["ssm"], h, collect)
+        return (x + y).to(in_dtype), None, None, None, mc
+    a = lp["attn"]
     q = rope(linear(h, a["wq"]).reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = rope(linear(h, a["wk"]).reshape(B, S, Kv, hd), positions, cfg.rope_theta)
     v = linear(h, a["wv"]).reshape(B, S, Kv, hd)
     out = flash_attention(q, k, v, window, True, cfg.attn_softcap)
-    x = _residual(cfg, x, linear(out.reshape(B, S, H * hd), a["wo"]), gains, "ln1_post")
+    attn_out = linear(out.reshape(B, S, H * hd), a["wo"])
+    mc = None
+    if cfg.family == "hybrid":
+        y, mc = _mixer(cfg, lp["ssm"], h, collect)
+        attn_out = 0.5 * (attn_out + y)
+    x = _residual(cfg, x, attn_out, gains, "ln1_post")
     h2 = rms_norm(x, gains["ln2"], cfg.norm_eps)
     out, aux = _mlp_or_moe(cfg, lp, h2)
     x = _residual(cfg, x, out, gains, "ln2_post")
-    return x.to(in_dtype), k, v, aux
+    return x.to(in_dtype), k, v, aux, mc
 
 
 def _residual(cfg: ModelConfig, x, out, gains, post: str):
@@ -274,11 +354,14 @@ def _residual(cfg: ModelConfig, x, out, gains, post: str):
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool = False,
-            on_kv=None):
+            on_layer=None):
     """tokens [B, S] -> (logits [B, S, V] f32, aux) (``last_only``: logits
     [B, 1, V], the head applied to the last position only); aux is the sum
     of the layers' MoE balance losses (f32; None for the dense block).
-    ``on_kv(l, k, v)`` receives each layer's roped K and V [B, S, Kv, hd] (the prefill's cache fill).
+    ``on_layer(l, k, v, mc)`` receives each layer's roped K and V [B, S,
+    Kv, hd] (None for "ssm") and the mixer's post-sequence
+    :class:`MambaCache` (None but for ssm / hybrid): the prefill's cache
+    fill.
     Where autograd records and a parameter needs a gradient, each layer runs
     under ``checkpoint`` when ``cfg.remat == "block"`` (``repro``'s
     ``jax.checkpoint`` of the layer); serving never does."""
@@ -292,12 +375,14 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
     remat = cfg.remat == "block" and torch.is_grad_enabled() and _needs_grad(params)
     aux = None
     for l in range(cfg.num_layers):
-        args = (cfg, _layer(layers, l), _layer(gains, l), windows[l], x, positions)
-        x, k, v, aux_l = checkpoint(_block, *args, use_reentrant=False) if remat else _block(*args)
+        args = (cfg, _layer(layers, l), _layer(gains, l), windows[l], x, positions,
+                on_layer is not None)
+        x, k, v, aux_l, mc = (checkpoint(_block, *args, use_reentrant=False) if remat
+                              else _block(*args))
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
-        if on_kv is not None:
-            on_kv(l, k, v)
+        if on_layer is not None:
+            on_layer(l, k, v, mc)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
@@ -330,11 +415,16 @@ def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
 class KVCache:
     """k, v: [L, B, S, Kv, feat] in the cache format's storage (takum/OFP8
     bits, bf16 as torch.bfloat16, mx payload bytes); ``feat`` is hd, or
-    ``payload_len(hd)`` for an mx format.  pos: the next position to write."""
+    ``payload_len(hd)`` for an mx format; an "ssm" config's are empty
+    [L, B, 0, 1, 1] (f32).  pos: the next position to write.  conv, ssm
+    (ssm and hybrid; else None): each layer's conv tail [L, B, w-1, F] and
+    SSM state [L, B, nh, N, hd] (f32)."""
 
     k: torch.Tensor
     v: torch.Tensor
     pos: int = 0
+    conv: torch.Tensor | None = None
+    ssm: torch.Tensor | None = None
 
 
 def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -356,14 +446,40 @@ def _cache_bits(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
     return t.view(wire_format(cfg.quant.kv_cache).storage)
 
 
-def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> KVCache:
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None,
+               conv_dtype: torch.dtype = torch.float32) -> KVCache:
+    """A zero cache of S positions; ssm / hybrid configs also get zero conv
+    tails (in ``conv_dtype``, ``repro``'s f32 by default; the prefill uses
+    its projection's dtype, :func:`_conv_dtype`) and SSM states."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, _cache_feat(cfg, cfg.resolved_head_dim))
+    L = cfg.num_layers
+    conv = ssm = None
+    if cfg.family in ("ssm", "hybrid"):
+        d_in, N, hd = _ssm_d_in(cfg), cfg.ssm_state, cfg.ssm_head_dim
+        conv = torch.zeros((L, B, cfg.ssm_conv_width - 1, d_in + 2 * N), dtype=conv_dtype,
+                           device=dev)
+        ssm = torch.zeros((L, B, d_in // hd, N, hd), dtype=torch.float32, device=dev)
+    if cfg.family == "ssm":  # no K/V, and no KV format to resolve
+        k = v = torch.zeros((L, B, 0, 1, 1), dtype=torch.float32, device=dev)
+        return KVCache(k=k, v=v, pos=0, conv=conv, ssm=ssm)
+    shape = (L, B, S, cfg.num_kv_heads, _cache_feat(cfg, cfg.resolved_head_dim))
     dt = _cache_dtype(cfg)
     alloc = torch.int16 if dt == torch.uint16 else dt  # zero-fill the 16-bit bits signed
     k = torch.zeros(shape, dtype=alloc, device=dev).view(dt)
     v = torch.zeros(shape, dtype=alloc, device=dev).view(dt)
-    return KVCache(k=k, v=v, pos=0)
+    return KVCache(k=k, v=v, pos=0, conv=conv, ssm=ssm)
+
+
+def _conv_dtype(cfg: ModelConfig, params) -> torch.dtype:
+    """The dtype of the mixer's ``xbc`` (and so of the conv tail the prefill
+    stores): the activation dtype promoted with ``in_proj``'s, f32 for a
+    packed weight (K3's output)."""
+    w = params["layers"]["ssm"].in_proj
+    if isinstance(w, QTensor):
+        wdt = w.bits.dtype if w.fmt in ("bf16", "f32") else torch.float32
+    else:
+        wdt = w.dtype
+    return torch.promote_types(_act_dtype(cfg), wdt)
 
 
 def _append_kv(cfg: ModelConfig, cache: KVCache, l: int, k: torch.Tensor, v: torch.Tensor,
@@ -394,28 +510,45 @@ def _decode_cache(cfg: ModelConfig, t: torch.Tensor, hd: int | None = None) -> t
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | None = None):
-    """Forward over the prompt, filling a fresh packed KV cache.  Returns
-    (logits [B, V] of the last position, cache).  ``cache_len`` > S leaves
-    room for decode steps."""
+    """Forward over the prompt, filling a fresh packed KV cache (and the
+    conv tails and SSM states).  Returns (logits [B, V] of the last
+    position, cache).  ``cache_len`` > S leaves room for decode steps."""
     B, S = tokens.shape
-    cache = init_cache(cfg, B, cache_len or S, tokens.device)
+    mixer = cfg.family in ("ssm", "hybrid")
+    cache = init_cache(cfg, B, cache_len or S, tokens.device,
+                       _conv_dtype(cfg, params) if mixer else torch.float32)
 
-    def on_kv(l, k, v):
-        _append_kv(cfg, cache, l, k, v, 0)
+    def on_layer(l, k, v, mc):
+        if k is not None:
+            _append_kv(cfg, cache, l, k, v, 0)
+        if mc is not None:
+            cache.conv[l].copy_(mc.conv)
+            cache.ssm[l].copy_(mc.ssm)
 
-    logits, _ = forward(cfg, params, tokens, last_only=True, on_kv=on_kv)
+    logits, _ = forward(cfg, params, tokens, last_only=True, on_layer=on_layer)
     cache.pos = S
     return logits[:, 0], cache
+
+
+def _mixer_step(cfg: ModelConfig, pr, h, cache: KVCache, l: int):
+    """The mixer's decode step over h [B, d] on layer ``l``'s conv tail and
+    SSM state, both updated in place; returns y [B, d] (f32-promoted)."""
+    y, mc = mamba_decode_step(pr, h, MambaCache(cache.conv[l], cache.ssm[l]),
+                              N=cfg.ssm_state, hd=cfg.ssm_head_dim)
+    cache.conv[l].copy_(mc.conv)
+    cache.ssm[l].copy_(mc.ssm)
+    return y
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
     """One decode step: token [B] -> (logits [B, V], cache).  Appends this
     position's K/V to ``cache`` in place (before attention reads it, as
-    ``repro`` does) and advances ``cache.pos``."""
+    ``repro`` does), steps each layer's conv tail and SSM state in place,
+    and advances ``cache.pos``.  An "ssm" cache has no positions to fill."""
     B = token.shape[0]
     S = cache.k.shape[2]
     pos = cache.pos
-    if pos >= S:
+    if cfg.family != "ssm" and pos >= S:
         raise ValueError(f"KV cache is full ({S} positions)")
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     adt = _act_dtype(cfg)
@@ -426,8 +559,12 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
     windows = _layer_windows(cfg)
     for l in range(cfg.num_layers):
         lp, gl = _layer(layers, l), _layer(gains, l)
-        a = lp["attn"]
         in_dtype = x.dtype
+        if cfg.family == "ssm":
+            y = _mixer_step(cfg, lp["ssm"], rms_norm(x, gl["ln1"], cfg.norm_eps), cache, l)
+            x = (x + y).to(in_dtype)
+            continue
+        a = lp["attn"]
         h = rms_norm(x, gl["ln1"], cfg.norm_eps)[:, None]  # [B, 1, d]
         q = rope(linear(h, a["wq"]).reshape(B, 1, H, hd), positions, cfg.rope_theta)
         k_new = rope(linear(h, a["wk"]).reshape(B, 1, Kv, hd), positions, cfg.rope_theta)
@@ -440,8 +577,10 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
             cfg.quant.kv_cache, length=pos + 1, window=windows[l],
             softcap=cfg.attn_softcap, scale=hd ** -0.5,
         )
-        x = _residual(cfg, x, linear(o.reshape(B, 1, H * hd).to(h.dtype), a["wo"])[:, 0], gl,
-                      "ln1_post")
+        attn_out = linear(o.reshape(B, 1, H * hd).to(h.dtype), a["wo"])[:, 0]
+        if cfg.family == "hybrid":
+            attn_out = 0.5 * (attn_out + _mixer_step(cfg, lp["ssm"], h[:, 0], cache, l))
+        x = _residual(cfg, x, attn_out, gl, "ln1_post")
         h2 = rms_norm(x, gl["ln2"], cfg.norm_eps)
         if cfg.family == "moe":  # [B, 1, d], as repro passes it
             out = _mlp_or_moe(cfg, lp, h2[:, None])[0][:, 0]

@@ -14,19 +14,24 @@ import torch
 
 from repro_torch.core.formats import wire_format
 from repro_torch.models import transformer as T
+from repro_torch.models.mamba2 import SMALL_LEAVES, MambaParams
 from repro_torch.quant.qtensor import QTensor, dequantize, quantize
 
 
 def _map(fn, tree):
+    """``fn`` over the leaves of nested dicts and :class:`MambaParams`."""
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, MambaParams):
+        return MambaParams(*(_map(fn, v) for v in tree))
     return fn(tree)
 
 
 def quantize_params(cfg, params: dict) -> dict:
     """Pack weights into ``cfg.quant.weights``.  IEEE formats are a plain
     cast of every leaf.  Otherwise every leaf with ndim >= 2 (the embedding,
-    the stacked norm gains, every weight and the head) becomes a QTensor with
+    the stacked norm gains, every weight and the head, and every stacked
+    :class:`MambaParams` leaf) becomes a QTensor with
     one pow2 scale per leaf, over all layers of a stacked leaf (an mx
     format: one E8M0 scale per 32-block of the last axis); 1-D leaves stay
     f32.  Each leaf is packed through K2 on the card."""
@@ -48,14 +53,22 @@ def dequantize_params(params: dict) -> dict:
     return _map(lambda a: dequantize(a) if isinstance(a, QTensor) else a, params)
 
 
+def _decoded(v):
+    return dequantize(v) if isinstance(v, QTensor) else v
+
+
 def load_params(params: dict) -> dict:
     """Make a packed tree ready to serve: decode, once and through K1, the
     packed leaves that no matmul reads (the stacked norm gains
-    ``layers.ln1``/``ln2``, and gemma2's ``ln1_post``/``ln2_post``).  Every
-    other leaf is passed through as it is, so the weights and the embedding
-    (a tied head's table too) stay packed."""
-    layers = {k: dequantize(v) if k in T.GAINS and isinstance(v, QTensor) else v
-              for k, v in params["layers"].items()}
+    ``layers.ln1``/``ln2``, gemma2's ``ln1_post``/``ln2_post``, and the
+    mixer's ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``D`` and
+    ``norm_g``).  Every other leaf is passed through as it is, so the
+    weights (the mixer's ``in_proj`` and ``out_proj`` too) and the
+    embedding (a tied head's table too) stay packed."""
+    layers = {k: _decoded(v) if k in T.GAINS else v for k, v in params["layers"].items()}
+    if "ssm" in layers:
+        pr = layers["ssm"]
+        layers["ssm"] = pr._replace(**{k: _decoded(getattr(pr, k)) for k in SMALL_LEAVES})
     return {**params, "layers": layers}
 
 

@@ -328,9 +328,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
-        configs.get("mamba2_780m")
+        configs.get("llama3_2_vision_90b")
     with pytest.raises(NotImplementedError):
-        configs.get_smoke("llama3_8b").with_(family="ssm")
+        configs.get_smoke("llama3_8b").with_(family="vlm")
 
 
 def test_port_imports_neither_jax_nor_repro():
