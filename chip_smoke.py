@@ -189,6 +189,31 @@ Phases, each of which must pass:
       512-token prompt, two chunks; hymba 1056, past its window), the conv
       tails and SSM states after the prefill and after the last step held
       to the same limits.
+  (l) the vlm family (llama-3.2-vision-90b: a gated cross-attention onto
+      4096 media tokens after every 5th layer; the media projected through
+      K3 at M = B x 4096 = 16384, and each cross layer's media K/V through
+      K3 at that M, in every call, the decode step's too) and the f32 KV
+      cache (K2 appending raw f32 bits, K6 reading them).  (l0) K1 / K2 over
+      f32 bit for bit (subnormals, -0, NaN payloads kept), the f32 KV
+      append, K6 over an f32 cache at llama3-8b's and the vlm's decode
+      shapes (g 4 and 8) and K6 t8 at the vlm's, K3 at the media shapes
+      (media_proj [1408, 8192] and a cross wk [8192, 1024] at M = 16384, bf16
+      x, t16 bits and t8 lut) within K3's limit, each timed beside its bound
+      and library call.  (l1) serving at published widths (d 8192, 64 heads,
+      8 kv heads, d_ff 28672, 4096 media tokens of width 1408, B = 4,
+      prompt 256, 32 decode steps), depth cut in whole groups of 5 so that
+      the packed tree fits: takum8 at 40 of 100 layers, takum at 20, through
+      ``phase_serving`` (the tree built leaf by leaf, the gates and cross
+      norm gains drawn nonzero, launches held: 7 K3 a layer, 4 a cross
+      layer, one over the media; the decode step's device time with the
+      media projections' K3 apart).  (l2) 5 layers (one cross layer),
+      kernel path against ``ops.plain_path()`` under takum and takum8 at
+      f32 and bf16 activations with phase (e)'s limits and its f64 control,
+      the cross layer's media K/V held too.  (l3) ``repro``'s
+      prefill-then-decode consistency under an f32 KV cache (full forward
+      over 16 tokens against a prefill of 8 and 8 decode steps, within
+      2e-2) at full width: llama3-8b at 2 layers and the vlm at 5, t16
+      weights.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -642,11 +667,12 @@ def tied_head_rows(torch, gen, flush, rows, arch, V, d, M=4):
     return table
 
 
-def attention_row(torch, gen, flush, rows, arch, shape):
-    """K6 at ``shape`` = (B, H, Kv, S, hd, length, window, softcap), t8 lut
-    and bits, within 1e-5 max|v| and lut == bits; one timed row (the lut
-    codec the model runs) beside its bound and SDPA over the keys repeated
-    to every query head with the window's mask (SDPA has no softcap)."""
+def attention_row(torch, gen, flush, rows, arch, shape, fmt="t8"):
+    """K6 at ``shape`` = (B, H, Kv, S, hd, length, window, softcap) over a
+    ``fmt`` cache (t8: lut and bits; f32: bits), within 1e-5 max|v| and
+    lut == bits; one timed row (the codec the model runs) beside its bound
+    and SDPA over the keys repeated to every query head with the window's
+    mask (SDPA has no softcap)."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels.lut import resolve_impl
     from repro_torch.kernels.takum_attention import (_valid_keys, decode_attention_plain,
@@ -656,7 +682,6 @@ def attention_row(torch, gen, flush, rows, arch, shape):
     dev = flush.device
     F = torch.nn.functional
     B, H, Kv, S, hd, length, window, cap = shape
-    fmt = "t8"
     wf = wire_format(fmt)
     k8, v8 = (encode_2d_plain(torch.randn((B * S * Kv, hd), generator=gen, device=dev), fmt)
               for _ in range(2))
@@ -697,8 +722,9 @@ def attention_row(torch, gen, flush, rows, arch, shape):
             device_ms=device_ms(torch, kern, flush=flush),
             library_device_ms=device_ms(torch, sdpa, flush=flush)))
         del kf, vf
+    both = ", lut == bits" if len(impls_of(fmt, "decode")) > 1 else ""
     log(f"K6 {fmt} {arch} (H {H}, Kv {Kv}, hd {hd}, length {length}, window {window}, "
-        f"softcap {cap}): within 1e-5 max|v|, lut == bits, timed")
+        f"softcap {cap}): within 1e-5 max|v|{both}, timed")
 
 
 def phase_arch_kernels(torch, dev, rows):
@@ -1700,11 +1726,23 @@ def phase_ad_full(torch, dev):
 # ---------------------------------------------------------------------------
 
 
+#: a vlm's leaves drawn at these stds in place of their init of zero: at
+#: tanh(0) = 0 the gates would take the whole cross path out of the logits,
+#: so a wrong cross-attention would pass every check
+VLM_DRAWN = {("cross_layers", "gate"): 1.0, ("cross_layers", "ln"): 0.5}
+
+
 def packed_params(torch, cfg, seed):
     from repro_torch import serve
     from repro_torch.models import transformer as T
 
     params = T.init_params(cfg, seed, device="cuda")
+    if cfg.family == "vlm":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 991)
+        for (a, b), std in VLM_DRAWN.items():
+            leaf = params[a][b]
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=leaf.device) * std)
     qp = serve.quantize_params(cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -1714,8 +1752,8 @@ def packed_params(torch, cfg, seed):
 def packed_counts(qp):
     """(packed leaves, packed leaves that loading decodes) of a packed tree:
     what packing it launches K2 for, and what ``serve.load_params``
-    launches K1 for (the stacked norm gains and the mixer's six small
-    ``MambaParams`` leaves)."""
+    launches K1 for (the stacked norm gains, the mixer's six small
+    ``MambaParams`` leaves, a vlm's cross-layer gains)."""
     from repro_torch.models.mamba2 import SMALL_LEAVES
     from repro_torch.models.transformer import GAINS
     from repro_torch.quant.qtensor import QTensor
@@ -1725,6 +1763,8 @@ def packed_counts(qp):
     decoded = [layers.get(k) for k in GAINS]
     if "ssm" in layers:
         decoded += [getattr(layers["ssm"], k) for k in SMALL_LEAVES]
+    if "cross_layers" in qp:
+        decoded.append(qp["cross_layers"]["ln"])
     return leaves, sum(isinstance(x, QTensor) for x in decoded)
 
 
@@ -1735,13 +1775,16 @@ def expected_packed(cfg):
     layer's router and 3 stacked expert leaves instead of the MLP, and 3
     shared-expert leaves; an ssm layer none of them; ssm and hybrid add the
     mixer's 8 stacked leaves, 6 of which loading decodes), and the head
-    unless tied (final_norm is 1-D): mamba2 (10, 7), hymba (19, 8)."""
+    unless tied (final_norm is 1-D); a vlm adds its cross layers' 4
+    weights and gains (which loading decodes) and ``media_proj`` (its gates
+    are 1-D): mamba2 (10, 7), hymba (19, 8), the vlm (17, 3)."""
     gains = 4 if cfg.alt_local_global else 1 if cfg.family == "ssm" else 2
     mlp = 4 + (3 if cfg.num_shared_experts else 0) if cfg.family == "moe" else 3
     weights = 0 if cfg.family == "ssm" else 4 + mlp
     mixer = 8 if cfg.family in ("ssm", "hybrid") else 0
-    decoded = gains + (6 if mixer else 0)
-    return 1 + gains + weights + mixer + (0 if cfg.tie_embeddings else 1), decoded
+    cross = 6 if cfg.family == "vlm" else 0
+    decoded = gains + (6 if mixer else 0) + (1 if cross else 0)
+    return 1 + gains + weights + mixer + cross + (0 if cfg.tie_embeddings else 1), decoded
 
 
 def k3_per_layer(cfg):
@@ -1756,6 +1799,24 @@ def k3_per_layer(cfg):
     if cfg.family != "moe":
         return 7
     return 4 + 1 + 3 * cfg.num_experts + (3 if cfg.num_shared_experts else 0)
+
+
+def k3_cross(cfg):
+    """K3 launches of a vlm's cross path in one model call: ``media_proj``
+    over the media, then per cross layer ``wq``, ``wk`` and ``wv`` (the
+    media's K and V, at M = B x num_media_tokens) and ``wo``; 0 for the
+    other families."""
+    return 4 * (cfg.num_layers // cfg.cross_attn_every) + 1 if cfg.family == "vlm" else 0
+
+
+def media_batch(torch, cfg, B, gen, dev):
+    """A vlm's batch extra: ``{"media": [B, num_media_tokens, media_d]}``
+    f32 normals from ``gen`` on ``dev`` (the stub encoder's output); {} for
+    the other families."""
+    if cfg.family != "vlm":
+        return {}
+    return {"media": torch.randn((B, cfg.num_media_tokens, cfg.media_d), generator=gen,
+                                 device=dev)}
 
 
 def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STEPS=32):
@@ -1780,7 +1841,8 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     moe = cfg.family == "moe"
-    if moe:  # leaf by leaf: no f32 copy of a whole leaf (104 GB and more at full depth)
+    chunked = moe or cfg.family == "vlm"
+    if chunked:  # leaf by leaf: no f32 copy of a whole leaf (104 GB and more at full depth)
         packed, k2_launches = chunked_packed_params(torch, cfg, 0, dev)
     else:
         packed = packed_params(torch, cfg, seed=0)
@@ -1793,10 +1855,11 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pack_counts = ops.launch_counts()
-    check_pack_launches(pack_counts, cfg, tag, k2_launches if moe else n_packed, n_gains)
+    check_pack_launches(pack_counts, cfg, tag, k2_launches if chunked else n_packed, n_gains)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
+    extra = media_batch(torch, cfg, B, gen, dev)
     prefill = serve.make_prefill_step(cfg, cache_len=S0 + STEPS + 2)
     step = serve.make_serve_step(cfg)
 
@@ -1806,7 +1869,7 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     routes = []
     with record_routing(routes) if moe else contextlib.nullcontext():
         t0 = time.perf_counter()
-        prefill(qp, {"tokens": prompt})
+        prefill(qp, {"tokens": prompt, **extra})
         torch.cuda.synchronize()
         first_prefill_ms = (time.perf_counter() - t0) * 1e3
 
@@ -1814,14 +1877,14 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(qp, {"tokens": prompt})
+    logits, cache = prefill(qp, {"tokens": prompt, **extra})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tokens = []
     for _ in range(STEPS):
         tok = torch.argmax(logits, dim=-1)
         tokens.append(tok)
-        logits, cache = step(qp, {"token": tok}, cache)
+        logits, cache = step(qp, {"token": tok, **extra}, cache)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = ops.launch_counts()
@@ -1836,9 +1899,9 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
     kv_cache_bytes = cache.k.numel() * cache.k.element_size() * 2
     state_bytes = sum(t.numel() * t.element_size() for t in (cache.conv, cache.ssm)
                       if t is not None)
-    trace = profile_decode(torch, step, qp, logits, cache)
+    trace = profile_decode(torch, step, qp, logits, cache, extra)
     del cache
-    prefill_trace = profile_prefill(torch, prefill, qp, prompt)
+    prefill_trace = profile_prefill(torch, prefill, qp, prompt, extra)
     if trace["device_busy_ms"]:
         # the profiler's host overhead stretches its own wall; the counted
         # decode window above ran unprofiled
@@ -1858,6 +1921,13 @@ def phase_serving(torch, dev, policy, arch="llama3_8b", layers=None, S0=256, STE
         first_tokens=[int(t) for t in torch.stack(tokens, 1)[0, :8]],
         profile_prefill=prefill_trace, profile_two_decode_steps=trace,
     )
+    if cfg.family == "vlm":
+        media_k3 = media_k3_ms(torch, cfg, qp, extra["media"])
+        split = trace["device_ms_per_step_by_class"]
+        split["k3_media"] = media_k3
+        split["k3_rest"] = split["k3"] - media_k3
+        out.update(k2_pack_launches=k2_launches, k3_cross_per_call=k3_cross(cfg),
+                   media_tokens=cfg.num_media_tokens, cross_layers=L // cfg.cross_attn_every)
     if moe:
         out.update(k2_pack_launches=k2_launches, k3_per_layer=k3_per_layer(cfg),
                    capacity=routes[0]["capacity"],
@@ -1876,7 +1946,8 @@ def check_launches(counts, cfg, calls, steps, tag, gains=0):
     each surface through the codec its format defaults to
     (``lut.resolve_impl(None, ...)``): per call one K2 append per layer
     (``takum_encode_into``: K and V in one launch) and, for packed weights,
-    ``k3_per_layer`` K3 per layer, one K1 over the embedding rows (``takum_decode_rows``)
+    ``k3_per_layer`` K3 per layer (and a vlm's ``k3_cross``), one K1 over
+    the embedding rows (``takum_decode_rows``)
     and the head: one K3 (untied), one transposed K3 over the stored table
     (``takum_matmul[impl^T]``, tied, flat format) or one K1-mx decode of
     the table (``takum_decode_2d``, tied, mx format); per decode step one K6
@@ -1895,7 +1966,8 @@ def check_launches(counts, cfg, calls, steps, tag, gains=0):
     if wire_format(w).family != "ieee":  # bf16/f32 weights: every linear is torch.matmul
         impl = resolve_impl(None, w)
         tied = cfg.tie_embeddings
-        want[f"takum_matmul[{impl}]"] = (k3_per_layer(cfg) * L + (0 if tied else 1)) * calls
+        want[f"takum_matmul[{impl}]"] = (k3_per_layer(cfg) * L + k3_cross(cfg)
+                                          + (0 if tied else 1)) * calls
         want[f"takum_decode_rows[{impl}]"] = calls
         decodes = gains
         if tied and wire_format(w).is_block_scaled:
@@ -1939,17 +2011,19 @@ def device_ms_by_name(prof):
     return by_name
 
 
-def profile_decode(torch, step, qp, logits, cache):
+def profile_decode(torch, step, qp, logits, cache, extra=None):
     """Two more decode steps under torch.profiler (outside the counted run):
     device time by kernel and the device's idle share of the profiled wall
-    time (which the profiler's own host work inflates)."""
+    time (which the profiler's own host work inflates).  ``extra``: the
+    batch's other entries (a vlm's media)."""
+    extra = extra or {}
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            logits, cache = step(qp, {"token": torch.argmax(logits, -1)}, cache)
+            logits, cache = step(qp, {"token": torch.argmax(logits, -1), **extra}, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = device_ms_by_name(prof)
@@ -1990,7 +2064,29 @@ def kernel_class(name):
 K3_NAMESPACES = ("repro_mma::", "repro_mm::", "repro_mv::", "repro_wg::")
 
 
-def profile_prefill(torch, prefill, qp, prompt):
+def media_k3_ms(torch, cfg, qp, media):
+    """Ms of a vlm decode step's K3 over the media, timed alone: the same
+    launches the step makes (``media_proj`` over the media, then each cross
+    layer's ``wk`` and ``wv`` over the projected media), which
+    ``profile_decode``'s kernel names cannot tell from the other K3.  CUDA
+    events around the whole set (median of 5, after one warm-up): each
+    launch runs for milliseconds, so the host's share is negligible."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import linear
+
+    adt = T._act_dtype(cfg)
+    cross = qp["cross_layers"]
+
+    def media_work():
+        me = T._media_emb(cfg, qp, media, adt)
+        for c in range(cfg.num_layers // cfg.cross_attn_every):
+            linear(me, cross["wk"][c])
+            linear(me, cross["wv"][c])
+
+    return time_ms(torch, media_work, reps=5, warmup=1)
+
+
+def profile_prefill(torch, prefill, qp, prompt, extra=None):
     """One more prefill under torch.profiler (outside the counted run):
     device busy ms, K3's share of it (every kernel of K3's loops), and the
     five other device operations that took most."""
@@ -1999,7 +2095,7 @@ def profile_prefill(torch, prefill, qp, prompt):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = prefill(qp, {"tokens": prompt})
+        out = prefill(qp, {"tokens": prompt, **(extra or {})})
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del out
@@ -2039,9 +2135,22 @@ PARITY_POLICIES = ("takum", "takum8", "ofp8", "mxfp8", "mxt8", "bf16")
 #: ``phase_parity``).  llama3.2-3b under takum: the plain path moved 1.59e-3
 #: against its f64 twin (its t8 KV cache differing in 2.5e-4 of its bytes),
 #: the kernel path read 1.20e-3 against the plain path and 1.58e-3 against
-#: the f64 control (H100 80GB HBM3, 700 W)
+#: the f64 control (H100 80GB HBM3, 700 W).  llama-3.2-vision-90b under takum
+#: at 5 layers (phase (l2)): the prefill's logits (no cache read) 3.6e-6 from
+#: the plain path's, then the decode steps drift with the t8 KV codes the
+#: prefill's K3 tile order moved: the kernel path's cache differs from the
+#: plain path's in 7.1e-4 of its bytes (the f64 control's in 3.3e-4), and it
+#: read 1.32e-3 against the plain path, 1.23e-3 against the f64 control, the
+#: control 6.8e-4 (H100 80GB HBM3, 700 W); ``PREFILL_LIMITS`` holds its
+#: prefill beside it
 F32_LIMITS = {"mxt8": (2e-3, 1e-3), "takum8": (3e-3, 3e-3),
-              ("llama3_2_3b", "takum"): (2e-3, 2e-3)}
+              ("llama3_2_3b", "takum"): (2e-3, 2e-3),
+              ("llama3_2_vision_90b", "takum"): (2e-3, 2e-3)}
+#: limits at f32 activations on the prefill's logits alone (call 0, before
+#: any decode step reads the KV cache), kernel vs plain, for (arch, policy)
+#: pairs whose decode drift ``F32_LIMITS`` widens: their K3 and attention
+#: must still agree where no KV code can have flipped
+PREFILL_LIMITS = {("llama3_2_vision_90b", "takum"): 1e-4}
 
 
 def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=2, steps=8,
@@ -2100,11 +2209,19 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
     step, the kernel path within the logits' limit of the plain path
     (max|diff| / max|value| of each tensor), the plain path's own distance
     to its f64 twin recorded beside it (and setting the limit where it is
-    larger, ``F32_LIMITS``)."""
+    larger, ``F32_LIMITS``).
+
+    A vlm's tree is ``chunked_packed_params``' too (its gates drawn
+    nonzero), every call gets the same media, and the first cross layer's
+    media K and V (``wk`` / ``wv`` over the projected media, M = B x 4096)
+    are computed on each path after the run and held to the logits'
+    limit."""
     import dataclasses
 
     from repro_torch import configs, serve
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import linear
     from repro_torch.quant.policy import POLICIES, QuantPolicy
 
     named = {**POLICIES, "mxt8": QuantPolicy(weights="mxt8", kv_cache="mxt8")}
@@ -2118,15 +2235,17 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
         for act, tol in (("f32", f32_tol), ("bf16", 5e-2)):
             quant = dataclasses.replace(named[policy], activations=act)
             cfg = configs.get(arch).with_(num_layers=layers, quant=quant)
-            moe = cfg.family == "moe"
+            moe, vlm = cfg.family == "moe", cfg.family == "vlm"
             ops.reset_launch_counts()
-            qp = chunked_packed_params(torch, cfg, 1, dev)[0] if moe else packed_params(torch, cfg, 1)
+            qp = (chunked_packed_params(torch, cfg, 1, dev)[0] if moe or vlm
+                  else packed_params(torch, cfg, 1))
             pack_counts = {k: v for k, v in ops.launch_counts().items() if v}
             gains = packed_counts(qp)[1]
             gen = torch.Generator(device=dev)
             gen.manual_seed(11)
             prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
-            runs, caches, routing, states = {}, {}, {}, {}
+            extra = media_batch(torch, cfg, B, gen, dev)
+            runs, caches, routing, states, media_kv = {}, {}, {}, {}, {}
             fed = None
             paths = ("kernel", "plain")
             if act == "f32" and quant.weights in ("t16", "t8", "mxt8"):
@@ -2137,14 +2256,16 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                 with routes[path](), (record_routing(routing[path]) if moe
                                       else contextlib.nullcontext()):
                     lp = serve.load_params(qp)
-                    logits, cache = serve.make_prefill_step(cfg, S0 + STEPS)(lp, {"tokens": prompt})
+                    logits, cache = serve.make_prefill_step(cfg, S0 + STEPS)(
+                        lp, {"tokens": prompt, **extra})
                     if cache.ssm is not None:
                         states[path] = [cache.conv.float().clone(), cache.ssm.clone()]
                     outs, toks = [logits], []
                     for i in range(STEPS):
                         tok = torch.argmax(logits, -1) if fed is None else fed[i]
                         toks.append(tok)
-                        logits, cache = serve.make_serve_step(cfg)(lp, {"token": tok}, cache)
+                        logits, cache = serve.make_serve_step(cfg)(lp, {"token": tok, **extra},
+                                                                   cache)
                         outs.append(logits)
                     torch.cuda.synchronize()
                 if path == "kernel":
@@ -2152,9 +2273,16 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                     # one more prefill on the kernel path, warm and uncounted
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    serve.make_prefill_step(cfg, S0 + STEPS)(lp, {"tokens": prompt})
+                    serve.make_prefill_step(cfg, S0 + STEPS)(lp, {"tokens": prompt, **extra})
                     torch.cuda.synchronize()
                     prefill_ms = (time.perf_counter() - t0) * 1e3
+                if vlm:  # the first cross layer's media K and V, after the counted run
+                    with routes[path]():
+                        me = T._media_emb(cfg, lp, extra["media"], T._act_dtype(cfg))
+                        cp = T._layer(lp["cross_layers"], 0)
+                        media_kv[path] = [linear(me, cp["wk"]).float(),
+                                          linear(me, cp["wv"]).float()]
+                        del me
                 fed = toks
                 if cache.ssm is not None:
                     states[path] += [cache.conv.float().clone(), cache.ssm.clone()]
@@ -2219,6 +2347,12 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                 log(f"parity {tag}: conv tail, SSM state (after the prefill, after the last "
                     f"step) kernel vs plain {res['state_kernel_vs_plain']}, plain f64 vs plain "
                     f"{res.get('state_f64_vs_plain')}")
+            if media_kv:
+                res.update(media_kv_kernel_vs_plain=[
+                    float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(media_kv["kernel"], media_kv["plain"])])
+                log(f"parity {tag}: the cross layer's media K, V kernel vs plain "
+                    f"{res['media_kv_kernel_vs_plain']}")
             if "plain_f64" in runs:
                 res.update(control_f64_vs_plain=rel(runs["plain_f64"], p),
                            kernel_vs_f64=rel(k, runs["plain_f64"]),
@@ -2236,6 +2370,13 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
                       f"{tag}: a routing flip at a margin above twice the probs difference")
                 check(len(errs) > STEPS // 2, f"{tag}: too few rows kept ({errs})")
             check(max(errs) <= tol, f"{tag}: kernel vs plain {max(errs)} > {tol}")
+            if act == "f32" and (arch, policy) in PREFILL_LIMITS:
+                lim = PREFILL_LIMITS[(arch, policy)]
+                check(errs[0] <= lim,
+                      f"{tag}: the prefill's logits kernel vs plain {errs[0]} > {lim}")
+            if media_kv:
+                check(max(res["media_kv_kernel_vs_plain"]) <= tol,
+                      f"{tag}: media K/V kernel vs plain {res['media_kv_kernel_vs_plain']} > {tol}")
             if states:
                 check(max(res["state_kernel_vs_plain"]) <= tol,
                       f"{tag}: recurrent state kernel vs plain {res['state_kernel_vs_plain']} > {tol}")
@@ -2244,7 +2385,7 @@ def phase_parity(torch, dev, arch="llama3_8b", policies=PARITY_POLICIES, layers=
             if act == "f32":
                 check(agree == 1.0, f"{tag}: greedy tokens differ ({agree:.3f})")
             check_launches(counts, cfg, 1 + STEPS, STEPS, tag, gains=gains)
-            del qp, lp, runs, caches, k, p, routing, states
+            del qp, lp, runs, caches, k, p, routing, states, media_kv, extra
             torch.cuda.empty_cache()
     return results
 
@@ -2679,7 +2820,8 @@ def chunked_packed_params(torch, cfg, seed, dev):
     28.5 GB (16.9 GB); kimi-k2 takum8 at 2 layers, 146.1 GB for 36.5 GB
     (45.1 GB).  The transient here is one chunk (a [6144, 10752] f32 expert
     matrix, 264 MB; a row block of the embedding or the head, 268 MB) and
-    its quotient."""
+    its quotient.  A vlm's gates and cross norm gains are drawn at
+    ``VLM_DRAWN``'s stds, not left at zero."""
     from repro_torch.core.formats import wire_format
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -2690,6 +2832,8 @@ def chunked_packed_params(torch, cfg, seed, dev):
     tree, k2 = {}, 0
     for j, spec in enumerate(T.param_specs(cfg)):
         path, shape, _ = spec
+        if cfg.family == "vlm":  # the gates and cross gains drawn nonzero
+            spec = (path, shape, VLM_DRAWN.get(path, spec[2]))
         chunks = leaf_chunks(shape)
         draws = (lambda: (draw_chunk(torch, spec, j, i, seed, dev) for i in range(len(chunks))))
         if wf.family == "ieee" or len(shape) < 2:  # quantize_params' cast
@@ -3126,6 +3270,211 @@ def phase_ssm(torch, dev, card):
     return dict(serving=serving, parity=parity)
 
 
+# ---------------------------------------------------------------------------
+# phase (l): the vlm family and the f32 KV cache
+# ---------------------------------------------------------------------------
+
+VLM = "llama3_2_vision_90b"
+#: K6 over an f32 cache (B, H, Kv, S, hd, length, window, softcap) at
+#: llama3-8b's decode shape (g 4) and the vlm's (g 8); and K6 t8 at the vlm's
+#: last decode step of (l1)
+F32_ATTENTION = (("llama3_8b", (4, 32, 8, 288, 128, 288, 0, 0.0)),
+                 (VLM, (4, 64, 8, 288, 128, 288, 0, 0.0)))
+VLM_ATTENTION = (4, 64, 8, 290, 128, 288, 0, 0.0)
+#: K3 at the vlm's media shapes, bf16 x: (leaf, M = B x 4096, K, N)
+VLM_K3 = (("media_proj", 16384, 1408, 8192), ("cross wk", 16384, 8192, 1024))
+#: (l1) serving runs (policy, layers of 100): whole groups of 5 (a cross
+#: layer each), as deep as the packed tree fits beside the run (takum8 at 40
+#: layers 37.5 GB, takum at 20 39.6 GB)
+VLM_RUNS = (("takum8", 40), ("takum", 20))
+#: (l2): the kernel-vs-plain parity at 5 layers, one cross layer
+VLM_PARITY_LAYERS = 5
+#: (l3): the f32 KV cache's prefill-then-decode consistency at full width,
+#: (arch, layers)
+F32_CACHE_RUNS = (("llama3_8b", 2), (VLM, 5))
+
+
+def f32_words(torch, n, gen, dev):
+    """n f32 values as raw words: random bit patterns (subnormals, NaN
+    payloads and +-Inf among them), then the named classes (+-0, the
+    subnormal extremes, a signalling NaN, a payload NaN)."""
+    w = torch.randint(-(2 ** 31), 2 ** 31 - 1, (n,), generator=gen, device=dev,
+                      dtype=torch.int64)
+    named = torch.tensor([0, -(2 ** 31), 1, 0x007FFFFF, -(2 ** 31) + 1, 0x7F800000, -0x00800000,
+                          0x7FC00000, 0x7F800001, 0x7FF00F0F], dtype=torch.int64, device=dev)
+    w[:named.numel()] = named
+    return w.to(torch.int32).view(torch.float32)
+
+
+def phase_vlm_kernels(torch, dev, rows):
+    """(l0): K1 / K2 over f32 at [1024, 4096], bit for bit against their
+    plain versions and against the raw words (no DAZ, payloads kept), timed
+    beside a copy; the f32 KV append (``takum_encode_into`` of bf16 K and V
+    into an f32 cache's slots, the decode step's and the prefill's) bit for
+    bit, timed beside a ``copy_``; K6 over an f32 cache at
+    ``F32_ATTENTION``'s shapes and K6 t8 at the vlm's (``attention_row``);
+    K3 at ``VLM_K3``'s media shapes, t16 bits and t8 lut, within K3_LIMIT
+    (``k3_row``)."""
+    from repro_torch.kernels.takum_codec import (decode_2d_plain, encode_2d_plain,
+                                                 encode_into_plain, takum_decode_2d,
+                                                 takum_encode_2d, takum_encode_into)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2501)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    R, C = 1024, 4096
+    x = f32_words(torch, R * C, gen, dev).reshape(R, C)
+    words = x.view(torch.int32)
+    bits = takum_encode_2d(x, "f32")
+    check(torch.equal(bits.view(torch.int32), words), "K2 f32: not the raw words")
+    check(torch.equal(bits.view(torch.int32), encode_2d_plain(x, "f32").view(torch.int32)),
+          "K2 f32: differs from the plain version")
+    back = takum_decode_2d(bits, "f32")
+    check(torch.equal(back.view(torch.int32), words), "K1 f32: not the raw words")
+    check(torch.equal(back.view(torch.int32), decode_2d_plain(bits, "f32").view(torch.int32)),
+          "K1 f32: differs from the plain version")
+    nbytes = 2 * R * C * 4
+    rows.append(codec_row(torch, "takum_encode_2d", "f32", "bits", [R, C], 0.0, nbytes,
+                          lambda: takum_encode_2d(x, "f32"), lambda: encode_2d_plain(x, "f32"),
+                          lambda: words.clone(), flush))
+    rows.append(codec_row(torch, "takum_decode_2d", "f32", "bits", [R, C], 0.0, nbytes,
+                          lambda: takum_decode_2d(bits, "f32"),
+                          lambda: decode_2d_plain(bits, "f32"), lambda: words.clone(), flush))
+    log(f"(l0) K1 / K2 f32 [{R}, {C}]: the raw words both ways (subnormals, -0, NaN payloads "
+        f"kept), equal to the plain versions, timed")
+    del x, words, bits, back
+    Kv, hd = 8, 128
+    for B, S, start, cache_len in APPEND_CASES:
+        k, v = (torch.randn((B * S * Kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        cache = torch.zeros((2, B, cache_len * Kv * hd), dtype=torch.float32,
+                            device=dev).view(torch.uint32)
+        want = cache.clone()
+
+        def slots(c):
+            return [c[i][:, start * Kv * hd:(start + S) * Kv * hd] for i in range(2)]
+
+        def lib():
+            for src, dst in zip((k, v), slots(want)):
+                dst.view(torch.float32).copy_(src.view(B, -1))
+
+        takum_encode_into((k, v), slots(cache), "f32")
+        encode_into_plain((k, v), slots(want), "f32")
+        check(torch.equal(cache.view(torch.int32), want.view(torch.int32)),
+              f"append f32 S={S}: the cache differs from the plain version's")
+        lib()
+        check(torch.equal(cache.view(torch.int32), want.view(torch.int32)),
+              f"append f32 S={S}: the copy_ differs from the kernel's append")
+        rows.append(codec_row(
+            torch, "takum_encode_into", "f32", "bits", [2, B * S * Kv, hd], 0.0,
+            2 * (k.numel() * 2 + B * S * Kv * hd * 4),
+            lambda: takum_encode_into((k, v), slots(cache), "f32"),
+            lambda: encode_into_plain((k, v), slots(want), "f32"), lib, flush))
+        del k, v, cache, want
+    log("(l0) the f32 KV append (bf16 K and V into an f32 cache's slots, one launch): bit for "
+        "bit, timed beside a copy_")
+    for arch, shape in F32_ATTENTION:
+        attention_row(torch, gen, flush, rows, arch, shape, fmt="f32")
+    attention_row(torch, gen, flush, rows, VLM, VLM_ATTENTION)
+    for leaf, M, K, N in VLM_K3:
+        wf32 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        xm = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        for fmt, impl in (("t16", "bits"), ("t8", "lut")):
+            w = encode_2d_plain(wf32, fmt)
+            wd = decode_2d_plain(w, fmt)
+            rows.append(k3_row(torch, flush, fmt, impl, xm, w, wd,
+                               f"K3[{impl}] {fmt} {VLM} {leaf} {M}x{K}x{N}", use=leaf, arch=VLM))
+            del w, wd
+        del wf32, xm
+        torch.cuda.empty_cache()
+        log(f"(l0) K3 over the vlm's {leaf} [{K}, {N}] at M = {M}, bf16 x: within {K3_LIMIT}, "
+            f"timed")
+    del flush
+    torch.cuda.empty_cache()
+
+
+def phase_f32_cache(torch, dev, arch, layers):
+    """(l3): ``repro``'s prefill-then-decode consistency at ``arch``'s
+    published width and ``layers`` layers under ``QuantPolicy(weights="t16",
+    kv_cache="f32", activations="f32")``: the full forward over 16 tokens
+    against a prefill of 8 and 8 decode steps (K2 appending raw f32 bits,
+    K6 reading them), within 2e-2 (rtol and atol, as ``repro``'s test);
+    the launches counted around the prefill and the steps."""
+    from repro_torch import configs, serve
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = configs.get(arch).with_(num_layers=layers, quant=QuantPolicy(
+        weights="t16", kv_cache="f32", activations="f32"))
+    qp = serve.load_params(chunked_packed_params(torch, cfg, 5, dev)[0])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    B, S, S0 = 2, 16, 8
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    media = media_batch(torch, cfg, B, gen, dev).get("media")
+    full, _ = T.forward(cfg, qp, tokens, media)
+    ops.reset_launch_counts()
+    last, cache = T.prefill(cfg, qp, tokens[:, :S0], media, cache_len=S)
+    check(cache.k.dtype == torch.float32, f"f32 cache {arch}: cache dtype {cache.k.dtype}")
+    diffs = [float((last - full[:, S0 - 1]).abs().max())]
+    ok = bool(torch.allclose(last, full[:, S0 - 1], rtol=2e-2, atol=2e-2))
+    for t in range(S0, S):
+        lg, cache = T.decode_step(cfg, qp, tokens[:, t], cache, media)
+        diffs.append(float((lg - full[:, t]).abs().max()))
+        ok = ok and bool(torch.allclose(lg, full[:, t], rtol=2e-2, atol=2e-2))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    L = cfg.num_layers
+    out = dict(arch=cfg.name, layers=L, max_abs_diff_per_call=diffs,
+               max_abs_logit=float(full.abs().max()), launches=counts)
+    log(f"(l3) f32 KV cache {arch} at {L} layers: prefill + {S - S0} decode steps against the "
+        f"full forward, max |diff| per call {[float(f'{d:.2e}') for d in diffs]} (max |logit| "
+        f"{out['max_abs_logit']:.3g}), launches {counts}")
+    check(ok, f"f32 cache {arch}: prefill-then-decode beyond 2e-2 of the full forward")
+    check(counts.get("takum_encode_into[bits]") == L * (1 + S - S0)
+          and counts.get("takum_decode_attention[bits]") == L * (S - S0),
+          f"f32 cache {arch}: launches {counts}")
+    del qp, cache, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm(torch, dev, card):
+    """(l1) ``phase_serving`` of the vlm for each run of ``VLM_RUNS`` at
+    published widths, B = 4, prompt 256, 32 decode steps; (l2)
+    ``phase_parity`` at ``VLM_PARITY_LAYERS`` layers under takum and
+    takum8; (l3) ``phase_f32_cache`` for each of ``F32_CACHE_RUNS``."""
+    serving = {}
+    for policy, layers in VLM_RUNS:
+        t0 = time.perf_counter()
+        r = serving[f"{VLM}/{policy}"] = phase_serving(torch, dev, policy, VLM, layers)
+        prof = r["profile_two_decode_steps"]
+        log(f"(l1) serving {VLM} {policy}, {r['layers']} of {r['published_layers']} layers "
+            f"({r['cross_layers']} cross), B={r['batch']} prompt {r['prompt']}, "
+            f"{r['media_tokens']} media tokens: warm prefill {r['prefill_ms']:.1f} ms (first "
+            f"{r['first_prefill_ms']:.1f}), decode {r['decode_ms_per_token']:.2f} ms/token, "
+            f"peak {r['max_memory_allocated_gb']:.2f} GB (held before "
+            f"{r['allocated_before_gb']:.2f}), packed {r['weight_bytes'] / 1e9:.2f} GB, KV "
+            f"{r['kv_cache_bytes'] / 1e6:.1f} MB, launches per decode step (torch.profiler) "
+            f"{prof['kernel_launches_per_step']}, device busy {prof['device_busy_ms']} ms over "
+            f"two steps, idle share {prof['idle_share']}, of the counted step "
+            f"{prof.get('idle_share_of_counted_step')}; decode device ms a step by class "
+            f"{prof['device_ms_per_step_by_class']}; prefill busy "
+            f"{r['profile_prefill']['device_busy_ms']} ms, K3 share "
+            f"{r['profile_prefill']['k3_share']}; counted launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, packing "
+            f"{r['pack_launches']}; card: {card} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    parity = phase_parity(torch, dev, VLM, ("takum", "takum8"), layers=VLM_PARITY_LAYERS)
+    log(f"(l2) parity {VLM} at {VLM_PARITY_LAYERS} layers done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    f32_cache = {}
+    for arch, layers in F32_CACHE_RUNS:
+        f32_cache[arch] = phase_f32_cache(torch, dev, arch, layers)
+    return dict(serving=serving, parity=parity, f32_cache=f32_cache)
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -3261,6 +3610,19 @@ SUMMARY = [
     ("takum_matmul_t", "t16", "bits", [4, 1536, 50280], "mamba2_780m/takum", "float32"),
     ("takum_matmul_t", "t8", "lut", [4, 1536, 50280], "mamba2_780m/takum8", "float32"),
     ("takum_decode_attention", "t8", "lut", [4, 25, 5, 2080, 64], "hymba_1_5b/takum"),
+    # phase (l): the vlm's media shapes (K3 at M = 16384 over media_proj and a
+    # cross layer's wk, in every call of its (l1) serving runs) and K6 at its
+    # g = 8; the f32 KV cache's append and K6 on the (l3) paths
+    ("takum_matmul", "t8", "lut", [16384, 1408, 8192], "llama3_2_vision_90b/takum8"),
+    ("takum_matmul", "t16", "bits", [16384, 1408, 8192], "llama3_2_vision_90b/takum"),
+    ("takum_matmul", "t8", "lut", [16384, 8192, 1024], "llama3_2_vision_90b/takum8"),
+    ("takum_matmul", "t16", "bits", [16384, 8192, 1024], "llama3_2_vision_90b/takum"),
+    ("takum_decode_attention", "t8", "lut", [4, 64, 8, 290, 128], "llama3_2_vision_90b/takum8"),
+    ("takum_encode_into", "f32", "bits", [2, 32, 128], "f32cache/llama3_8b"),
+    ("takum_encode_into", "f32", "bits", [2, 8192, 128], "f32cache/llama3_2_vision_90b"),
+    ("takum_decode_attention", "f32", "bits", [4, 32, 8, 288, 128], "f32cache/llama3_8b"),
+    ("takum_decode_attention", "f32", "bits", [4, 64, 8, 288, 128],
+     "f32cache/llama3_2_vision_90b"),
 ]
 
 
@@ -3356,6 +3718,10 @@ def main() -> int:
     phase_ssm_kernels(torch, dev, rows)
     log(f"(c) the SSM archs' mixer, head and K6 shapes match their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_vlm_kernels(torch, dev, rows)
+    log(f"(c) the vlm's media K3 shapes, K6 at its g = 8 and f32 K1 / K2 / K6 match their "
+        f"plain versions ({time.perf_counter() - t0:.1f} s)")
     k3_step = k3_decode_step(rows)
     log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
@@ -3416,6 +3782,10 @@ def main() -> int:
     ssm = phase_ssm(torch, dev, card)
     log(f"(k) the ssm and hybrid families done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    vlm = phase_vlm(torch, dev, card)
+    log(f"(l) the vlm family and the f32 KV cache done in {time.perf_counter() - t0:.1f} s")
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -3436,6 +3806,8 @@ def main() -> int:
     launches.update({f"{r['arch']}/{r['policy']}/f32": r["launches"] for r in moe["parity"]
                      if r["activations"] == "f32"})
     launches.update({path: r["launches"] for path, r in ssm["serving"].items()})
+    launches.update({path: r["launches"] for path, r in vlm["serving"].items()})
+    launches.update({f"f32cache/{arch}": r["launches"] for arch, r in vlm["f32_cache"].items()})
     summary = []
     for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
@@ -3499,7 +3871,7 @@ def main() -> int:
                      launches={k: v for k, v in ad_counts.items() if v}),
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
-             other_archs=other, moe_kernels=moe_kernels, moe=moe, ssm=ssm,
+             other_archs=other, moe_kernels=moe_kernels, moe=moe, ssm=ssm, vlm=vlm,
              total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -5,13 +5,18 @@ takum8-packed KV cache (twin of examples/serve_takum_kv.py).
     PYTHONPATH=src python examples/serve_takum_kv_torch.py --device cpu
     PYTHONPATH=src python examples/serve_takum_kv_torch.py --policy mxfp8
     PYTHONPATH=src python examples/serve_takum_kv_torch.py --policy takum8
+    PYTHONPATH=src python examples/serve_takum_kv_torch.py --arch llama3_2_vision_90b
 
 Prefills a prompt batch, then decodes tokens against the packed cache,
 reporting cache bytes and the greedy-token agreement with a bf16 cache.
 ``--policy`` serves a named policy instead (its weights and KV cache, e.g.
 ``mxfp8``: bf16 weights, an MX-e4m3 cache; ``takum8``: t8 weights and
-cache, every kernel through its table codec).  On the card every cache
-append is K2 and every decode-step attention is K6.
+cache, every kernel through its table codec).  ``--arch`` serves another
+arch's smoke config (default llama3_8b); a vlm (llama3_2_vision_90b) gets
+a batch of stub media embeddings, drawn once and passed to the prefill
+and every decode step, and its cross-attention gates drawn nonzero (they
+start at zero, which would take the media out of the logits).  On the
+card every cache append is K2 and every decode-step attention is K6.
 """
 
 import argparse
@@ -29,14 +34,21 @@ def main():
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--policy", default=None, choices=sorted(POLICIES),
                     help="named policy to serve (default: bf16 weights, takum8 KV cache)")
+    ap.add_argument("--arch", default="llama3_8b", help="arch whose smoke config to serve")
     args = ap.parse_args()
 
     quant = POLICIES[args.policy] if args.policy else QuantPolicy(kv_cache="t8")
     name = args.policy or "takum8"
-    cfg8 = configs.get_smoke("llama3_8b").with_(quant=dataclasses.replace(quant, activations="f32"))
+    cfg8 = configs.get_smoke(args.arch).with_(quant=dataclasses.replace(quant, activations="f32"))
     cfgb = cfg8.with_(quant=dataclasses.replace(cfg8.quant, kv_cache="bf16"))
     params = T.init_params(cfg8, seed=0, device=args.device)
     dev = params["embed"].device
+    media = None
+    if cfg8.family == "vlm":
+        gen = torch.Generator(device=dev).manual_seed(1)
+        gate = params["cross_layers"]["gate"]
+        gate.copy_(torch.randn(gate.shape, generator=gen, device=dev))
+        media = torch.randn((4, cfg8.num_media_tokens, cfg8.media_d), generator=gen, device=dev)
     if args.policy:  # pack the weights as the policy says
         params = serve.load_params(serve.quantize_params(cfg8, params))
 
@@ -46,11 +58,11 @@ def main():
 
     outs = {}
     for label, cfg in [(name, cfg8), ("bf16", cfgb)]:
-        logits, cache = T.prefill(cfg, params, prompt, cache_len=S0 + STEPS)
+        logits, cache = T.prefill(cfg, params, prompt, media, cache_len=S0 + STEPS)
         toks = []
         tok = torch.argmax(logits, -1)
         for _ in range(STEPS):
-            logits, cache = T.decode_step(cfg, params, tok, cache)
+            logits, cache = T.decode_step(cfg, params, tok, cache, media)
             tok = torch.argmax(logits, -1)
             toks.append(tok)
         outs[label] = torch.stack(toks, 1)

@@ -82,7 +82,10 @@ SHARED_LEAVES = ("wi_s", "wg_s", "wo_s")
 #: per family, the layer blocks a tree must hold (of ``attn``, ``mlp``,
 #: ``moe``, ``ssm``); the others it must not
 FAMILY_BLOCKS = {"dense": ("attn", "mlp"), "audio": ("attn", "mlp"), "moe": ("attn", "moe"),
-                 "ssm": ("ssm",), "hybrid": ("attn", "mlp", "ssm")}
+                 "ssm": ("ssm",), "hybrid": ("attn", "mlp", "ssm"), "vlm": ("attn", "mlp")}
+
+#: a vlm's cross-layer leaves (``cross_layers``)
+CROSS_LEAVES = ("wq", "wk", "wv", "wo", "ln", "gate")
 
 
 def _check_tree(params: dict, cfg) -> None:
@@ -96,12 +99,17 @@ def _check_tree(params: dict, cfg) -> None:
     2 N + nh]``; a moe tree lacking a leaf of :data:`MOE_LEAVES`, whose
     experts are not ``num_experts``, or whose shared-expert leaves
     (:data:`SHARED_LEAVES`) are missing under ``num_shared_experts`` or
-    present without it."""
+    present without it; ``cross_layers`` or ``media_proj`` present in a
+    tree of another family than "vlm", or, in a vlm tree, missing, lacking
+    a leaf of :data:`CROSS_LEAVES`, or not of the config's shapes
+    (``Lc = num_layers / cross_attn_every`` cross layers, ``media_proj``
+    [media_d, d])."""
     if cfg.tie_embeddings == ("lm_head" in params):
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but the tree "
                          f"{'has' if 'lm_head' in params else 'lacks'} an lm_head")
     if "layers" not in params:  # a partial tree (the embedding alone): nothing more to hold
         return
+    _check_cross(params, cfg)
     layers = params["layers"]
     want = FAMILY_BLOCKS[cfg.family]
     for k in ("attn", "mlp", "moe", "ssm", "ln2"):
@@ -131,6 +139,27 @@ def _check_tree(params: dict, cfg) -> None:
         if mp["router"].shape[-1] != cfg.num_experts or mp["wi"].shape[1] != cfg.num_experts:
             raise ValueError(f"{cfg.name}: the tree's experts do not number "
                              f"num_experts={cfg.num_experts}")
+
+
+def _check_cross(params: dict, cfg) -> None:
+    """The vlm leaves of :func:`_check_tree`."""
+    vlm = cfg.family == "vlm"
+    for k in ("cross_layers", "media_proj"):
+        if vlm != (k in params):
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} but the tree "
+                             f"{'has' if k in params else 'lacks'} {k}")
+    if not vlm:
+        return
+    d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    Lc = cfg.num_layers // cfg.cross_attn_every
+    want = {"wq": (Lc, d, H * hd), "wk": (Lc, d, Kv * hd), "wv": (Lc, d, Kv * hd),
+            "wo": (Lc, H * hd, d), "ln": (Lc, d), "gate": (Lc,)}
+    cross = params["cross_layers"]
+    for k, shape in want.items():
+        if k not in cross or tuple(cross[k].shape) != shape:
+            raise ValueError(f"{cfg.name}: cross_layers.{k} is not {list(shape)}")
+    if tuple(params["media_proj"].shape) != (cfg.media_d, d):
+        raise ValueError(f"{cfg.name}: media_proj is not [{cfg.media_d}, {d}]")
 
 
 def _field(t, name: str):

@@ -10,7 +10,9 @@ codes (:meth:`WireFormat.pack` turns them into :attr:`WireFormat.storage`);
 ``[..., n]`` (n a multiple of 32) to the interleaved uint8 payload
 ``[..., n/32*33]`` and ``decode`` maps it back (``quant.blockscale``).
 ``code`` is the format's id in the CUDA kernels (``kernels/csrc/codec.cuh``);
-f32 has none, since no kernel moves it.  ``encode_np``/``decode_np`` are the
+f32's moves through K1, K2 and K6 only (an f32 KV cache: its encode is the
+raw bits, subnormals, signed zeros and NaN payloads kept, and its decode a
+bitcast), never as K3 / K4 weights.  ``encode_np``/``decode_np`` are the
 float64 numpy oracles (:mod:`.codecs_np`) the checkpoint manager packs
 float leaves with.
 """
@@ -194,7 +196,7 @@ WIRE_FORMATS: dict[str, WireFormat] = {
     wf.name: wf
     for wf in [
         WireFormat(
-            name="f32", nbits=32, family="ieee", special="inf",
+            name="f32", nbits=32, family="ieee", special="inf", code=8,
             encode=takum.f32_bits,
             decode=lambda b: takum.f32_from_bits(takum.codes_of(b) & 0xFFFFFFFF),
             encode_np=codecs_np.f32_encode, decode_np=codecs_np.f32_decode,
@@ -245,5 +247,9 @@ def wire_format(spec) -> WireFormat:
 
 
 def kernel_wire_names() -> tuple[str, ...]:
-    """Formats the CUDA kernels move (every registered format with a code)."""
-    return tuple(name for name, wf in WIRE_FORMATS.items() if wf.code is not None)
+    """The packed wire formats every kernel moves (``repro``'s
+    ``kernel_wire_names``: every registered format of at most 16 bits, the
+    mx containers included).  f32, the compute dtype, is left out, though
+    K1, K2 and K6 take it (an f32 KV cache)."""
+    return tuple(name for name, wf in WIRE_FORMATS.items()
+                 if wf.code is not None and wf.nbits <= 16)

@@ -9,7 +9,9 @@ exactly as in ``repro``, so it is the same table in both packages; the walk
 draws from a ``torch.Generator`` (``repro`` draws with jax's threefry), so
 the batches differ between the packages and the tests feed ``repro``'s.
 The batches are made on the host, int32 as ``repro``'s; the train step
-moves them to the card.
+moves them to the card.  ``media_stub`` draws a vlm's stub media
+embeddings, f32 normals from a generator seeded by (seed + 7, step, shard),
+as ``repro`` seeds its key; its draws differ from ``repro``'s too.
 """
 
 from __future__ import annotations
@@ -52,3 +54,16 @@ class SyntheticLM:
             tok = torch.where(noisy[t], noise_tok[t], self._succ[tok, choices[t]].to(torch.int64))
             seq[t] = tok
         return {"tokens": seq.T.contiguous()}
+
+    def media_stub(self, step: int, num_tokens: int, media_d: int, *, shard: int = 0,
+                   num_shards: int = 1) -> torch.Tensor:
+        """A vlm's stub media embeddings for ``shard`` of ``num_shards`` at
+        ``step``: f32 [global_batch / num_shards, num_tokens, media_d]
+        standard normals on the host."""
+        if self.global_batch % num_shards:
+            raise ValueError(f"global batch {self.global_batch} does not divide into "
+                             f"{num_shards} shards")
+        gen = torch.Generator()
+        gen.manual_seed((((self.seed + 7) * _MIX + step) * _MIX + shard) % (1 << 63))
+        b = self.global_batch // num_shards
+        return torch.randn((b, num_tokens, media_d), generator=gen, dtype=torch.float32)

@@ -19,11 +19,13 @@ from repro_torch.quant import blockscale
 from .lut import resolve_out_fmt, tables_on
 
 
-def kernel_format(fmt) -> WireFormat:
-    """Resolve ``fmt`` and check that a CUDA kernel can move it."""
+def kernel_format(fmt, *, f32: bool = True) -> WireFormat:
+    """Resolve ``fmt`` and check that a CUDA kernel can move it; ``f32``:
+    whether the kernel takes f32 bits (K1, K2 and K6 do; K3 / K4 weights
+    and the producers' out formats do not)."""
     wf = wire_format(fmt)
-    if wf.code is None:
-        raise ValueError(f"no kernel moves wire format {wf.name!r}")
+    if wf.code is None or (wf.name == "f32" and not f32):
+        raise ValueError(f"no kernel moves wire format {wf.name!r} here")
     return wf
 
 
@@ -62,14 +64,14 @@ OUT_F32 = -1
 def out_format(out_fmt, encode_impl, n: int, dim: str = "N"):
     """A producer's ``out_fmt=`` / ``encode_impl=`` resolved, on every route:
     ``(out WireFormat, encode impl)``, or ``(None, None)`` for f32 output.
-    Raises as ``lut.resolve_out_fmt`` does, for a format no kernel stores
-    (f32), and for an mx out whose last dim ``n`` (the matmul's N, the
+    Raises as ``lut.resolve_out_fmt`` does, for f32 (the unfused output
+    already is), and for an mx out whose last dim ``n`` (the matmul's N, the
     attention's head dim) is not whole 32-element blocks, as ``repro``
     does."""
     name, impl = resolve_out_fmt(out_fmt, encode_impl)
     if name is None:
         return None, None
-    out_wf = kernel_format(name)
+    out_wf = kernel_format(name, f32=False)
     if out_wf.is_block_scaled and n % blockscale.BLOCK:
         raise ValueError(f"block-scaled out_fmt needs a 32-multiple {dim}, got {n}")
     return out_wf, impl

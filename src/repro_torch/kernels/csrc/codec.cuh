@@ -5,6 +5,7 @@
 //   src/repro/kernels/common.py:99  encode_takum_from_f32
 //   src/repro/core/ofp8.py:40,184   encode_jnp / decode_jnp (field pack/unpack)
 //   src/repro/core/formats.py:308   bf16 shift decode / RNE encode
+//   src/repro/core/formats.py:345   f32 bitcast decode / encode (an f32 KV cache)
 //   src/repro/kernels/lut.py:355    encode_epilogue's mx assembly,
 //   src/repro/quant/blockscale.py   the OCP-MX container (E8M0 scale bytes,
 //                                   element cap, 33-byte [s, e0..e31] groups), and
@@ -25,9 +26,12 @@
 
 namespace repro {
 
-// format ids: repro_torch.core.formats.WireFormat.code
+// format ids: repro_torch.core.formats.WireFormat.code.  kF32 (raw IEEE
+// bits) is moved by K1, K2 and K6 only (REPRO_WIRE_DISPATCH_F32), never as
+// a K3 / K4 weight or a producer's out format.
 enum WireCode : int {
-  kT8 = 0, kT16 = 1, kE4M3 = 2, kE5M2 = 3, kBF16 = 4, kMXE4M3 = 5, kMXE5M2 = 6, kMXT8 = 7
+  kT8 = 0, kT16 = 1, kE4M3 = 2, kE5M2 = 3, kBF16 = 4, kMXE4M3 = 5, kMXE5M2 = 6, kMXT8 = 7,
+  kF32 = 8
 };
 
 // ---- takum (linear), n in {8, 16} -------------------------------------------
@@ -216,6 +220,16 @@ __device__ __forceinline__ uint32_t bf16_encode(float x) {
   return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
 }
 
+// ---- f32 ---------------------------------------------------------------------
+//
+// The reference stores an f32 cache as the values themselves
+// (bitcast_convert_type both ways): no DAZ, subnormals, signed zeros and
+// NaN payloads kept, unlike every other encode here.  No float operation
+// touches the value, so no payload or subnormal changes on the way.
+
+__device__ __forceinline__ float f32_decode(uint32_t bits) { return __uint_as_float(bits); }
+__device__ __forceinline__ uint32_t f32_encode(float x) { return __float_as_uint(x); }
+
 // ---- format traits -------------------------------------------------------------
 
 template <int FMT>
@@ -254,6 +268,13 @@ struct Wire<kBF16> {
   using storage = uint16_t;
   static __device__ __forceinline__ float decode(uint32_t b) { return bf16_decode(b); }
   static __device__ __forceinline__ uint32_t encode(float x) { return bf16_encode(x); }
+};
+
+template <>
+struct Wire<kF32> {
+  using storage = uint32_t;
+  static __device__ __forceinline__ float decode(uint32_t b) { return f32_decode(b); }
+  static __device__ __forceinline__ uint32_t encode(float x) { return f32_encode(x); }
 };
 
 // ---- OCP-MX block-scaled containers: mxe4m3, mxe5m2, mxt8 ----------------------
@@ -348,13 +369,17 @@ enum Impl : int { kBits = 0, kLut = 1 };  // repro_torch.kernels.common.IMPL_COD
 constexpr uint32_t kEnc8ThrFlag = 1u << 7;  // tables.ENC8_THR_FLAG
 
 // the element format of FMT (an mx container's, else FMT itself), its width,
-// and whether it has encode tables (every kernel format but bf16)
+// and whether it has decode tables (every format of at most 16 bits) and
+// encode tables (those but bf16)
 template <int FMT>
 inline constexpr int kElem = FMT == kMXE4M3 ? kE4M3 : FMT == kMXE5M2 ? kE5M2 : FMT == kMXT8 ? kT8 : FMT;
 template <int FMT>
-inline constexpr int kElemBits = (kElem<FMT> == kT16 || kElem<FMT> == kBF16) ? 16 : 8;
+inline constexpr int kElemBits =
+    kElem<FMT> == kF32 ? 32 : (kElem<FMT> == kT16 || kElem<FMT> == kBF16) ? 16 : 8;
 template <int FMT>
-inline constexpr bool kHasEncodeLut = kElem<FMT> != kBF16;
+inline constexpr bool kHasDecodeLut = kElemBits<FMT> <= 16;
+template <int FMT>
+inline constexpr bool kHasEncodeLut = kElem<FMT> != kBF16 && kElem<FMT> != kF32;
 
 // Ints of shared memory a kernel of FMT under IMPL stages its decode table
 // in: an 8-bit table (1 KiB) is copied per block; a 16-bit one (256 KiB,
@@ -663,6 +688,12 @@ __device__ __forceinline__ int encode_tile_fmt(int tid, int nt, const float* t, 
     case repro::kMXT8: return LAUNCH<repro::kMXT8>(__VA_ARGS__);      \
     default: return static_cast<int>(cudaErrorInvalidValue);          \
   }
+
+// REPRO_WIRE_DISPATCH, and kF32 as well: the entries of the kernels that
+// move f32 bits (K1, K2, K6)
+#define REPRO_WIRE_DISPATCH_F32(code, LAUNCH, ...)                                  \
+  if ((code) == repro::kF32) return LAUNCH<repro::kF32>(__VA_ARGS__);               \
+  REPRO_WIRE_DISPATCH(code, LAUNCH, __VA_ARGS__)
 
 namespace repro {
 

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/takum_attention.py:56
 // _decode_attn_kernel (entry takum_decode_attention :141) for the flat
-// formats and the mx payloads (its payload path, :61, :82-99, :167-186),
+// formats (an f32 cache too: its fmt="f32", 4-byte rows, 512 B at D = 128)
+// and the mx payloads (its payload path, :61, :82-99, :167-186),
 // with either codec (IMPL kBits, or kLut: its `lut` branch, :201-204) and
 // its out_fmt epilogue (:120-132), and adds what the model
 // computes around it in jnp (src/repro/models/transformer.py:484-498): the
@@ -350,9 +351,9 @@ int launch_attn(const void* q, const void* k, const void* v, void* out, float* w
                 long long vsh, long long vss, int length, int window, int begin, int chunk,
                 int splits, float scale, float softcap, int impl, const void* tab,
                 const repro::Epilogue& ep, cudaStream_t stream) {
-  REPRO_IMPL_DISPATCH(impl, true, launch_attn_as, FMT, q, k, v, out, ws, B, H, Hkv, D, ksb, ksh,
-                      kss, vsb, vsh, vss, length, window, begin, chunk, splits, scale, softcap,
-                      tab, ep, stream)
+  REPRO_IMPL_DISPATCH(impl, repro::kHasDecodeLut<FMT>, launch_attn_as, FMT, q, k, v, out, ws,
+                      B, H, Hkv, D, ksb, ksh, kss, vsb, vsh, vss, length, window, begin, chunk,
+                      splits, scale, softcap, tab, ep, stream)
 }
 
 }  // namespace
@@ -373,7 +374,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
       out_code >= repro::kMXE4M3 ? static_cast<long long>(D) / 32 * repro::kMxGroup : D;
   const repro::Epilogue ep{out_code, out_impl, static_cast<const uint32_t*>(meta),
                            static_cast<const int*>(aux), ldo};
-  REPRO_WIRE_DISPATCH(fmt, launch_attn, q, k, v, out, static_cast<float*>(ws), B, H, Hkv, D, ksb,
-                      ksh, kss, vsb, vsh, vss, length, window, begin, chunk, splits, scale,
-                      softcap, impl, tab, ep, static_cast<cudaStream_t>(stream))
+  REPRO_WIRE_DISPATCH_F32(fmt, launch_attn, q, k, v, out, static_cast<float*>(ws), B, H, Hkv,
+                          D, ksb, ksh, kss, vsb, vsh, vss, length, window, begin, chunk, splits,
+                          scale, softcap, impl, tab, ep, static_cast<cudaStream_t>(stream))
 }

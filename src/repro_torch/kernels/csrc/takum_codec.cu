@@ -3,7 +3,8 @@
 // Replaces the Pallas kernels
 //   K1 src/repro/kernels/takum_codec.py:51 _decode_kernel (entry takum_decode_2d :85)
 //   K2 src/repro/kernels/takum_codec.py:61 _encode_kernel (entry takum_encode_2d :123)
-// for the flat formats and the mx payloads, with either codec: IMPL kBits
+// for the flat formats (f32 too: raw bits both ways, for an f32 KV cache)
+// and the mx payloads, with either codec: IMPL kBits
 // (the branch-free codecs) or kLut (their `lut` branches, :52-54, :105-108,
 // :140-145: a gather from the decode table; two gathers from the encode
 // tables and an integer tail).  The TPU kernels cut [R, C] into VMEM tiles;
@@ -97,6 +98,20 @@ template <>
 struct Chunk<16> {
   using type = uint4;
 };
+struct alignas(16) Uint4x2 {
+  uint4 lo, hi;
+};
+template <>
+struct Chunk<32> {  // eight f32 codes against eight bf16 values: two 16-byte accesses
+  using type = Uint4x2;
+};
+
+// copy N 16-byte chunks from src to dst (both 16-byte aligned)
+template <int N>
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) static_cast<uint4*>(dst)[c] = static_cast<const uint4*>(src)[c];
+}
 
 // N elements of T moved as one access of N * sizeof(T) bytes (4, 8 or 16)
 template <typename T, int N>
@@ -224,20 +239,19 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
     out[i] = conv(*src(i));
   }
   if (a.vec == 1) return;
-  // warp tiles of 32 code chunks: lane l loads chunk l (16 bytes of codes)
-  // into shared memory, then writes output chunks l, l + 32, ..., so that
-  // every load and store instruction of the warp covers contiguous bytes
+  // warp tiles of 32 code chunks: lane l loads chunk l (16 bytes of codes;
+  // 32 for f32 codes to bf16) into shared memory, then writes output chunks
+  // l, l + 32, ..., so that every load and store instruction of the warp
+  // covers contiguous bytes
   constexpr int kE = 16 / static_cast<int>(sizeof(OutT));  // outputs per 16-byte chunk
+  constexpr int kInChunks = kVec * static_cast<int>(sizeof(InT)) / 16;
   __shared__ __align__(16) InT tile[kWarps][32 * kVec];
   InT* ts = tile[threadIdx.x / 32];
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const long long end = n - a.tail;
   for (long long base = a.head + (tid - lane) * kVec; base < end; base += stride * kVec) {
     const long long valid = end - base < 32 * kVec ? end - base : 32 * kVec;
-    if (lane * kVec < valid) {
-      *reinterpret_cast<uint4*>(ts + lane * kVec) =
-          *reinterpret_cast<const uint4*>(src(base + lane * kVec));
-    }
+    if (lane * kVec < valid) copy16<kInChunks>(ts + lane * kVec, src(base + lane * kVec));
     __syncwarp();
 #pragma unroll
     for (int k = 0; k < kVec / kE; ++k) {
@@ -356,6 +370,7 @@ __global__ void __launch_bounds__(kThreads) encode_kernel(const EncodeArgs a) {
   // contiguous bytes
   constexpr int kE = 16 / static_cast<int>(sizeof(InT));  // inputs per 16-byte chunk
   constexpr int kR = kVec / kE;
+  constexpr int kOutChunks = kVec * static_cast<int>(sizeof(OutT)) / 16;  // 2: bf16 to f32
   __shared__ __align__(16) OutT tile[kWarps][32 * kVec];
   OutT* ts = tile[threadIdx.x / 32];
   const int lane = static_cast<int>(threadIdx.x) & 31;
@@ -379,10 +394,7 @@ __global__ void __launch_bounds__(kThreads) encode_kernel(const EncodeArgs a) {
       }
     }
     __syncwarp();
-    if (lane * kVec < valid) {
-      *reinterpret_cast<uint4*>(at(base + lane * kVec)) =
-          *reinterpret_cast<const uint4*>(ts + lane * kVec);
-    }
+    if (lane * kVec < valid) copy16<kOutChunks>(at(base + lane * kVec), ts + lane * kVec);
     __syncwarp();
   }
 }
@@ -608,7 +620,8 @@ int launch_encode_as(const EncodeArgs& a, int pairs, int src_dtype, int grid,
 
 template <int FMT>
 int launch_decode(const DecodeArgs& a, int impl, int out_dtype, int grid, cudaStream_t stream) {
-  REPRO_IMPL_DISPATCH(impl, true, launch_decode_as, FMT, a, out_dtype, grid, stream)
+  REPRO_IMPL_DISPATCH(impl, repro::kHasDecodeLut<FMT>, launch_decode_as, FMT, a, out_dtype, grid,
+                      stream)
 }
 
 template <int FMT>
@@ -649,7 +662,7 @@ int occupancy_encode(int dtype, int* blocks) {
 template <int FMT>
 int occupancy(int op, int impl, int dtype, int* blocks) {
   if (op == 0) {
-    REPRO_IMPL_DISPATCH(impl, true, occupancy_decode, FMT, dtype, blocks)
+    REPRO_IMPL_DISPATCH(impl, repro::kHasDecodeLut<FMT>, occupancy_decode, FMT, dtype, blocks)
   }
   REPRO_IMPL_DISPATCH(impl, repro::kHasEncodeLut<FMT>, occupancy_encode, FMT, dtype, blocks)
 }
@@ -668,8 +681,8 @@ extern "C" int repro_decode(const void* in, const void* rows, void* out, long lo
                             long long head, long long tail, int row_bytes, void* stream) {
   const DecodeArgs a{in, rows, out, nrows, cols, pitch, nsrc, scale,
                      static_cast<const int*>(tab), head, tail, vec, row_bytes};
-  REPRO_WIRE_DISPATCH(fmt, launch_decode, a, impl, out_dtype, grid,
-                      static_cast<cudaStream_t>(stream))
+  REPRO_WIRE_DISPATCH_F32(fmt, launch_decode, a, impl, out_dtype, grid,
+                          static_cast<cudaStream_t>(stream))
 }
 
 // K2: `pairs` sources (src1 unused for 1) of n elements each (f32 or bf16
@@ -683,8 +696,8 @@ extern "C" int repro_encode(const void* src0, const void* src1, void* dst0, void
   const EncodeArgs a{{src0, src1}, {dst0, dst1}, n, run, pitch,
                      static_cast<const uint32_t*>(meta), static_cast<const int*>(aux),
                      head, tail, vec};
-  REPRO_WIRE_DISPATCH(fmt, launch_encode, a, impl, pairs, src_dtype, grid,
-                      static_cast<cudaStream_t>(stream))
+  REPRO_WIRE_DISPATCH_F32(fmt, launch_encode, a, impl, pairs, src_dtype, grid,
+                          static_cast<cudaStream_t>(stream))
 }
 
 // The current device's SM count and how many blocks of the kernel that
@@ -699,5 +712,5 @@ extern "C" int repro_codec_occupancy(int op, int fmt, int impl, int dtype, int* 
   if (op < 0 || op > 1 || dtype < kF32 || dtype > kBF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  REPRO_WIRE_DISPATCH(fmt, occupancy, op, impl, dtype, blocks)
+  REPRO_WIRE_DISPATCH_F32(fmt, occupancy, op, impl, dtype, blocks)
 }

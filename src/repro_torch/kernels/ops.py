@@ -8,7 +8,10 @@ embedding).
 
 Each op takes a wire-format handle (a registered name such as 't8', 'e4m3',
 'bf16', 'mxe4m3', a :class:`~repro_torch.core.formats.WireFormat`, or a bare
-takum width).  ``encode``/``decode`` take any rank, empty tensors included,
+takum width).  ``encode``, ``decode``, ``encode_into``, ``decode_rows`` and
+``decode_attention`` also take "f32" (raw IEEE bits in uint32: an f32 KV
+cache); ``matmul``, ``matmul_t``, ``dual_matmul`` and the producers'
+``out_fmt`` do not.  ``encode``/``decode`` take any rank, empty tensors included,
 and view it as 2-D for the K1/K2 kernels (a 0-d tensor as [1, 1]); the
 result has the input's shape.  For the block-scaled mx formats the last axis
 is the interleaved payload (n elements <-> n/32*33 bytes); a malformed
@@ -44,7 +47,7 @@ import math
 
 import torch
 
-from repro_torch.core.formats import wire_format
+from repro_torch.core.formats import kernel_wire_names, wire_format
 from .lut import DECODE_IMPLS, resolve_impl
 from .takum_attention import decode_attention_plain, takum_decode_attention
 from .takum_codec import (decode_2d_plain, decode_rows_plain, encode_2d_plain, encode_into_plain,
@@ -86,6 +89,20 @@ def plain_acc():
     """The accumulation dtype of the plain versions inside
     :func:`plain_path`, or None outside it (the kernels run)."""
     return _PLAIN_ACC
+
+
+def supported_wire_formats() -> tuple[str, ...]:
+    """The registered wire formats every op routes to its kernel
+    (``repro``'s ``supported_wire_formats``): those of
+    ``kernel_wire_names()`` whose default codec resolves."""
+    out = []
+    for name in kernel_wire_names():
+        try:
+            resolve_impl(None, name)
+        except (KeyError, ValueError):
+            continue
+        out.append(name)
+    return tuple(out)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,6 +4,9 @@ what ``repro``'s model computes around it in jnp
 (``models/transformer.py:484-498``): a ``length`` bound over a preallocated
 cache, a sliding ``window`` and an attention-logit ``softcap``.
 
+An f32 cache (``fmt="f32"``) is read as its raw bits (uint32, 4 bytes an
+element: 512 B a row at d = 128, which :func:`split_smem_bytes` sizes).
+
 With an mx cache format, K/V are interleaved payloads [B, Hkv, S,
 ceil(d/32)*33] blocked along d; the padded d lanes of the last block are
 dropped (d need not be a multiple of 32).
@@ -39,6 +42,24 @@ from .takum_codec import encode_2d_plain
 
 #: keys per tile of the kernel (``kTileS`` of csrc/takum_attention.cu)
 KV_TILE = 32
+#: the dynamic shared memory one block may use on the H100 (227 KiB)
+SMEM_LIMIT = 227 * 1024
+
+
+def split_smem_bytes(fmt, impl: str, g: int, d: int) -> int:
+    """Shared memory of one ``split_kernel`` block (``split_smem`` of
+    csrc/takum_attention.cu): the two-deep ring of a tile's K and V rows,
+    each row staged as the 16-byte chunks that cover it at its worst
+    alignment, then the f32 regions (q and acc [g, d], K [32, d + 1], V
+    [32, d], the tile's probabilities [g, 32], max, denominator and
+    rescale [g]), then an 8-bit lut decode table."""
+    wf = kernel_format(fmt)
+    row = blockscale.payload_len(d) if wf.is_block_scaled else d * wf.nbits // 8
+    pitch = 16 * ((row + 30) // 16)
+    elem_bits = wf.elem.nbits if wf.is_block_scaled else wf.nbits
+    tab = 256 if impl == "lut" and elem_bits == 8 else 0
+    floats = 2 * g * d + KV_TILE * (d + 1) + KV_TILE * d + g * KV_TILE + 3 * g
+    return 2 * 2 * KV_TILE * pitch + 4 * floats + 4 * tab
 
 
 class AttentionPlan(NamedTuple):
@@ -147,6 +168,10 @@ def takum_decode_attention(q, k_bits, v_bits, fmt, length=None, window=0, softca
         raise ValueError(f"q, k and v must share one CUDA device, got {devs}")
     if not q.is_contiguous() or k_bits.stride(3) != 1 or v_bits.stride(3) != 1:
         raise ValueError("q must be contiguous and k/v unit-stride along their last axis")
+    smem = split_smem_bytes(wf, impl, H // Hkv, d)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K6 over {wf.name} at g={H // Hkv}, d={d} needs {smem} bytes of "
+                         f"shared memory a block, over the {SMEM_LIMIT} the card gives")
     out = empty_out((B, H), d, out_wf, q.device)
     plan = attention_plan(B, Hkv, length, int(window))
     ws = torch.empty(plan.workspace_numel(B, H, Hkv, d), dtype=torch.float32, device=q.device)

@@ -146,7 +146,7 @@ def tile_for(M: int, x_kind: str, fmt) -> str:
         raise ValueError(f"x_kind must be 'f32', 'bf16' or 'wire', got {x_kind!r}")
     if M <= MATVEC_MAX_M:
         return "matvec"
-    t16 = kernel_format(fmt).name == "t16"
+    t16 = kernel_format(fmt, f32=False).name == "t16"
     if x_kind == "f32":
         return "mma_f32"
     if x_kind == "wire" and t16:
@@ -318,7 +318,7 @@ def takum_matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl
     """K3: x [M, K] f32/bf16 @ decode(w_bits [K, N]) -> [M, N] float32, or
     with ``out_fmt`` its packed encode; an mx ``w_bits`` is the payload
     [K, ceil(N/32)*33] and ``n`` its logical N."""
-    wf = kernel_format(fmt)
+    wf = kernel_format(fmt, f32=False)
     impl = lut.resolve_impl(decode_impl, wf)
     if x.dim() != 2 or w_bits.dim() != 2 or x.shape[1] != w_bits.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(x.shape)} @ {tuple(w_bits.shape)}")
@@ -343,7 +343,7 @@ def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, d
     or with ``out_fmt`` its packed encode.  Both operands are ``fmt``; for an
     mx format x_bits is the payload [M, K/32*33] (w_bits then has K rows)
     and w_bits [K, ceil(N/32)*33] with ``n`` its logical N."""
-    wf = kernel_format(fmt)
+    wf = kernel_format(fmt, f32=False)
     impl = lut.resolve_impl(decode_impl, wf)
     if x_bits.dim() != 2 or w_bits.dim() != 2:
         raise ValueError(f"bad dual_matmul shapes {tuple(x_bits.shape)} @ {tuple(w_bits.shape)}")
@@ -366,7 +366,7 @@ def takum_dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, d
 def _flat_format(fmt):
     """``fmt`` resolved for K5, which refuses a block-scaled format as
     ``repro`` does."""
-    wf = kernel_format(fmt)
+    wf = kernel_format(fmt, f32=False)
     if wf.is_block_scaled:
         raise ValueError("takum_matmul_ad: block-scaled weights have no bit-transposed "
                          "backward payload; dequantize mx weights at the use site")

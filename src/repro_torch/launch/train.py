@@ -12,8 +12,10 @@ format (``f32`` under bf16, so a restarted run equals an unbroken one bit
 for bit; ``t16`` under takum).  ``--arch`` takes every ported architecture
 of the registry (``configs.ARCHS``: llama3_8b, llama3_2_3b, gemma2_2b,
 granite_34b, musicgen_large, dbrx_132b, kimi_k2_1t_a32b, mamba2_780m,
-hymba_1_5b, or their aliases such as ``gemma2-2b``) and
-``lm_100m``, the launcher's own tied-embedding config (``repro``'s).  A
+hymba_1_5b, llama3_2_vision_90b, or their aliases such as ``gemma2-2b``)
+and ``lm_100m``, the launcher's own tied-embedding config (``repro``'s).
+A vlm's batches carry ``media`` from ``SyntheticLM.media_stub``, as
+``repro``'s launcher adds it.  A
 ``--mesh`` other than ``1x1`` is not ported yet and raises.
 """
 
@@ -40,6 +42,19 @@ def lm_100m() -> ModelConfig:
         num_heads=12, num_kv_heads=4, d_ff=2048, vocab_size=32768,
         head_dim=64, rope_theta=10000.0, tie_embeddings=True,
     )
+
+
+def batch_fn(cfg: ModelConfig, pipe: SyntheticLM):
+    """``step -> batch``: the pipeline's tokens, and for a vlm its stub
+    media [batch, num_media_tokens, media_d]."""
+
+    def make(step: int) -> dict:
+        b = pipe.batch(step)
+        if cfg.family == "vlm":
+            b["media"] = pipe.media_stub(step, cfg.num_media_tokens, cfg.media_d)
+        return b
+
+    return make
 
 
 def build(arch: str, *, smoke: bool, policy: str, seq: int, batch: int):
@@ -82,7 +97,8 @@ def main(argv=None, failure_hook=None):
         TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                         ckpt_dir=args.ckpt_dir, ckpt_fmt=cfg.quant.checkpoint,
                         log_every=10),
-        make_train_step(cfg, lr=args.lr), pipe.batch, lambda: init_state(cfg, 0, device=dev),
+        make_train_step(cfg, lr=args.lr), batch_fn(cfg, pipe),
+        lambda: init_state(cfg, 0, device=dev),
         failure_hook)
     t0 = time.time()
     state = loop.run()

@@ -1,8 +1,9 @@
 """Decoder with packed weights and a packed KV cache (counterpart of
-``repro.models.transformer`` but its vlm branch: the "dense" and "audio"
-families, llama3-8b, llama3.2-3b, gemma2-2b, granite-34b, musicgen-large,
-the "moe" family, dbrx-132b and kimi-k2-1t-a32b, the "ssm" family,
-mamba2-780m, and the "hybrid" family, hymba-1.5b).
+``repro.models.transformer``: the "dense" and "audio" families, llama3-8b,
+llama3.2-3b, gemma2-2b, granite-34b, musicgen-large, the "moe" family,
+dbrx-132b and kimi-k2-1t-a32b, the "ssm" family, mamba2-780m, the
+"hybrid" family, hymba-1.5b, and the "vlm" family,
+llama-3.2-vision-90b).
 
 Parameters keep ``repro``'s stacked layout: ``layers.attn.wq`` is
 ``[L, d, H*hd]`` and so on, each packed leaf a :class:`QTensor` with one
@@ -58,6 +59,22 @@ attention and to K6), the post-norms ``ln1_post`` / ``ln2_post`` on the
 attention and MLP outputs before each residual add, and the embedding rows
 times ``sqrt(d_model)`` rounded to the activation dtype, a second rounding
 after K1's cast, as ``repro`` multiplies after ``.astype``.
+
+A "vlm" model adds ``repro``'s gated cross-attention onto media: the
+batch's ``media`` [B, M, media_d] (a stub encoder's output) is projected
+once per call, ``media_emb = media.to(adt) @ media_proj`` (K3 at M = B *
+num_media_tokens), and after every ``cross_attn_every``-th layer ``x = x +
+tanh(gate[c]) * cross_attn(rms_norm(x, ln[c]), media_emb)`` over the
+``cross_layers`` leaves of cross layer c: q from the text, k and v from
+``media_emb`` through K3, no rope, a non-causal attention over every media
+token, then ``wo``.  The media K/V stay in the activation dtype (``repro``
+does not quantise them) and are recomputed in every decode step, as
+``repro`` recomputes them; the KV cache holds the self-attention layers
+only.
+
+A KV cache in "f32" stores the values themselves (``repro``'s
+``_encode_cache`` keeps them), read by K6 and appended by K2 as raw f32
+bits: it is exact.
 
 Training runs :func:`loss_fn` over raw f32 (or bf16) parameters with
 autograd: every linear is ``torch.matmul`` (``repro`` trains its f32
@@ -126,7 +143,11 @@ def param_specs(cfg: ModelConfig) -> list:
     the MLP and ``layers.ssm``.  ``layers.ssm`` holds :class:`MambaParams`'
     leaves (``conv_w`` drawn at std 0.2; std None for the constants that
     ``repro``'s ``init_mamba`` fills: ``a_log = log(linspace(1, 16, nh))``,
-    ``dt_bias = -4.6``, ``D = 1``)."""
+    ``dt_bias = -4.6``, ``D = 1``).  A "vlm" tree adds, after the head
+    (``repro`` draws them last), ``cross_layers`` (``wq`` / ``wk`` /
+    ``wv`` / ``wo`` over ``Lc = L / cross_attn_every`` cross layers, their
+    norm gains ``ln`` [Lc, d] and gates ``gate`` [Lc], both zero) and
+    ``media_proj`` [media_d, d] at std ``media_d ** -0.5``."""
     d, L, V, f = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     specs = [(("embed",), (V, d), d ** -0.5), (("layers", "ln1"), (L, d), 0.0)]
@@ -164,6 +185,15 @@ def param_specs(cfg: ModelConfig) -> list:
     specs.append((("final_norm",), (d,), 0.0))
     if not cfg.tie_embeddings:
         specs.append((("lm_head",), (d, V), d ** -0.5))
+    if cfg.family == "vlm":
+        Lc, md = L // cfg.cross_attn_every, cfg.media_d
+        specs += [(("cross_layers", "wq"), (Lc, d, H * hd), d ** -0.5),
+                  (("cross_layers", "wk"), (Lc, d, Kv * hd), d ** -0.5),
+                  (("cross_layers", "wv"), (Lc, d, Kv * hd), d ** -0.5),
+                  (("cross_layers", "wo"), (Lc, H * hd, d), (H * hd) ** -0.5),
+                  (("cross_layers", "ln"), (Lc, d), 0.0),
+                  (("cross_layers", "gate"), (Lc,), 0.0),
+                  (("media_proj",), (md, d), md ** -0.5)]
     return specs
 
 
@@ -210,6 +240,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 #: the stacked norm gains of a layer, in the order ``_block`` takes them
 GAINS = ("ln1", "ln2", "ln1_post", "ln2_post")
+#: the stacked norm gain of a vlm's cross layers (``cross_layers.ln``)
+CROSS_GAIN = "ln"
 
 
 def _layer_windows(cfg: ModelConfig) -> list[int]:
@@ -267,8 +299,10 @@ def _embed(params, tokens: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
     wrapped, then clamped (``takum_codec.table_rows``), as in ``repro``."""
     e = params["embed"]
     if isinstance(e, QTensor) and e.fmt not in ("bf16", "f32"):
-        x = ops.decode_rows(e.bits, tokens, e.fmt, scale=None if e.block_scaled else e.scale,
-                            out_dtype=adt)
+        # K1 reads the ids in place: a sliced prompt (tokens[:, :S0]) is
+        # made contiguous first
+        x = ops.decode_rows(e.bits, tokens.contiguous(), e.fmt,
+                            scale=None if e.block_scaled else e.scale, out_dtype=adt)
         return x[..., :e.n] if e.block_scaled else x
     table = e.bits if isinstance(e, QTensor) else e
     return F.embedding(table_rows(tokens, table.shape[0]), table).to(adt)
@@ -353,11 +387,60 @@ def _residual(cfg: ModelConfig, x, out, gains, post: str):
     return x + out
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool = False,
-            on_layer=None):
+def _media_emb(cfg: ModelConfig, params, media, adt: torch.dtype):
+    """A vlm's projected media [B, M, d] in ``adt`` (``media.to(adt) @
+    media_proj``: K3 over a packed ``media_proj`` at M = B * M_media), or
+    None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    if media is None:
+        raise ValueError(f"{cfg.name}: a vlm needs the batch's media embeddings")
+    return linear(media.to(adt), params["media_proj"])
+
+
+def _cross_attn(cfg: ModelConfig, cp, x, media_emb):
+    """``repro``'s ``_cross_attn``: x [B, S, d] attends, without a mask or
+    rope, to the M media tokens; k and v are the media embeddings through
+    ``wk`` / ``wv`` (K3), in the activation dtype.  Returns [B, S, d]."""
+    B, S, _ = x.shape
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    M = media_emb.shape[1]
+    q = linear(x, cp["wq"]).reshape(B, S, H, hd)
+    k = linear(media_emb, cp["wk"]).reshape(B, M, Kv, hd)
+    v = linear(media_emb, cp["wv"]).reshape(B, M, Kv, hd)
+    out = flash_attention(q, k, v, 0, False, 0.0)
+    return linear(out.reshape(B, S, H * hd), cp["wo"])
+
+
+def _cross_block(cfg: ModelConfig, cp, gain, gate, x, media_emb):
+    """The gated cross-attention after a group of ``cross_attn_every``
+    layers: ``x + tanh(gate).to(x.dtype) * cross_attn(rms_norm(x, gain))``,
+    in x's dtype (``repro``'s ``vlm_block``).  The tanh is taken in f32 even
+    of a bf16 gate (the bf16 policy's): XLA keeps that excess precision in
+    ``repro``'s ``jnp.tanh(gate).astype(x.dtype)``, and a gate rounded to
+    bf16 in between moves the logits by 1e-4 of their size."""
+    h = rms_norm(x, gain, cfg.norm_eps)
+    g = torch.tanh(gate.to(torch.float32)).to(x.dtype)
+    return (x + g * _cross_attn(cfg, cp, h, media_emb)).to(h.dtype)
+
+
+def _cross_params(params):
+    """The vlm's cross layers as (leaves of ``wq``/``wk``/``wv``/``wo``,
+    their norm gains as a tensor, their gates): gains and gates stacked over
+    the cross layers."""
+    cross = params["cross_layers"]
+    attn = {k: cross[k] for k in ("wq", "wk", "wv", "wo")}
+    return attn, _gain(cross[CROSS_GAIN]), cross["gate"]
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, media=None, *,
+            last_only: bool = False, on_layer=None):
     """tokens [B, S] -> (logits [B, S, V] f32, aux) (``last_only``: logits
     [B, 1, V], the head applied to the last position only); aux is the sum
     of the layers' MoE balance losses (f32; None for the dense block).
+    ``media`` [B, M, media_d]: a vlm's media embeddings (required there,
+    ignored elsewhere); a cross layer follows every ``cross_attn_every``-th
+    layer.
     ``on_layer(l, k, v, mc)`` receives each layer's roped K and V [B, S,
     Kv, hd] (None for "ssm") and the mixer's post-sequence
     :class:`MambaCache` (None but for ssm / hybrid): the prefill's cache
@@ -373,6 +456,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
     gains = _gains(layers)
     windows = _layer_windows(cfg)
     remat = cfg.remat == "block" and torch.is_grad_enabled() and _needs_grad(params)
+    media_emb = _media_emb(cfg, params, media, adt)
+    if media_emb is not None:
+        cross, cross_gains, gates = _cross_params(params)
     aux = None
     for l in range(cfg.num_layers):
         args = (cfg, _layer(layers, l), _layer(gains, l), windows[l], x, positions,
@@ -383,6 +469,11 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
             aux = aux_l if aux is None else aux + aux_l
         if on_layer is not None:
             on_layer(l, k, v, mc)
+        if media_emb is not None and (l + 1) % cfg.cross_attn_every == 0:
+            c = l // cfg.cross_attn_every
+            args = (cfg, _layer(cross, c), cross_gains[c], gates[c], x, media_emb)
+            x = (checkpoint(_cross_block, *args, use_reentrant=False) if remat
+                 else _cross_block(*args))
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
@@ -392,11 +483,12 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, last_only: bool =
 def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
     """Next-token cross-entropy (counterpart of ``repro``'s ``loss_fn``):
     ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.  ``batch["tokens"]``
-    [B, S] int32 or int64.  The gold logit is ``torch.gather``, which is
-    exactly ``repro``'s one-hot contraction for finite logits.  ``aux`` (the
-    MoE balance loss summed over the layers) is 0 for the dense family."""
+    [B, S] int32 or int64; a vlm's ``batch["media"]`` [B, M, media_d].  The
+    gold logit is ``torch.gather``, which is exactly ``repro``'s one-hot
+    contraction for finite logits.  ``aux`` (the MoE balance loss summed
+    over the layers) is 0 for the dense family."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens)
+    logits, aux = forward(cfg, params, tokens, batch.get("media"))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     lg = logits[:, :-1]
@@ -414,9 +506,10 @@ def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
 @dataclass
 class KVCache:
     """k, v: [L, B, S, Kv, feat] in the cache format's storage (takum/OFP8
-    bits, bf16 as torch.bfloat16, mx payload bytes); ``feat`` is hd, or
-    ``payload_len(hd)`` for an mx format; an "ssm" config's are empty
-    [L, B, 0, 1, 1] (f32).  pos: the next position to write.  conv, ssm
+    bits, bf16 as torch.bfloat16, f32 as torch.float32, mx payload bytes);
+    ``feat`` is hd, or ``payload_len(hd)`` for an mx format; an "ssm"
+    config's are empty [L, B, 0, 1, 1] (f32).  pos: the next position to
+    write.  conv, ssm
     (ssm and hybrid; else None): each layer's conv tail [L, B, w-1, F] and
     SSM state [L, B, nh, N, hd] (f32)."""
 
@@ -428,10 +521,11 @@ class KVCache:
 
 
 def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The cache tensor's dtype: the IEEE formats as their float dtype (the
+    values themselves, as ``repro`` stores them), the others as their wire
+    storage."""
     wf = wire_format(cfg.quant.kv_cache)
-    if wf.code is None:
-        raise NotImplementedError(f"no K6 kernel reads a {wf.name} KV cache in this slice")
-    return torch.bfloat16 if wf.name == "bf16" else wf.storage
+    return {"bf16": torch.bfloat16, "f32": torch.float32}.get(wf.name, wf.storage)
 
 
 def _cache_feat(cfg: ModelConfig, hd: int) -> int:
@@ -442,7 +536,8 @@ def _cache_feat(cfg: ModelConfig, hd: int) -> int:
 
 
 def _cache_bits(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
-    """The cache tensor as wire bits (a bf16 cache as a 16-bit view)."""
+    """The cache tensor as wire bits (a bf16 cache as a 16-bit view, an f32
+    one as a 32-bit view)."""
     return t.view(wire_format(cfg.quant.kv_cache).storage)
 
 
@@ -509,10 +604,12 @@ def _decode_cache(cfg: ModelConfig, t: torch.Tensor, hd: int | None = None) -> t
     return out if hd is None else out[..., :hd]
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | None = None):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, media=None, *,
+            cache_len: int | None = None):
     """Forward over the prompt, filling a fresh packed KV cache (and the
     conv tails and SSM states).  Returns (logits [B, V] of the last
-    position, cache).  ``cache_len`` > S leaves room for decode steps."""
+    position, cache).  ``cache_len`` > S leaves room for decode steps;
+    ``media``: a vlm's media embeddings [B, M, media_d]."""
     B, S = tokens.shape
     mixer = cfg.family in ("ssm", "hybrid")
     cache = init_cache(cfg, B, cache_len or S, tokens.device,
@@ -525,7 +622,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, cache_len: int | 
             cache.conv[l].copy_(mc.conv)
             cache.ssm[l].copy_(mc.ssm)
 
-    logits, _ = forward(cfg, params, tokens, last_only=True, on_layer=on_layer)
+    logits, _ = forward(cfg, params, tokens, media, last_only=True, on_layer=on_layer)
     cache.pos = S
     return logits[:, 0], cache
 
@@ -540,11 +637,13 @@ def _mixer_step(cfg: ModelConfig, pr, h, cache: KVCache, l: int):
     return y
 
 
-def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache, media=None):
     """One decode step: token [B] -> (logits [B, V], cache).  Appends this
     position's K/V to ``cache`` in place (before attention reads it, as
     ``repro`` does), steps each layer's conv tail and SSM state in place,
-    and advances ``cache.pos``.  An "ssm" cache has no positions to fill."""
+    and advances ``cache.pos``.  An "ssm" cache has no positions to fill.
+    A vlm projects ``media`` [B, M, media_d] and each cross layer's media
+    K/V anew in this step, as ``repro`` does."""
     B = token.shape[0]
     S = cache.k.shape[2]
     pos = cache.pos
@@ -557,6 +656,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
     layers = params["layers"]
     gains = _gains(layers)
     windows = _layer_windows(cfg)
+    media_emb = _media_emb(cfg, params, media, adt)
+    if media_emb is not None:
+        cross, cross_gains, gates = _cross_params(params)
     for l in range(cfg.num_layers):
         lp, gl = _layer(layers, l), _layer(gains, l)
         in_dtype = x.dtype
@@ -587,6 +689,10 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KVCache):
         else:
             out = _mlp_or_moe(cfg, lp, h2)[0]
         x = _residual(cfg, x, out, gl, "ln2_post").to(in_dtype)
+        if media_emb is not None and (l + 1) % cfg.cross_attn_every == 0:
+            c = l // cfg.cross_attn_every
+            x = _cross_block(cfg, _layer(cross, c), cross_gains[c], gates[c], x[:, None],
+                             media_emb)[:, 0]
     cache.pos = pos + 1
     x = rms_norm(x, _gain(params["final_norm"]), cfg.norm_eps)
     return _head(cfg, params, x), cache

@@ -30,11 +30,13 @@ def _map(fn, tree):
 def quantize_params(cfg, params: dict) -> dict:
     """Pack weights into ``cfg.quant.weights``.  IEEE formats are a plain
     cast of every leaf.  Otherwise every leaf with ndim >= 2 (the embedding,
-    the stacked norm gains, every weight and the head, and every stacked
-    :class:`MambaParams` leaf) becomes a QTensor with
+    the stacked norm gains, every weight and the head, every stacked
+    :class:`MambaParams` leaf, and a vlm's ``media_proj`` and
+    ``cross_layers`` leaves but its gates) becomes a QTensor with
     one pow2 scale per leaf, over all layers of a stacked leaf (an mx
     format: one E8M0 scale per 32-block of the last axis); 1-D leaves stay
-    f32.  Each leaf is packed through K2 on the card."""
+    f32 (a vlm's ``cross_layers.gate`` [Lc] among them).  Each leaf is
+    packed through K2 on the card."""
     wf = wire_format(cfg.quant.weights)
     if wf.family == "ieee":
         dt = torch.bfloat16 if wf.name == "bf16" else torch.float32
@@ -62,31 +64,38 @@ def load_params(params: dict) -> dict:
     packed leaves that no matmul reads (the stacked norm gains
     ``layers.ln1``/``ln2``, gemma2's ``ln1_post``/``ln2_post``, and the
     mixer's ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``D`` and
-    ``norm_g``).  Every other leaf is passed through as it is, so the
-    weights (the mixer's ``in_proj`` and ``out_proj`` too) and the
-    embedding (a tied head's table too) stay packed."""
+    ``norm_g``, and a vlm's cross-layer gains ``cross_layers.ln``).  Every
+    other leaf is passed through as it is, so the weights (the mixer's
+    ``in_proj`` and ``out_proj``, the cross layers' and ``media_proj``
+    too) and the embedding (a tied head's table too) stay packed."""
     layers = {k: _decoded(v) if k in T.GAINS else v for k, v in params["layers"].items()}
     if "ssm" in layers:
         pr = layers["ssm"]
         layers["ssm"] = pr._replace(**{k: _decoded(getattr(pr, k)) for k in SMALL_LEAVES})
-    return {**params, "layers": layers}
+    out = {**params, "layers": layers}
+    if "cross_layers" in params:
+        cross = params["cross_layers"]
+        out["cross_layers"] = {**cross, T.CROSS_GAIN: _decoded(cross[T.CROSS_GAIN])}
+    return out
 
 
 def make_prefill_step(cfg, cache_len: int | None = None):
     """``step(params, batch) -> (last_logits [B, V], cache)``; ``batch`` holds
-    ``tokens`` [B, S].  ``cache_len`` sizes the cache for later decode steps."""
+    ``tokens`` [B, S] (and a vlm's ``media`` [B, M, media_d]).  ``cache_len``
+    sizes the cache for later decode steps."""
 
     def step(params, batch):
-        return T.prefill(cfg, params, batch["tokens"], cache_len=cache_len)
+        return T.prefill(cfg, params, batch["tokens"], batch.get("media"), cache_len=cache_len)
 
     return step
 
 
 def make_serve_step(cfg):
     """``step(params, batch, cache) -> (logits [B, V], cache)`` for one token
-    (``batch["token"]`` [B]); the cache is updated in place."""
+    (``batch["token"]`` [B]; a vlm's ``batch["media"]`` [B, M, media_d],
+    projected anew every step); the cache is updated in place."""
 
     def step(params, batch, cache):
-        return T.decode_step(cfg, params, batch["token"], cache)
+        return T.decode_step(cfg, params, batch["token"], cache, batch.get("media"))
 
     return step

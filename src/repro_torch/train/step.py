@@ -60,7 +60,9 @@ def init_state(cfg, seed: int = 0, *, device=None) -> TrainState:
 
 
 def make_train_step(cfg, *, lr=3e-4, aux_weight: float = 0.01):
-    """``step(state, batch, rnd=None) -> (state, metrics)``; metrics
+    """``step(state, batch, rnd=None) -> (state, metrics)``; ``batch``
+    holds ``tokens`` (and a vlm's ``media``), moved to the params' device;
+    metrics
     ``loss`` (ce + aux), ``ce``, ``aux`` and ``grad_ok`` (1.0 when every
     gradient is finite), 0-d tensors on the params' device.  ``rnd``
     replaces the SR draws (``optim.adamw``'s supplier), as the tests do
@@ -77,7 +79,8 @@ def make_train_step(cfg, *, lr=3e-4, aux_weight: float = 0.01):
         live = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
             loss, metrics = T.loss_fn(cfg, tree.unflatten(spec, live),
-                                      {"tokens": batch["tokens"].to(dev)}, aux_weight=aux_weight)
+                                      {k: batch[k].to(dev) for k in ("tokens", "media")
+                                       if k in batch}, aux_weight=aux_weight)
             loss.backward()
         grads = [p.grad for p in live]
         with torch.no_grad():

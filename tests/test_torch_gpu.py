@@ -1307,3 +1307,218 @@ def test_moe_serve_step_launches_per_layer(cuda):
                       "takum_decode_attention[lut]": L, "takum_decode_rows[lut]": 1}, counts
     assert torch.isfinite(logits).all() and cache.pos == 17
     ops.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# the f32 KV cache: K1 / K2 / K6 over raw f32 bits
+# ---------------------------------------------------------------------------
+
+
+def _f32_words(n, seed):
+    """n uint32 words: random patterns (subnormals, NaN payloads and +-Inf
+    among them), then the named classes."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g, dtype=torch.int64)
+    named = torch.tensor([0, -(1 << 31), 1, 0x007FFFFF, 0x7F800000, -0x00800000, 0x7FC00000,
+                          0x7F800001, 0x7FBFFFFF, 0x7FF00F0F, -0x003EDCBB], dtype=torch.int64)
+    k = min(n, named.numel())
+    w[:k] = named[:k]
+    return w.to(torch.int32).view(torch.uint32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 7, 4096, (1 << 20) + 3))
+def test_f32_codecs_move_raw_bits(cuda, n):
+    """K2 of f32 is the raw bits (no DAZ: subnormals, -0 and NaN payloads
+    kept) and K1 the bitcast back, bit for bit against the plain versions,
+    on views offset by 4 to 12 bytes too; K1 into bf16 rounds as the plain
+    version does."""
+    words = _f32_words(n + 3, n)
+    for off in (0, 1, 3):
+        w = words[off:off + n].reshape(1, n)
+        x = w.view(torch.float32)
+        got = takum_encode_2d(x.to(cuda), "f32")
+        assert got.dtype == torch.uint32
+        assert torch.equal(got.cpu().view(torch.int32), w.view(torch.int32))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           encode_2d_plain(x, "f32").view(torch.int32))
+        dec = takum_decode_2d(got, "f32")
+        assert torch.equal(dec.cpu().view(torch.int32), w.view(torch.int32))
+    rows = torch.randint(0, 64, (5, 3), device=cuda)
+    table = _f32_words(64 * 40, 3).reshape(64, 40)
+    for dt in (torch.float32, torch.bfloat16):
+        got = takum_decode_rows(table.to(cuda), rows, "f32", out_dtype=dt)
+        want = decode_rows_plain(table, rows.cpu(), "f32", out_dtype=dt)
+        assert _same_f32(got.float().cpu(), want.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src_dt", (torch.float32, torch.bfloat16))
+def test_f32_append_into_cache_slots(cuda, src_dt):
+    """One K2 launch appends a pair (K and V) into an f32 cache's slots,
+    the raw bits of the (widened) source, the bytes around them untouched,
+    equal to the plain version."""
+    B, S, Kv, hd, cap = 4, 5, 8, 128, 16
+    k, v = (_rand((B * S * Kv, hd), s).to(src_dt) for s in (140, 141))
+    cache = torch.full((2, B, cap * Kv * hd), 0x5A5A5A5A, dtype=torch.int32).view(torch.uint32)
+    want = cache.clone()
+
+    def slots(c):
+        return [c[i][:, 3 * Kv * hd:(3 + S) * Kv * hd] for i in range(2)]
+
+    on = cache.to(cuda)
+    ops.reset_launch_counts()
+    takum_encode_into((k.to(cuda), v.to(cuda)), slots(on), "f32")
+    assert ops.launch_counts()["takum_encode_into[bits]"] == 1
+    encode_into_plain((k, v), slots(want), "f32")
+    assert torch.equal(on.cpu().view(torch.int32), want.view(torch.int32))
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["llama3_8b", "vlm", "gemma2", "granite"])
+def test_attention_over_an_f32_cache(cuda, shape):
+    """K6 over raw f32 K/V (512 B a row at hd 128, 1 KiB at gemma2's 256):
+    within 1e-5 max|v| of the plain version, at llama3-8b's decode shape
+    (g 4), the vlm's (g 8), gemma2's (hd 256, softcap, window) and
+    granite's (g 48), the same bits on a second launch."""
+    B, H, Kv, hd = {"llama3_8b": (4, 32, 8, 128), "vlm": (4, 64, 8, 128),
+                    "gemma2": (2, 8, 4, 256), "granite": (2, 48, 1, 128)}[shape]
+    S = 300
+    kv = takum_encode_2d(_rand((B * S * Kv, hd), 150), "f32").reshape(B, S, Kv, hd)
+    vv = takum_encode_2d(_rand((B * S * Kv, hd), 151), "f32").reshape(B, S, Kv, hd)
+    k, v = kv.permute(0, 2, 1, 3), vv.permute(0, 2, 1, 3)
+    q = _rand((B, H, hd), 152)
+    vmax = vv.view(torch.float32).abs().max()
+    for length, window, cap in ((288, 0, 0.0), (300, 100, 50.0), (37, 16, 0.0)):
+        args = dict(length=length, window=window, softcap=cap)
+        got = takum_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), "f32", **args)
+        again = takum_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), "f32", **args)
+        assert _same_f32(got, again)
+        want = decode_attention_plain(q, k, v, "f32", length, window, cap)
+        assert (got.cpu() - want).abs().max() <= 1e-5 * vmax, (length, window)
+    with pytest.raises(ValueError):
+        takum_decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), "f32", decode_impl="lut")
+
+
+# ---------------------------------------------------------------------------
+# the vlm, and the f32 cache in every arch
+# ---------------------------------------------------------------------------
+
+
+def _gate_on(qp, seed):
+    """Draw the cross layers' gates nonzero (N(0, 1)): at their init of zero
+    tanh(0) = 0 takes the whole cross path out of the logits."""
+    gate = qp["cross_layers"]["gate"]
+    gate.copy_(_rand(tuple(gate.shape), seed).to(gate.device, gate.dtype))
+    return qp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ("f32", "bf16"))
+@pytest.mark.parametrize("policy", ("takum", "takum8"))
+def test_vlm_kernel_path_against_plain(cuda, policy, act):
+    """llama-3.2-vision-90b's smoke config served on the card (prefill of 8,
+    6 decode steps, media on the card, gates nonzero): the kernel path
+    against ``ops.plain_path()`` on the same tree, teacher-forced, within
+    1e-3 of max|logit| at f32 and 5e-2 at bf16 (phase (e)'s limits); per
+    call 7 K3 a layer, 4 a cross layer, one over the media and the head's;
+    per call one K2 a layer, per step one K6 a layer."""
+    import dataclasses
+
+    from repro_torch import configs, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.policy import POLICIES
+
+    cfg = configs.get_smoke("llama3_2_vision_90b").with_(
+        quant=dataclasses.replace(POLICIES[policy], activations=act))
+    qp = serve.load_params(_gate_on(serve.quantize_params(cfg, T.init_params(cfg, 7, device=cuda)),
+                                    160))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    media = _rand((2, cfg.num_media_tokens, cfg.media_d), 161).to(cuda)
+    runs = {}
+    for path in ("kernel", "plain"):
+        ops.reset_launch_counts()
+        ctx = ops.plain_path() if path == "plain" else torch.no_grad()
+        with ctx:
+            logits, cache = serve.make_prefill_step(cfg, 14)(qp, {"tokens": tokens, "media": media})
+            outs = [logits]
+            fed = runs.get("fed") or [None] * 6
+            feed = []
+            for i in range(6):
+                tok = logits.argmax(-1) if fed[i] is None else fed[i]
+                feed.append(tok)
+                logits, cache = serve.make_serve_step(cfg)(qp, {"token": tok, "media": media},
+                                                           cache)
+                outs.append(logits)
+        runs["fed"] = feed
+        runs[path] = torch.stack(outs)
+        if path == "kernel":
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+    impl = "bits" if policy == "takum" else "lut"  # the weights' codec; the t8 KV's is lut
+    L, Lc = cfg.num_layers, cfg.num_layers // cfg.cross_attn_every
+    assert counts == {f"takum_matmul[{impl}]": 7 * (7 * L + 4 * Lc + 2),
+                      "takum_encode_into[lut]": 7 * L,
+                      "takum_decode_attention[lut]": 6 * L,
+                      f"takum_decode_rows[{impl}]": 7}, counts
+    k, p = runs["kernel"], runs["plain"]
+    tol = 1e-3 if act == "f32" else 5e-2
+    assert torch.isfinite(k).all()
+    assert ((k - p).abs().amax(dim=(1, 2)) / p.abs().amax(dim=(1, 2))).max() <= tol
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["musicgen_large", "kimi_k2_1t_a32b", "dbrx_132b", "gemma2_2b",
+                                  "llama3_8b", "llama3_2_3b", "granite_34b", "hymba_1_5b",
+                                  "llama3_2_vision_90b", "mamba2_780m"])
+def test_f32_cache_prefill_decode_consistency(cuda, arch):
+    """``repro``'s consistency case on the card under an f32 KV cache (K2
+    appending raw bits, K6 reading them): prefill of 8 and 8 decode steps
+    against the full forward over 16 tokens, within 2e-2 (moe at capacity
+    factor E, the vlm's gates nonzero)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = configs.get_smoke(arch).with_(quant=QuantPolicy(kv_cache="f32", activations="f32"))
+    if cfg.family == "moe":
+        cfg = cfg.with_(moe_capacity_factor=float(cfg.num_experts))
+    params = T.init_params(cfg, 2, device=cuda)
+    media = None
+    if cfg.family == "vlm":
+        _gate_on(params, 170)
+        media = _rand((2, cfg.num_media_tokens, cfg.media_d), 171).to(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    full, _ = T.forward(cfg, params, tokens, media)
+    last, cache = T.prefill(cfg, params, tokens[:, :8], media, cache_len=16)
+    assert torch.allclose(last, full[:, 7], rtol=2e-2, atol=2e-2)
+    ops.reset_launch_counts()
+    for t in range(8, 16):
+        lg, cache = T.decode_step(cfg, params, tokens[:, t], cache, media)
+        assert torch.allclose(lg, full[:, t], rtol=2e-2, atol=2e-2), t
+    if cfg.family != "ssm":
+        assert ops.launch_counts()["takum_decode_attention[bits]"] == 8 * cfg.num_layers
+    ops.reset_launch_counts()
+
+
+@pytest.mark.gpu
+def test_prefill_takes_a_sliced_prompt(cuda):
+    """A prompt sliced from a longer token tensor (``tokens[:, :8]``, not
+    contiguous) through a packed embedding on the card: K1 reads the ids
+    made contiguous, the same logits and cache as from a contiguous copy."""
+    import dataclasses
+
+    from repro_torch import configs, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.policy import POLICIES
+
+    cfg = configs.get_smoke("llama3_8b").with_(
+        quant=dataclasses.replace(POLICIES["takum"], activations="f32"))
+    qp = serve.load_params(serve.quantize_params(cfg, T.init_params(cfg, 8, device=cuda)))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    sliced = tokens[:, :8]
+    assert not sliced.is_contiguous()
+    a, ca = T.prefill(cfg, qp, sliced, cache_len=10)
+    b, cb = T.prefill(cfg, qp, sliced.contiguous(), cache_len=10)
+    assert torch.equal(a, b) and torch.equal(ca.k, cb.k) and torch.equal(ca.v, cb.v)

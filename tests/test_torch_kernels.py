@@ -190,8 +190,8 @@ def test_masked_decode_attention_matches_model_math(fmt, pos, window, cap):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(4, 8)
-    with pytest.raises(ValueError):
-        takum_encode_2d(x, "f32")
+    with pytest.raises(KeyError):  # t32: not registered; repro's kernels refuse it too
+        takum_encode_2d(x, "t32")
     with pytest.raises(TypeError):
         takum_decode_2d(torch.zeros(4, 8, dtype=torch.uint8), "t16")
     with pytest.raises(ValueError):

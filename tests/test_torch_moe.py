@@ -2,7 +2,7 @@
 ``repro``.
 
 * ``configs.get`` / ``get_smoke`` equal ``repro``'s field for field; the
-  ssm, hybrid and vlm archs still raise.
+  ssm, hybrid and vlm archs load (ported since).
 * ``models.moe.moe_block`` against ``repro.models.moe.moe_block`` on inputs
   drawn with numpy from a seed, x f32 and bf16, with and without a shared
   expert, without drops (``cf = E``, as ``tests/test_arch_smoke.py``) and
@@ -107,10 +107,11 @@ def test_configs_equal_repro_field_for_field(arch, smoke):
 
 @pytest.mark.parametrize("arch", ["llama3_2_vision_90b"])
 def test_ssm_hybrid_and_vlm_still_raise(arch):
-    with pytest.raises(NotImplementedError):
-        configs.get(arch)
-    with pytest.raises(NotImplementedError):
-        configs.get_smoke(arch)
+    """The ssm, hybrid and vlm families are ported: the vlm arch loads, and
+    a vlm config without media tokens raises where repro asserts."""
+    assert configs.get(arch).family == "vlm"
+    with pytest.raises(ValueError):
+        configs.get_smoke(arch).with_(num_media_tokens=0)
 
 
 def test_moe_config_is_checked_as_repro_checks_it():

@@ -327,9 +327,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_families_raise():
+    """Every family of repro is ported; a family it lacks still raises, and
+    llama3-8b's config as a vlm (no cross layers) is refused as repro
+    refuses it."""
+    assert configs.get("llama3_2_vision_90b").family == "vlm"
     with pytest.raises(NotImplementedError):
-        configs.get("llama3_2_vision_90b")
-    with pytest.raises(NotImplementedError):
+        configs.get_smoke("llama3_8b").with_(family="encdec")
+    with pytest.raises(ValueError):
         configs.get_smoke("llama3_8b").with_(family="vlm")
 
 

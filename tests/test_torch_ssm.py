@@ -82,7 +82,7 @@ def test_ssm_configs_are_checked_as_repro_checks_them():
         with pytest.raises(AssertionError):
             jconfigs.get_smoke(arch).with_(**bad)
     assert configs.get("mamba2_780m").num_heads == 0  # attention-free: no heads check
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # a vlm needs cross layers, as repro asserts
         configs.get_smoke("llama3_8b").with_(family="vlm")
 
 

@@ -14,9 +14,8 @@ converter, against ``repro``.
   test_prefill_decode_consistency``) on the port: its prefill of 8 tokens
   and 8 decode steps reproduce its own full forward, mamba2 under
   ``kv_cache="f32"`` (no K/V: the format is never resolved) within 2e-2,
-  hymba under a bf16 KV cache within 2e-2 and under t16 by argmax
-  agreement above 0.8 (the port has no f32 KV cache: no K6 reads one,
-  ROADMAP M4).
+  hymba under a bf16 and an f32 KV cache (K6 reading raw f32 bits)
+  within 2e-2 and under t16 by argmax agreement above 0.8.
 * The launcher trains both archs for 2 smoke steps on the CPU.
 * The converter refuses a tree whose ``ssm`` / ``attn`` / ``mlp`` does not
   match the family, and takes ``MambaParams`` as a dict of its fields.
@@ -100,7 +99,8 @@ def test_loss_and_grads_match_repro(arch):
 
 
 #: (arch, KV cache format): repro's consistency case on the port
-CONSISTENCY = (("mamba2_780m", "f32"), ("hymba_1_5b", "bf16"), ("hymba_1_5b", "t16"))
+CONSISTENCY = (("mamba2_780m", "f32"), ("hymba_1_5b", "bf16"), ("hymba_1_5b", "t16"),
+               ("hymba_1_5b", "f32"))
 
 
 @pytest.mark.parametrize("arch,kv_fmt", CONSISTENCY)
