@@ -214,6 +214,24 @@ Phases, each of which must pass:
       over 16 tokens against a prefill of 8 and 8 decode steps, within
       2e-2) at full width: llama3-8b at 2 layers and the vlm at 5, t16
       weights.
+  (m) observability and the fault guards.  (m1) llama3-8b at full width
+      and depth under ``takum_guarded`` (t16 weights, t8 KV cache), B = 4,
+      prompt 256, 8 decode steps, uncaptured, under ``telemetry.capture()``
+      and uncaptured again: logits bit for bit, the same launches, each op's
+      ``kernel.calls`` equal to its launches, ``kv.bytes`` the config's,
+      ``kv.specials.t8`` 0; decode ms/token captured and uncaptured; one
+      uncaptured decode step's kernel count (torch.profiler) beside
+      PERF.md's 2960; the K3 and K6 spans' summed event time against the
+      profiler's device time of their kernels (at least 0.95).  (m2) the
+      prefill under ``faults.inject`` at a bit-flip rate of 1e-4 against a
+      clean one: each differing cache byte one bit off, their count within
+      6 binomial standard deviations, ``kv.specials.t8`` equal to the NaR
+      bytes counted on the host, the same seed the same bytes; mxfp8 at 2
+      layers with every scale byte NaN: ``kv.specials.mxe4m3`` 32 per
+      block.  (m3) the guarded step at (h3)'s shape: a poisoned step holds
+      every param and moment leaf and counts ``step.skipped``, a clean one
+      moves them; (m1)'s capture exported as JSONL and Chrome trace, read
+      back and validated.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -3475,6 +3493,339 @@ def phase_vlm(torch, dev, card):
     return dict(serving=serving, parity=parity, f32_cache=f32_cache)
 
 
+# ---------------------------------------------------------------------------
+# (m) observability and the fault guards on the card
+# ---------------------------------------------------------------------------
+
+#: (m1) serving shape: llama3-8b at full width and depth, B, prompt, decode steps
+OBS_B, OBS_S0, OBS_STEPS = 4, 256, 8
+#: the wrapper each observed op launches (``ops._observed``'s op names);
+#: matmul and matmul_t share ``takum_matmul``, the latter's keys end in "^T"
+OBS_WRAPPER = {"encode": "takum_encode_2d", "decode": "takum_decode_2d",
+               "encode_into": "takum_encode_into", "decode_rows": "takum_decode_rows",
+               "matmul": "takum_matmul", "matmul_t": "takum_matmul",
+               "dual_matmul": "takum_dual_matmul", "decode_attention": "takum_decode_attention"}
+#: (m2) the bit-flip rate of the fault census, and how many standard
+#: deviations of the binomial count the flipped bytes may stray
+OBS_FLIP_RATE, OBS_FLIP_SD = 1e-4, 6.0
+#: PERF.md's kernel count of one takum decode step of llama3-8b (phase (d)'s profile)
+DECODE_KERNELS_BEFORE = 2960
+
+
+def launches_by_op(counts):
+    """``launch_counts()`` summed by the observed op that launches each
+    wrapper: {op: launches}."""
+    out = {}
+    for key, n in counts.items():
+        wrapper, impl = key.split("[", 1)
+        for op, w in OBS_WRAPPER.items():
+            if w == wrapper and (op == "matmul_t") == impl.endswith("^T]"):
+                out[op] = out.get(op, 0) + n
+    return {op: n for op, n in out.items() if n}
+
+
+def calls_by_op(ctrs):
+    """``kernel.calls.<op>.<fmt>`` counters summed by op."""
+    out = {}
+    for tag, v in ctrs.items():
+        if tag.startswith("kernel.calls."):
+            op = tag.split(".")[2]
+            out[op] = out.get(op, 0) + int(v)
+    return out
+
+
+def profiled_step(torch, fn):
+    """``fn()`` under torch.profiler: (its result, device ms by kernel name,
+    the kernels launched but copies and sets)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if "CUDA" in str(getattr(ev, "device_type", ""))
+                  and not ev.key.startswith(("Memcpy", "Memset")))
+    return out, device_ms_by_name(prof), kernels
+
+
+def obs_model(torch, dev, cfg):
+    """A packed, loaded tree of ``cfg`` (seed 0) and (m)'s prompt."""
+    from repro_torch import serve
+
+    qp = serve.load_params(packed_params(torch, cfg, seed=0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    return qp, torch.randint(0, cfg.vocab_size, (OBS_B, OBS_S0), generator=gen, device=dev)
+
+
+def obs_serving(torch, dev, card):
+    """(m1) llama3-8b at full width and depth under ``takum_guarded`` (t16
+    weights, t8 KV cache), B = 4, prompt 256, 8 greedy decode steps: run
+    uncaptured, under ``telemetry.capture()``, and uncaptured again.  The
+    logits of the three runs equal bit for bit; the captured run's launches
+    equal the uncaptured one's (a capture launches no kernel of the port);
+    each op's ``kernel.calls`` equals its launches; ``kv.bytes`` is the
+    config's and ``kv.specials.t8`` is 0.  Then one uncaptured decode step
+    under torch.profiler (its kernel count beside ``DECODE_KERNELS_BEFORE``)
+    and one captured one: the ``kernel.matmul.*`` and
+    ``kernel.decode_attention.*`` spans' summed event ms against the
+    profiler's device ms of K3's and K6's kernels, each ratio >= 0.95 (an
+    event pair brackets its kernels).  Returns the results and the captured
+    run's snapshot."""
+    from repro_torch import configs, serve
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.quant.policy import POLICIES
+
+    cfg = configs.get("llama3_8b").with_(quant=POLICIES["takum_guarded"])
+    L, Kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    qp, prompt = obs_model(torch, dev, cfg)
+    prefill = serve.make_prefill_step(cfg, cache_len=OBS_S0 + OBS_STEPS + 2)
+    step = serve.make_serve_step(cfg)
+
+    def run():
+        ops.reset_launch_counts()
+        logits, cache = prefill(qp, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [logits]
+        for _ in range(OBS_STEPS):
+            logits, cache = step(qp, {"token": torch.argmax(logits, -1)}, cache)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / OBS_STEPS * 1e3
+        return torch.stack(outs), cache, ms, {k: v for k, v in ops.launch_counts().items() if v}
+
+    plain, _, ms_before, launches = run()
+    with telemetry.capture():
+        logits, cache, ms_captured, launches_captured = run()
+        snap = telemetry.snapshot()
+    again, _, ms_after, _ = run()
+    ctrs = snap["counters"]
+    check(same_bits_f32(torch, logits, plain) and same_bits_f32(torch, again, plain),
+          "m1: the captured run's logits differ from the uncaptured runs'")
+    check(launches_captured == launches,
+          f"m1: a capture changed the launches {launches_captured} vs {launches}")
+    calls, by_op = calls_by_op(ctrs), launches_by_op(launches)
+    check(calls == by_op, f"m1: kernel.calls by op {calls} != launches by op {by_op}")
+    kv_bytes = 2 * L * OBS_B * (OBS_S0 + OBS_STEPS) * Kv * hd
+    check(ctrs.get("kv.bytes.t8") == kv_bytes,
+          f"m1: kv.bytes.t8 {ctrs.get('kv.bytes.t8')}, want {kv_bytes}")
+    check(ctrs.get("kv.specials.t8") == 0.0, f"m1: kv.specials.t8 {ctrs.get('kv.specials.t8')}")
+    check(ctrs.get("kv.appends.t8") == 2 + 2 * L * OBS_STEPS,
+          f"m1: kv.appends.t8 {ctrs.get('kv.appends.t8')}")
+    spans = snap["spans"]
+    check(len(spans) == sum(calls.values()) and snap["dropped_spans"] == 0,
+          f"m1: {len(spans)} spans for {sum(calls.values())} calls")
+
+    tok = torch.argmax(logits[-1], -1)
+    _, _, uncaptured_kernels = profiled_step(torch, lambda: step(qp, {"token": tok}, cache))
+
+    def captured_step():
+        with telemetry.capture():
+            step(qp, {"token": tok}, cache)
+        return telemetry.spans()
+
+    step_spans, by_name, captured_kernels = profiled_step(torch, captured_step)
+    ratios = {}
+    for cls, op in (("k3", "kernel.matmul."), ("k6", "kernel.decode_attention.")):
+        span_ms = sum((s["t1"] - s["t0"]) * 1e3 for s in step_spans if s["name"].startswith(op))
+        prof_ms = sum(v for k, v in by_name.items() if kernel_class(k) == cls)
+        ratios[cls] = dict(span_ms=span_ms, profiler_ms=prof_ms,
+                           ratio=span_ms / prof_ms if prof_ms else None)
+        check(prof_ms > 0 and span_ms / prof_ms >= 0.95,
+              f"m1: {cls} spans {span_ms:.4f} ms against the profiler's {prof_ms:.4f} ms")
+    out = dict(arch=cfg.name, policy="takum_guarded", batch=OBS_B, prompt=OBS_S0,
+               decode_steps=OBS_STEPS, decode_ms_per_token_uncaptured=ms_before,
+               decode_ms_per_token_captured=ms_captured,
+               decode_ms_per_token_uncaptured_after=ms_after,
+               kernels_one_uncaptured_decode_step=uncaptured_kernels,
+               kernels_one_captured_decode_step=captured_kernels,
+               kernels_before=DECODE_KERNELS_BEFORE, calls_by_op=calls, launches=launches,
+               kv={k: v for k, v in ctrs.items() if k.startswith("kv.")},
+               spans=len(spans), span_vs_profiler=ratios, card=card)
+    del qp, cache, logits, plain, again
+    torch.cuda.empty_cache()
+    return out, snap
+
+
+def cache_bytes(torch, cache, S):
+    """The K and V bytes of a cache's first S positions, as one uint8 tensor."""
+    return torch.cat([t[:, :, :S].contiguous().view(torch.uint8).reshape(-1)
+                      for t in (cache.k, cache.v)])
+
+
+def obs_fault_census(torch, dev, card):
+    """(m2) The fault census on (m1)'s model: a clean prefill, then the same
+    prefill under ``inject(FaultConfig(seed=5, bit_flip_rate=1e-4))`` and a
+    capture, then again with the same seed.  Every cache byte that differs
+    from the clean cache differs in one bit, their count lies within
+    ``OBS_FLIP_SD`` binomial standard deviations of rate x bytes,
+    ``kv.specials.t8`` equals the NaR codes (0x80) counted on the host in
+    the written slots, and the second run's cache equals the first's.  Then
+    mxfp8 at full width and 2 layers under ``scale_nan_rate=1.0``:
+    ``kv.specials.mxe4m3`` is 32 x the appended blocks."""
+    from repro_torch import configs, serve
+    from repro_torch.core import telemetry
+    from repro_torch.dist import faults
+    from repro_torch.quant import blockscale
+    from repro_torch.quant.policy import POLICIES
+
+    cfg = configs.get("llama3_8b").with_(quant=POLICIES["takum_guarded"])
+    qp, prompt = obs_model(torch, dev, cfg)
+    prefill = serve.make_prefill_step(cfg, cache_len=OBS_S0)
+    clean = cache_bytes(torch, prefill(qp, {"tokens": prompt})[1], OBS_S0)
+    fcfg = faults.FaultConfig(seed=5, bit_flip_rate=OBS_FLIP_RATE)
+    runs = []
+    for _ in range(2):
+        with faults.inject(fcfg), telemetry.capture() as ctrs:
+            logits, cache = prefill(qp, {"tokens": prompt})
+        runs.append((logits, cache_bytes(torch, cache, OBS_S0), dict(ctrs)))
+        del cache
+    logits, bad, ctrs = runs[0]
+    check(torch.equal(bad, runs[1][1]), "m2: the same seed gave other cache bytes")
+    x = bad ^ clean
+    diff = x[x != 0].to(torch.int32)
+    check(bool(((diff & (diff - 1)) == 0).all()), "m2: a corrupted byte differs in more than one bit")
+    n, N = diff.numel(), clean.numel()
+    sd = math.sqrt(N * OBS_FLIP_RATE * (1 - OBS_FLIP_RATE))
+    check(abs(n - N * OBS_FLIP_RATE) <= OBS_FLIP_SD * sd,
+          f"m2: {n} of {N} bytes flipped, want {N * OBS_FLIP_RATE:.0f} +- {OBS_FLIP_SD * sd:.0f}")
+    nar = int((bad.cpu() == 0x80).sum())
+    check(ctrs.get("kv.specials.t8") == nar,
+          f"m2: kv.specials.t8 {ctrs.get('kv.specials.t8')}, NaR bytes on the host {nar}")
+    rows_nonfinite = int((~torch.isfinite(logits)).any(-1).sum())
+    del qp, clean, bad, runs, x
+    torch.cuda.empty_cache()
+
+    mcfg = configs.get("llama3_8b").with_(num_layers=2, quant=POLICIES["mxfp8"])
+    mqp, _ = obs_model(torch, dev, mcfg)
+    with faults.inject(faults.FaultConfig(seed=5, scale_nan_rate=1.0)), \
+            telemetry.capture() as mctrs:
+        serve.make_prefill_step(mcfg, cache_len=OBS_S0)(mqp, {"tokens": prompt})
+    blocks = (2 * mcfg.num_layers * OBS_B * OBS_S0 * mcfg.num_kv_heads
+              * blockscale.payload_len(mcfg.resolved_head_dim) // 33)
+    check(mctrs.get("kv.specials.mxe4m3") == 32 * blocks
+          and mctrs.get("kv.bytes.mxe4m3") == 33 * blocks,
+          f"m2: mxe4m3 kv.specials {mctrs.get('kv.specials.mxe4m3')}, want {32 * blocks}")
+    del mqp
+    torch.cuda.empty_cache()
+    return dict(flip_rate=OBS_FLIP_RATE, cache_bytes=N, bytes_flipped=n,
+                expected=N * OBS_FLIP_RATE, binomial_sd=sd, kv_specials_t8=nar,
+                kv_counters={k: v for k, v in ctrs.items() if k.startswith("kv.")},
+                nonfinite_logit_rows=rows_nonfinite, logit_rows=int(logits.shape[0]),
+                mx_blocks=blocks, mx_kv_specials=mctrs.get("kv.specials.mxe4m3"), card=card)
+
+
+def leaf_prints(torch, st):
+    """Per leaf of the params and of the moments (QTensor bits and scales):
+    (identity, version counter, int64 sum of its bits)."""
+    from repro_torch import tree
+
+    out = []
+    for t in tree.flatten(st.params)[0] + tree.flatten(st.opt.m)[0] + tree.flatten(st.opt.v)[0]:
+        w = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+        out.append((id(t), t._version, int(t.view(w).sum(dtype=torch.int64))))
+    return out
+
+
+def obs_guarded_step(torch, dev, card, snap):
+    """(m3) The guarded train step at (h3)'s shape (llama3-8b full width,
+    TRAIN_LAYERS layers, B = 4, S = 256) under ``takum_guarded``: one step
+    under ``inject(FaultConfig(grad_poison_rate=1.0))`` leaves every param
+    and moment leaf as it was (the same tensor, no in-place write, the same
+    bit sum) and counts ``step.skipped`` 1; one clean step after it moves
+    them (``step.skipped`` 0).  Then (m1)'s capture ``snap`` exported as
+    JSONL and Chrome trace into a temporary directory, read back and
+    validated."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core import telemetry
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import faults
+    from repro_torch.obs import trace_export
+    from repro_torch.quant.policy import POLICIES
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = configs.get("llama3_8b").with_(num_layers=TRAIN_LAYERS, quant=POLICIES["takum_guarded"])
+    st = init_state(cfg, 0, device=dev)
+    step = make_train_step(cfg)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=17).batch(0)
+    before = leaf_prints(torch, st)
+    t0 = time.perf_counter()
+    with faults.inject(faults.FaultConfig(seed=3, grad_poison_rate=1.0)), \
+            telemetry.capture() as ctrs:
+        st, m = step(st, batch)
+    poisoned_ms = (time.perf_counter() - t0) * 1e3
+    check(ctrs.get("step.skipped") == 1.0 and m["grad_ok"].item() == 0.0,
+          f"m3: poisoned step skipped {ctrs.get('step.skipped')}, grad_ok {m['grad_ok'].item()}")
+    check(leaf_prints(torch, st) == before, "m3: the skipped step changed a param or moment leaf")
+    check(st.opt.step.item() == 0, "m3: the skipped step advanced the optimizer")
+    t0 = time.perf_counter()
+    with telemetry.capture() as ctrs2:
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    after = leaf_prints(torch, st)
+    moved = sum(a[2] != b[2] for a, b in zip(after, before))
+    check(ctrs2.get("step.skipped") == 0.0 and m["grad_ok"].item() == 1.0
+          and st.opt.step.item() == 1 and moved >= len(before) // 2,
+          f"m3: the clean step moved {moved} of {len(before)} leaves")
+    step_span = [s for s in telemetry.spans() if s["name"] == "step.train"]
+    del st, m
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl, trace = f"{tmp}/obs.jsonl", f"{tmp}/obs_trace.json"
+        n_lines = trace_export.export_jsonl(jsonl, snap)
+        n_spans = trace_export.export_chrome_trace(trace, snap)
+        lines = trace_export.load_jsonl(jsonl)
+        evs = trace_export.validate_chrome_trace(trace_export.load_chrome_trace(trace))
+    check(len(lines) == n_lines and len(evs) == n_spans == len(snap["spans"]) > 0,
+          f"m3: exported {n_lines} lines / {n_spans} spans, read back {len(lines)} / {len(evs)}")
+    check({e["cat"] for e in evs} == {"kernel"}, "m3: span categories")
+    return dict(layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_S, leaves=len(before),
+                poisoned_step_ms=poisoned_ms, clean_step_ms=clean_ms, leaves_moved=moved,
+                step_span_ms=[(s["t1"] - s["t0"]) * 1e3 for s in step_span],
+                exported_lines=n_lines, exported_spans=n_spans, card=card)
+
+
+def phase_observability(torch, dev, card):
+    """(m) observability and the fault guards on the card: (m1) serving
+    captured against uncaptured, (m2) the fault census, (m3) the guarded
+    step and the trace export."""
+    t0 = time.perf_counter()
+    serving, snap = obs_serving(torch, dev, card)
+    log(f"(m1) llama3-8b takum_guarded B={OBS_B} prompt {OBS_S0}, {OBS_STEPS} decode steps: "
+        f"decode {serving['decode_ms_per_token_uncaptured']:.2f} ms/token uncaptured, "
+        f"{serving['decode_ms_per_token_captured']:.2f} captured, "
+        f"{serving['decode_ms_per_token_uncaptured_after']:.2f} uncaptured again; logits bit "
+        f"for bit; kernels of one uncaptured decode step (torch.profiler) "
+        f"{serving['kernels_one_uncaptured_decode_step']} (PERF.md: {DECODE_KERNELS_BEFORE}), "
+        f"captured {serving['kernels_one_captured_decode_step']}; kernel.calls by op "
+        f"{serving['calls_by_op']} = launches; kv {serving['kv']}; spans {serving['spans']}; "
+        f"span / profiler {json.dumps(serving['span_vs_profiler'])}; card: {card}")
+    census = obs_fault_census(torch, dev, card)
+    log(f"(m2) bit flips at {census['flip_rate']}: {census['bytes_flipped']} of "
+        f"{census['cache_bytes']} cache bytes (expected {census['expected']:.0f} +- "
+        f"{census['binomial_sd']:.0f}), one bit each, replayed; kv.specials.t8 "
+        f"{census['kv_specials_t8']} = NaR bytes on the host; non-finite logit rows "
+        f"{census['nonfinite_logit_rows']} of {census['logit_rows']}; mxfp8 2 layers, "
+        f"scale_nan_rate 1: kv.specials.mxe4m3 {census['mx_kv_specials']} = 32 x "
+        f"{census['mx_blocks']} blocks; card: {card}")
+    guarded = obs_guarded_step(torch, dev, card, snap)
+    log(f"(m3) guarded step, llama3-8b {guarded['layers']} layers B={guarded['batch']} "
+        f"S={guarded['seq']}: poisoned step skipped, {guarded['leaves']} leaves held bit for bit "
+        f"({guarded['poisoned_step_ms']:.1f} ms); clean step moved {guarded['leaves_moved']} "
+        f"({guarded['clean_step_ms']:.1f} ms); (m1)'s capture exported "
+        f"{guarded['exported_lines']} JSONL lines, {guarded['exported_spans']} trace spans, "
+        f"read back and valid; card: {card}")
+    seconds = time.perf_counter() - t0
+    log(f"(m) observability and fault guards on the card done in {seconds:.1f} s")
+    return dict(serving=serving, census=census, guarded=guarded, seconds=seconds)
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -3786,6 +4137,8 @@ def main() -> int:
     vlm = phase_vlm(torch, dev, card)
     log(f"(l) the vlm family and the f32 KV cache done in {time.perf_counter() - t0:.1f} s")
 
+    observability = phase_observability(torch, dev, card)
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -3872,7 +4225,7 @@ def main() -> int:
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
              other_archs=other, moe_kernels=moe_kernels, moe=moe, ssm=ssm, vlm=vlm,
-             total_s=time.perf_counter() - t_start), indent=1))
+             observability=observability, total_s=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

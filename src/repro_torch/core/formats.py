@@ -253,3 +253,98 @@ def kernel_wire_names() -> tuple[str, ...]:
     K1, K2 and K6 take it (an f32 KV cache)."""
     return tuple(name for name, wf in WIRE_FORMATS.items()
                  if wf.code is not None and wf.nbits <= 16)
+
+
+# ---------------------------------------------------------------------------
+# the special-code census (``repro``'s special-value telemetry)
+# ---------------------------------------------------------------------------
+#
+# One predicate per family over raw payload bits, no decode: takum has one
+# special code, NaR (the sign bit alone); e4m3 has NaN (S.1111.111); e5m2,
+# bf16 and f32 an all-ones exponent (Inf or NaN); an mx container's element
+# is special when its block's E8M0 scale byte is 255 (the NaN scale) or its
+# element byte is special in the element format.  The mask is per logical
+# element (mx: 32 lanes per 33-byte group), so ``count_specials`` over an
+# element count compares across families.  The compares run in int32 /
+# int64: CPU builds of torch have no compare on uint16 / uint32.
+
+
+def _as_codes(wf: WireFormat, bits: torch.Tensor) -> torch.Tensor:
+    """Payload bits (the storage dtype, its signed view, or the bf16 / f32
+    tensor itself) as non-negative int32 / int64 codes."""
+    if bits.dtype.is_floating_point:
+        bits = bits.view(wf.signed_storage)
+    if wf.nbits == 32:
+        return bits.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if wf.nbits == 16:
+        return bits.view(torch.int16).to(torch.int32) & 0xFFFF
+    return bits.view(torch.uint8).to(torch.int32)
+
+
+def _flat_special_mask(wf: WireFormat, u, xp):
+    """The special-code predicate of a flat format over codes ``u`` (numpy
+    unsigned, or non-negative torch ints); ``xp`` is numpy or torch."""
+    if wf.family == "takum":
+        return (u & ((1 << wf.nbits) - 1)) == 1 << (wf.nbits - 1)
+    if wf.name == "e4m3":
+        return (u & 0x7F) == 0x7F
+    if wf.name == "e5m2":
+        return (u & 0x7C) == 0x7C
+    if wf.name == "bf16":
+        return (u & 0x7FFF) >= 0x7F80
+    if wf.name == "f32":
+        return (u & 0x7FFFFFFF) >= 0x7F800000
+    raise KeyError(f"no special predicate for wire format {wf.name!r}")
+
+
+def _special_mask(payload, fmt, xp):
+    wf = wire_format(fmt)
+    if not wf.is_block_scaled:
+        if xp is np:
+            u = np.asarray(payload)
+            if not np.issubdtype(u.dtype, np.unsignedinteger):
+                u = u.view(wf.np_storage)
+            return _flat_special_mask(wf, u, np)
+        return _flat_special_mask(wf, _as_codes(wf, payload), torch)
+    L = payload.shape[-1]
+    if L % 33:
+        raise ValueError(f"{wf.name} payload last dim {L} is not a multiple of 33 "
+                         "(33-byte groups: [scale | 32 elems])")
+    nb = L // 33
+    lead = tuple(payload.shape[:-1])
+    if xp is np:
+        grp = np.asarray(payload).reshape(lead + (nb, 33))
+        elem = _flat_special_mask(wf.elem, grp[..., 1:], np)
+    else:
+        grp = payload.view(torch.uint8).reshape(lead + (nb, 33)).to(torch.int32)
+        elem = _flat_special_mask(wf.elem, grp[..., 1:], torch)
+    return (elem | (grp[..., :1] == 255)).reshape(lead + (nb * 32,))
+
+
+def special_mask(payload: torch.Tensor, fmt) -> torch.Tensor:
+    """Per-element bool mask: which logical elements of a wire payload decode
+    to a non-finite value (an mx payload [..., nb*33] gives [..., nb*32])."""
+    return _special_mask(payload, fmt, torch)
+
+
+def special_mask_np(payload, fmt) -> np.ndarray:
+    """The numpy twin of :func:`special_mask` (the same predicates)."""
+    return _special_mask(payload, fmt, np)
+
+
+def count_specials(payload: torch.Tensor, fmt) -> torch.Tensor:
+    """The number of special (non-finite-decoding) elements of a wire payload,
+    as a 0-d int32 tensor on the payload's device (never read back here):
+    NaR codes for takum, NaN / Inf codes for OFP8, bf16 and f32, NaN-scale
+    blocks (32 elements each) plus corrupted element bytes for the mx
+    containers."""
+    return torch.sum(special_mask(payload, fmt), dtype=torch.int32)
+
+
+def special_fraction(payload: torch.Tensor, fmt) -> torch.Tensor:
+    """``count_specials`` over the logical element count, a 0-d float32
+    tensor: the health quantity the degradation ladder thresholds on."""
+    n = payload.numel()
+    if wire_format(fmt).is_block_scaled:
+        n = n // 33 * 32
+    return count_specials(payload, fmt).to(torch.float32) / max(n, 1)

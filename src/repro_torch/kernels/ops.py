@@ -33,6 +33,18 @@ bit to ``encode(<the unfused output>, out_fmt, encode_impl)`` (the contract
 of ``ref.fused_matmul_ref``).  A fused launch that cannot run raises; it
 never gives way to the unfused kernel followed by ``encode``.
 
+Under a :func:`repro_torch.core.telemetry.capture` every op is observed as
+in ``repro`` (``_observed``): one ``kernel.calls.<op>.<fmt>`` counter a
+call, ``kernel.wire_bytes.<op>`` charged with the packed bytes it moved
+(the packed operands, and the packed output of ``encode``, ``encode_into``
+and the ``out_fmt`` producers), and a ``kernel.<op>.<fmt>`` span of category
+``kernel`` timed by a pair of CUDA events around the launch on the card.
+The port's own entries take their own ``op`` names: ``encode_into``,
+``decode_rows`` (charged the rows it reads) and ``matmul_t``.  These count
+calls of the ops; the kernels actually launched stay :func:`launch_counts`
+(K5's autograd Function calls its wrappers directly, unobserved).
+Outside a capture an op adds nothing.
+
 On CUDA tensors the ops launch the kernels; on CPU tensors the kernel
 wrappers take their plain versions.  Inside ``with plain_path():`` every op
 takes its plain version on any device: it is the explicit reference mode
@@ -47,6 +59,7 @@ import math
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.formats import kernel_wire_names, wire_format
 from .lut import DECODE_IMPLS, resolve_impl
 from .takum_attention import decode_attention_plain, takum_decode_attention
@@ -117,6 +130,30 @@ def reset_launch_counts() -> None:
         fn.launches = dict.fromkeys(DECODE_IMPLS, 0)
 
 
+def _nbytes(*ts) -> float:
+    """Bytes of tensors (a number counts as itself)."""
+    return float(sum(t if isinstance(t, (int, float)) else t.numel() * t.element_size()
+                     for t in ts))
+
+
+def _observed(op: str, name: str, device, call, *wire, out_is_wire: bool = False):
+    """Run ``call()``, observed under a telemetry capture (see the module
+    docstring): the call counter, the wire bytes of ``wire`` (and of the
+    output, or outputs, when ``out_is_wire``), and the ``kernel.<op>.<fmt>``
+    span, CUDA events on ``device``.  Outside a capture it only runs
+    ``call()``."""
+    if not telemetry.enabled():
+        return call()
+    telemetry.emit(f"kernel.calls.{op}.{name}", 1.0)
+    with telemetry.trace_span(f"kernel.{op}.{name}", cat="kernel", device=device):
+        out = call()
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = _nbytes(*wire) + (_nbytes(*outs) if out_is_wire else 0.0)
+    if nbytes:
+        telemetry.emit(f"kernel.wire_bytes.{op}", nbytes)
+    return out
+
+
 def _as_2d(x: torch.Tensor):
     """ND -> 2-D view for the element-wise codec kernels.  Returns
     ``(x2d, orig_shape_or_None)``; 0-d becomes [1, 1], 1-D one row, >= 3-D
@@ -176,9 +213,14 @@ def encode(x: torch.Tensor, fmt, encode_impl=None) -> torch.Tensor:
     wf = wire_format(fmt)
     _check_mx_encode_input(x, wf)
     impl = resolve_impl(encode_impl, wf, "encode")
-    x2, shape = _as_2d(x.to(torch.float32).contiguous())
-    out = takum_encode_2d(x2, wf, impl) if _PLAIN_ACC is None else encode_2d_plain(x2, wf, impl)
-    return _reshape_back(out, shape)
+
+    def call():
+        x2, shape = _as_2d(x.to(torch.float32).contiguous())
+        out = takum_encode_2d(x2, wf, impl) if _PLAIN_ACC is None else encode_2d_plain(x2, wf,
+                                                                                       impl)
+        return _reshape_back(out, shape)
+
+    return _observed("encode", wf.name, x.device, call, out_is_wire=True)
 
 
 def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
@@ -187,9 +229,14 @@ def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     wf = wire_format(fmt)
     _check_mx_payload(bits, wf, "decode payload")
     impl = resolve_impl(decode_impl, wf)
-    b2, shape = _as_2d(bits.contiguous())
-    out = takum_decode_2d(b2, wf, impl) if _PLAIN_ACC is None else decode_2d_plain(b2, wf, impl)
-    return _reshape_back(out, shape)
+
+    def call():
+        b2, shape = _as_2d(bits.contiguous())
+        out = takum_decode_2d(b2, wf, impl) if _PLAIN_ACC is None else decode_2d_plain(b2, wf,
+                                                                                       impl)
+        return _reshape_back(out, shape)
+
+    return _observed("decode", wf.name, bits.device, call, bits)
 
 
 def encode_into(srcs, dsts, fmt, encode_impl=None) -> None:
@@ -198,10 +245,12 @@ def encode_into(srcs, dsts, fmt, encode_impl=None) -> None:
     :func:`~repro_torch.kernels.takum_codec.takum_encode_into`."""
     wf = wire_format(fmt)
     impl = resolve_impl(encode_impl, wf, "encode")
-    if _PLAIN_ACC is None:
-        takum_encode_into(srcs, dsts, wf, impl)
-    else:
-        encode_into_plain(srcs, dsts, wf, impl)
+
+    def call():
+        (takum_encode_into if _PLAIN_ACC is None else encode_into_plain)(srcs, dsts, wf, impl)
+        return tuple(dsts)
+
+    _observed("encode_into", wf.name, dsts[0].device, call, out_is_wire=True)
 
 
 def decode_rows(bits: torch.Tensor, rows: torch.Tensor, fmt, decode_impl=None, scale=None,
@@ -212,9 +261,15 @@ def decode_rows(bits: torch.Tensor, rows: torch.Tensor, fmt, decode_impl=None, s
     wf = wire_format(fmt)
     _check_mx_payload(bits, wf, "decode_rows bits")
     impl = resolve_impl(decode_impl, wf)
-    if _PLAIN_ACC is None:
-        return takum_decode_rows(bits, rows, wf, impl, scale, out_dtype)
-    return decode_rows_plain(bits, rows, wf, impl, scale, out_dtype)
+
+    def call():
+        fn = takum_decode_rows if _PLAIN_ACC is None else decode_rows_plain
+        return fn(bits, rows, wf, impl, scale, out_dtype)
+
+    if not telemetry.enabled():
+        return call()
+    row_bytes = bits[0].numel() * bits.element_size() if bits.dim() else 0
+    return _observed("decode_rows", wf.name, bits.device, call, rows.numel() * row_bytes)
 
 
 def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None, out_fmt=None,
@@ -225,19 +280,30 @@ def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
     wf = wire_format(fmt)
     _check_mx_payload(w_bits, wf, "matmul w_bits")
     impl = resolve_impl(decode_impl, wf)
-    if _PLAIN_ACC is None:
-        return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt, encode_impl)
-    return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt, encode_impl)
+
+    def call():
+        if _PLAIN_ACC is None:
+            return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt,
+                                encode_impl)
+        return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt, encode_impl)
+
+    return _observed("matmul", wf.name, x.device, call, w_bits,
+                     out_is_wire=out_fmt is not None)
 
 
 def matmul_t(x: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     """x [M, K] float32 @ decode(w_bits [N, K]).T -> [M, N] float32: the
     transposed K3 (K5's backward launch), reading the stored bits in place;
     flat formats only.  Counts on ``takum_matmul`` under ``"impl^T"``."""
-    impl = resolve_impl(decode_impl, wire_format(fmt))
-    if _PLAIN_ACC is None:
-        return takum_matmul_t(x.contiguous(), w_bits.contiguous(), fmt, impl)
-    return takum_matmul_t_plain(x, w_bits, fmt, _PLAIN_ACC, impl)
+    wf = wire_format(fmt)
+    impl = resolve_impl(decode_impl, wf)
+
+    def call():
+        if _PLAIN_ACC is None:
+            return takum_matmul_t(x.contiguous(), w_bits.contiguous(), fmt, impl)
+        return takum_matmul_t_plain(x, w_bits, fmt, _PLAIN_ACC, impl)
+
+    return _observed("matmul_t", wf.name, x.device, call, w_bits)
 
 
 def dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
@@ -250,11 +316,16 @@ def dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_
     _check_mx_payload(x_bits, wf, "dual_matmul x_bits")
     _check_mx_payload(w_bits, wf, "dual_matmul w_bits")
     impl = resolve_impl(decode_impl, wf)
-    if _PLAIN_ACC is None:
-        return takum_dual_matmul(x_bits.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt,
-                                 encode_impl)
-    return takum_dual_matmul_plain(x_bits, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt,
-                                   encode_impl)
+
+    def call():
+        if _PLAIN_ACC is None:
+            return takum_dual_matmul(x_bits.contiguous(), w_bits.contiguous(), wf, n, impl,
+                                     out_fmt, encode_impl)
+        return takum_dual_matmul_plain(x_bits, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt,
+                                       encode_impl)
+
+    return _observed("dual_matmul", wf.name, x_bits.device, call, x_bits, w_bits,
+                     out_is_wire=out_fmt is not None)
 
 
 def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0.0,
@@ -267,8 +338,11 @@ def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0
     _check_mx_payload(k_bits, wf, "decode_attention k_bits")
     _check_mx_payload(v_bits, wf, "decode_attention v_bits")
     impl = resolve_impl(decode_impl, wf)
-    if _PLAIN_ACC is None:
-        return takum_decode_attention(q.contiguous(), k_bits, v_bits, wf, length, window, softcap,
-                                      scale, impl, out_fmt, encode_impl)
-    return decode_attention_plain(q.contiguous(), k_bits, v_bits, wf, length, window, softcap,
-                                  scale, impl, out_fmt, encode_impl)
+
+    def call():
+        fn = takum_decode_attention if _PLAIN_ACC is None else decode_attention_plain
+        return fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale, impl,
+                  out_fmt, encode_impl)
+
+    return _observed("decode_attention", wf.name, q.device, call, k_bits, v_bits,
+                     out_is_wire=out_fmt is not None)

@@ -93,8 +93,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.formats import wire_format
+from repro_torch.core import telemetry
+from repro_torch.core.formats import count_specials, wire_format
 from repro_torch.device import resolve_device
+from repro_torch.dist import faults
 from repro_torch.kernels import ops
 from repro_torch.kernels.takum_codec import table_rows
 from repro_torch.quant import blockscale
@@ -578,11 +580,20 @@ def _conv_dtype(cfg: ModelConfig, params) -> torch.dtype:
 
 
 def _append_kv(cfg: ModelConfig, cache: KVCache, l: int, k: torch.Tensor, v: torch.Tensor,
-               start: int) -> None:
+               start: int, appends: int = 2) -> None:
     """Write layer ``l``'s K and V [B, S, Kv, hd] (activation dtype) into
     cache positions ``start .. start + S`` in place: one K2 launch for the
     pair (``ops.encode_into``), each batch row a run of ``S * Kv * feat``
-    storage elements at a pitch of ``cache_len * Kv * feat``."""
+    storage elements at a pitch of ``cache_len * Kv * feat``.
+
+    The append is a fault surface, as ``repro``'s ``_encode_cache``: inside
+    ``faults.inject`` the slots just written take ``faults.corrupt_payload``
+    (an mx cache whole 33-byte groups), and under a telemetry capture the
+    append counts ``kv.appends.<fmt>`` (``appends`` of them: ``repro``
+    encodes a prefill's K, then its V, of all layers in one call each, a
+    decode step's per layer), ``kv.specials.<fmt>`` and ``kv.bytes.<fmt>``
+    over those slots.  An f32 cache is exact storage: nothing to corrupt or
+    count."""
     wf = wire_format(cfg.quant.kv_cache)
     B, S, Kv, _ = k.shape
     if wf.is_block_scaled:
@@ -593,8 +604,21 @@ def _append_kv(cfg: ModelConfig, cache: KVCache, l: int, k: torch.Tensor, v: tor
         rows = _cache_bits(cfg, t[l]).view(B, t.shape[2] * Kv * feat)
         return rows[:, start * Kv * feat:(start + S) * Kv * feat]
 
-    ops.encode_into((k.view(B * S * Kv, -1), v.view(B * S * Kv, -1)),
-                    (slots(cache.k), slots(cache.v)), wf)
+    dsts = (slots(cache.k), slots(cache.v))
+    ops.encode_into((k.view(B * S * Kv, -1), v.view(B * S * Kv, -1)), dsts, wf)
+    if wf.name == "f32":
+        return
+    fc = faults.active()
+    if fc is not None and fc.corrupts_wire:
+        signed = wf.signed_storage  # CUDA builds of torch copy no uint16
+        for d in dsts:
+            d.view(signed).copy_(faults.corrupt_payload(d, wf).view(signed))
+    if telemetry.enabled():
+        if appends:
+            telemetry.emit(f"kv.appends.{wf.name}", float(appends))
+        for d in dsts:
+            telemetry.emit(f"kv.specials.{wf.name}", count_specials(d, wf))
+            telemetry.emit(f"kv.bytes.{wf.name}", float(d.numel() * d.element_size()))
 
 
 def _decode_cache(cfg: ModelConfig, t: torch.Tensor, hd: int | None = None) -> torch.Tensor:
@@ -616,8 +640,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, media=None, *,
                        _conv_dtype(cfg, params) if mixer else torch.float32)
 
     def on_layer(l, k, v, mc):
-        if k is not None:
-            _append_kv(cfg, cache, l, k, v, 0)
+        if k is not None:  # the prefill's appends count as repro's two calls
+            _append_kv(cfg, cache, l, k, v, 0, appends=2 if l == 0 else 0)
         if mc is not None:
             cache.conv[l].copy_(mc.conv)
             cache.ssm[l].copy_(mc.ssm)

@@ -15,6 +15,10 @@ OFP8 encode with stochastic rounding instead (``takum.takum_encode_sr``,
 ``ofp8.encode_sr``: plain PyTorch, as ``repro``'s SR encode is jnp), in
 chunks of at most ``SR_CHUNK`` elements; bf16 and the mx containers stay
 RNE, as in ``repro``.
+
+Under a telemetry capture every ``quantize`` but f32's counts itself
+(``quant.calls.<fmt>``) and the special codes it produced
+(``quant.specials.<fmt>``, a device count: ``formats.count_specials``).
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import ofp8, takum
-from repro_torch.core.formats import wire_format
+from repro_torch.core import ofp8, takum, telemetry
+from repro_torch.core.formats import count_specials, wire_format
 from repro_torch.kernels import ops
 from . import blockscale
 
@@ -118,6 +122,15 @@ def _encode_sr(xs: torch.Tensor, wf, rnd_bits) -> torch.Tensor:
     return out.view(wf.storage).reshape(xs.shape)
 
 
+def _emit_health(q: QTensor) -> QTensor:
+    """``quant.calls.<fmt>`` and ``quant.specials.<fmt>`` (NaR / NaN / Inf /
+    NaN-block codes just produced) under a capture; nothing otherwise."""
+    if telemetry.enabled():
+        telemetry.emit(f"quant.calls.{q.fmt}", 1.0)
+        telemetry.emit(f"quant.specials.{q.fmt}", count_specials(q.bits, q.fmt))
+    return q
+
+
 def quantize(x: torch.Tensor, fmt: str, *, scaled: bool = False, rnd_bits=None) -> QTensor:
     """Quantise x into ``fmt`` with round-to-nearest-even (K2), or, given
     ``rnd_bits`` and a takum or OFP8 format, with stochastic rounding (see
@@ -128,15 +141,15 @@ def quantize(x: torch.Tensor, fmt: str, *, scaled: bool = False, rnd_bits=None) 
     if wf.name == "f32":
         return QTensor(x.to(torch.float32), wf.name)
     if wf.name == "bf16":
-        return QTensor(x.to(torch.bfloat16), wf.name)
+        return _emit_health(QTensor(x.to(torch.bfloat16), wf.name))
     if wf.is_block_scaled:
         payload = ops.encode(blockscale.pad_block(x.to(torch.float32)), wf)
-        return QTensor.from_payload(payload, wf.name, x.shape[-1])
+        return _emit_health(QTensor.from_payload(payload, wf.name, x.shape[-1]))
     scale = pow2_scale(x) if scaled else None
     xs = x.to(torch.float32) if scale is None else x.to(torch.float32) / scale
     if rnd_bits is not None and wf.supports_sr:
-        return QTensor(_encode_sr(xs, wf, rnd_bits), wf.name, scale)
-    return QTensor(ops.encode(xs, wf), wf.name, scale)
+        return _emit_health(QTensor(_encode_sr(xs, wf, rnd_bits), wf.name, scale))
+    return _emit_health(QTensor(ops.encode(xs, wf), wf.name, scale))
 
 
 def requantize(q: QTensor, x: torch.Tensor, rnd_bits=None) -> QTensor:

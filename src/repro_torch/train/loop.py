@@ -1,16 +1,20 @@
 """Training loop with checkpoint/restart, failure drills and straggler work
-reassignment (counterpart of ``repro.train.loop``; telemetry comes with M8,
-sharded placement with dist).
+reassignment (counterpart of ``repro.train.loop``; sharded placement comes
+with dist).
 
 ``TrainLoop.run`` restores the latest checkpoint of ``cfg.ckpt_dir`` (or
 builds the initial state), then drives ``step_fn(state, batch) -> (state,
 metrics)`` over ``batch_fn(step)`` to ``total_steps``, saving every
 ``ckpt_every`` steps and at the last.  ``failure_hook(step)`` lets a test or
-a drill raise mid-run to exercise the restart.
+a drill raise mid-run to exercise the restart.  Under a telemetry capture
+each step is a ``loop.step`` host span (category ``step``, args ``step``)
+and counts ``loop.steps``, the ``loop.dt_s`` histogram (the step's wall
+time, batch included) and the ``loop.tok_s`` gauge, as in ``repro``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -19,6 +23,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.core import telemetry
 
 from .checkpoint import CheckpointManager
 
@@ -94,8 +99,18 @@ class TrainLoop:
                 if self.failure_hook is not None:
                     self.failure_hook(step)
                 t0 = time.monotonic()
-                state, metrics = self.step_fn(state, self.batch_fn(step))
+                batch = self.batch_fn(step)
+                span = (telemetry.host_span("loop.step", cat="step", step=step)
+                        if telemetry.enabled() else contextlib.nullcontext())
+                with span:
+                    state, metrics = self.step_fn(state, batch)
                 dt = time.monotonic() - t0
+                if telemetry.enabled():
+                    telemetry.record("loop.steps", 1.0)
+                    telemetry.record_hist("loop.dt_s", dt)
+                    tok = batch.get("tokens") if hasattr(batch, "get") else None
+                    if tok is not None and dt > 0:
+                        telemetry.record_gauge("loop.tok_s", tok.numel() / dt)
                 if self.cfg.step_timeout_s and dt > self.cfg.step_timeout_s:
                     log.warning("step %d exceeded watchdog (%.2fs > %.2fs): straggler "
                                 "suspected", step, dt, self.cfg.step_timeout_s)

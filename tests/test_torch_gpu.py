@@ -1522,3 +1522,32 @@ def test_prefill_takes_a_sliced_prompt(cuda):
     a, ca = T.prefill(cfg, qp, sliced, cache_len=10)
     b, cb = T.prefill(cfg, qp, sliced.contiguous(), cache_len=10)
     assert torch.equal(a, b) and torch.equal(ca.k, cb.k) and torch.equal(ca.v, cb.v)
+
+
+@pytest.mark.gpu
+def test_capture_resolves_event_spans_and_adds_no_launch(cuda):
+    """Under a telemetry capture an op's span is a pair of CUDA events that
+    stays unresolved until ``snapshot()``, a device count stays on the card
+    until then, and the capture launches no kernel of the port: the same
+    ``launch_counts()`` and the same bits as the uncaptured call."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.formats import count_specials
+
+    x = _rand((4, 256), 1).to(cuda)
+    w = takum_encode_2d(_rand((256, 512), 2), "t8").to(cuda)
+    ops.reset_launch_counts()
+    want = ops.matmul(x, w, "t8")
+    base = ops.launch_counts()
+    ops.reset_launch_counts()
+    with telemetry.capture():
+        got = ops.matmul(x, w, "t8")
+        telemetry.emit("t.specials", count_specials(w, "t8"))
+        assert len(telemetry._EVENT_SPANS) == 1 and len(telemetry._PENDING) == 1
+        snap = telemetry.snapshot()
+        assert not telemetry._EVENT_SPANS and not telemetry._PENDING
+    (sp,) = snap["spans"]
+    assert sp["name"] == "kernel.matmul.t8" and sp["cat"] == "kernel" and sp["t1"] > sp["t0"]
+    assert snap["counters"]["kernel.calls.matmul.t8"] == 1.0
+    assert snap["counters"]["t.specials"] == float(count_specials(w.cpu(), "t8"))
+    assert ops.launch_counts() == base
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
