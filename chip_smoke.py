@@ -119,7 +119,7 @@ Phases, each of which must pass:
       counted; (h2) ``adamw_update`` on the wi leaf [4096, 14336] with t16
       and t8 moments, kernel against plain path bit for bit, timed; (h3)
       llama3-8b at full width cut to 4 layers, B = 4, S = 256, random init
-      from a seed, 8 steps on one batch each under takum, takum8 and bf16:
+      from a seed, 5 steps on one batch each under takum, takum8 and bf16:
       the CE falls,
       K1 counted around one step (2 per parameter leaf under quantised
       moments, none under bf16's f32 moments) and K2 around the init, step
@@ -132,8 +132,8 @@ Phases, each of which must pass:
       post-norms, softcaps) under takum and takum8, B = 4, a 4160-token
       prompt (longer than the window: the local layers drop keys in the
       prefill and in every decode step) and 32 decode steps; (i2)
-      llama3.2-3b (28 layers, tied) and musicgen-large (48 layers) under
-      takum, prompt 256; (i3) granite-34b at published widths cut to 8 of 88
+      llama3.2-3b (28 layers, tied) and musicgen-large (cut to 24 of 48
+      layers) under takum, prompt 256; (i3) granite-34b at published widths cut to 8 of 88
       layers (its 47.2B parameters are 94.5 GB at t16) under takum8, MQA
       (g = 48 in K6).  Each through ``phase_serving``: launches counted
       and held to the config's own tree (packed leaves and gains counted
@@ -175,9 +175,9 @@ Phases, each of which must pass:
       and K6 at hymba's shape (H 25 over 5 kv heads, hd 64, length 2080, a
       1024-key window), t16 bits and t8 lut, each against its plain version
       and timed beside its bound and library call.  (k1) serving at
-      published widths and full depth, B = 4, 32 decode steps, under takum
-      and takum8: mamba2-780m (48 layers, prompt 4096: 16 SSD chunks of
-      256) and hymba-1.5b (32 layers, prompt 2048, past its window in the
+      published widths, depth cut to half, B = 4, 32 decode steps, under
+      takum and takum8: mamba2-780m (24 of 48 layers, prompt 4096: 16 SSD
+      chunks of 256) and hymba-1.5b (16 of 32, prompt 2048, past its window in the
       prefill and every decode step), through ``phase_serving``: launches
       counted and held (packing 10 / 19 K2, loading 7 / 8 K1: the gains and
       the mixer's six small leaves), warm and first prefill, decode
@@ -202,7 +202,7 @@ Phases, each of which must pass:
       and library call.  (l1) serving at published widths (d 8192, 64 heads,
       8 kv heads, d_ff 28672, 4096 media tokens of width 1408, B = 4,
       prompt 256, 32 decode steps), depth cut in whole groups of 5 so that
-      the packed tree fits: takum8 at 40 of 100 layers, takum at 20, through
+      the script's time: takum8 at 20 of 100 layers, takum at 10, through
       ``phase_serving`` (the tree built leaf by leaf, the gates and cross
       norm gains drawn nonzero, launches held: 7 K3 a layer, 4 a cross
       layer, one over the media; the decode step's device time with the
@@ -232,6 +232,46 @@ Phases, each of which must pass:
       every param and moment leaf and counts ``step.skipped``, a clean one
       moves them; (m1)'s capture exported as JSONL and Chrome trace, read
       back and validated.
+  (n) dist: ranks are processes sharing the card (``torch.multiprocessing``
+      "spawn", one process group on gloo, every payload host-staged: K2 on
+      the card, a pinned host copy, gloo, a copy back, K1), spawned from
+      here, reusing the build directory (each checks it rebuilt nothing).
+      Every rank-to-rank time is host time on one card, not a wire speed.
+      (n0) K2 and K1 as the ring launches them, bit for bit against their
+      plain versions and timed: one row of the flat [4096 x 14336] payload
+      for t16, t8, bf16, e4m3, e5m2, mxe4m3 and mxt8, and the train step's
+      2^26-element chunk (K1 t16; K2-mx / K1-mx mxe5m2).  (n1) 4 ranks, each
+      a [4096, 14336] f32 payload (llama3-8b's wi gradient) drawn from a
+      seed and its rank: ``compressed_psum`` in f32, t16, t8, bf16, e4m3,
+      e5m2, mxe4m3 and mxt8 with both ``exact_local`` settings: the ranks'
+      sums the same bits (where they add the same terms), bit for bit the
+      ring under ``ops.plain_path()``, max error / rms against the float64
+      sum within ``tests/test_dist.py``'s limits, one K2 and P - 1 K1 a rank
+      (one more K1 without ``exact_local``), ``wire.hop_bytes`` the packed
+      bytes x (P - 1); ``degraded_psum`` with NaN / Inf planted in rank 1 and
+      a bound t8 exceeds: every rank on t16, equal to that rung's ring of
+      the contained input; 8 EF steps over t8 telescoping to the float64
+      total less the final residuals within f32 rounding; hop drops and
+      garbles under containment, ``wire.contained`` equal to a recount of
+      the arrivals.  (n2) 4 stage ranks, each K3 over its own packed t16
+      [4096, 4096] weight then tanh, 8 microbatches of [256, 4096]: f32, t16,
+      t8 and mxt8 hops and a guarded t8 run, bit for bit the composition on
+      one rank with the same kernels (the hops coded as each tick chose),
+      the guarded run's per-tick escalations the same on every stage.
+      (n3) the pod train step on a 2x1x1 mesh (two processes), llama3-8b at
+      published widths cut to 1 layer (two ranks at 2 layers do not fit the
+      card), B = 4 (2 a pod), S = 256, 3 steps on one batch under takum
+      (t16 ring with SR: the plain SR encode out, K1 in) and mxfp8 (mxe5m2
+      ring: K2-mx out, K1-mx in; t16 moments, its f32 ones do not fit): the
+      CE falls, both ranks' params the same bits after every step, step ms,
+      each rank's peak memory and the card's ``mem_get_info``, K1 / K2
+      launches a step; one step with an f32 ring (bf16 moments, f32
+      activations) whose gradients are within ``DIST_F32_LIMIT`` of the
+      single-device step's on the whole batch.
+      (n4) llama3-8b at published widths, 2 layers, takum at f32
+      activations, B = 4 over 2 data ranks: each rank's logits rows over
+      the prefill and 8 decode steps equal the single-process run's rows
+      within ``SERVE_LIMIT``.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -519,6 +559,42 @@ def gather_yardstick(torch, fmt, bits):
 
     tab = lut.tables_on(fmt, "decode", bits.device)[0].view(torch.float32)
     return lambda: tab[codes_of(bits)]
+
+
+def cast_dtype(torch, fmt):
+    """The torch dtype whose cast from f32 is wire ``fmt``'s RNE encode and
+    whose view-and-widen is its decode, on finite data in range (bf16, e4m3,
+    e5m2); None for takum and the mx containers."""
+    return {"bf16": torch.bfloat16, "e4m3": torch.float8_e4m3fn,
+            "e5m2": torch.float8_e5m2}.get(fmt)
+
+
+def library_encode(torch, fmt, xf, bits):
+    """K2's one-call library counterpart: the cast to ``cast_dtype(fmt)``,
+    checked here to give K2's bits ``bits`` on ``xf`` (off this data the two
+    part: torch's e4m3 cast saturates where the wire overflows to NaN, and
+    keeps f32 subnormals that K2 flushes), or None."""
+    dt = cast_dtype(torch, fmt)
+    if dt is None:
+        return None
+    check(torch.equal(xf.to(dt).view(torch.uint8), bits.view(torch.uint8)),
+          f"the {dt} cast of {list(xf.shape)} differs from K2 {fmt}")
+    return lambda: xf.to(dt)
+
+
+def library_decode(torch, fmt, bits, want):
+    """K1's one-call library counterpart: for a ``cast_dtype`` wire the view
+    and widen, checked here to give ``want`` (K1's output; off this data
+    the two part on NaN payloads), for a takum the table gather, for mx
+    None."""
+    from repro_torch.core.formats import wire_format
+
+    dt = cast_dtype(torch, fmt)
+    if dt is None:
+        return None if wire_format(fmt).is_block_scaled else gather_yardstick(torch, fmt, bits)
+    check(same_bits_f32(torch, bits.view(dt).float(), want),
+          f"the {dt} view of {list(bits.shape)} differs from K1 {fmt}")
+    return lambda: bits.view(dt).float()
 
 
 #: (kernel, shape) of the K1 / K2 rows of phase (c): the prefill's embedding
@@ -833,8 +909,7 @@ def phase_kernels(torch, dev, rows):
                     check(same_bits_f32(torch, got, want), f"K1[{impl}] {fmt} {shape}: differs from plain")
                     err = (got - want).abs().max()
                     nbytes = bits.numel() * (wf.nbits // 8 + 4)
-                    lib = ((lambda: bits.view(torch.bfloat16).float()) if fmt == "bf16"
-                           else gather_yardstick(torch, fmt, bits))
+                    lib = library_decode(torch, fmt, bits, want)
                 else:
                     kern, plain, arg = takum_encode_2d, encode_2d_plain, xf
                     got = takum_encode_2d(xf, fmt, impl)
@@ -842,7 +917,7 @@ def phase_kernels(torch, dev, rows):
                     check(nbad == 0, f"K2[{impl}] {fmt} {shape}: {nbad} codes differ from plain")
                     err = (decode_2d_plain(got, fmt) - decode_2d_plain(bits, fmt)).abs().max()
                     nbytes = xf.numel() * (4 + wf.nbits // 8)
-                    lib = (lambda: xf.to(torch.bfloat16)) if fmt == "bf16" else None
+                    lib = library_encode(torch, fmt, xf, bits)
                 del got
                 rows.append(codec_row(torch, kname, fmt, impl, shape, float(err), nbytes,
                                       lambda: kern(arg, fmt, impl), lambda: plain(arg, fmt, impl),
@@ -2565,7 +2640,7 @@ def phase_train_exact(torch, dev):
 
 
 #: phase (h3): llama3-8b at full width, cut to this many layers
-TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4, 256, 8
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4, 256, 5
 
 
 def phase_train_full(torch, dev, policy):
@@ -2735,7 +2810,7 @@ def phase_train_restart(torch, dev):
 #: 94.5 GB at t16, and ``packed_params`` first draws an f32 tree on the card)
 OTHER_ARCHS = (("gemma2_2b", ("takum", "takum8"), None, 4160),
                ("llama3_2_3b", ("takum",), None, 256),
-               ("musicgen_large", ("takum",), None, 256),
+               ("musicgen_large", ("takum",), 24, 256),
                ("granite_34b", ("takum8",), 8, 256))
 #: phase (i4): arch -> the policies of its 2-layer kernel-vs-plain parity
 #: (mxt8 on a tied arch: the K1-mx head)
@@ -3207,9 +3282,10 @@ SSM_TIED_HEAD = ("mamba2_780m", 50280, 1536)
 HYMBA_ATTENTION = (4, 25, 5, 2080, 64, 2080, 1024, 0.0)
 #: phase (k1) serving runs: (arch, policies, layers (None: published depth),
 #: prompt): mamba2's 4096 tokens are 16 SSD chunks of 256, hymba's 2048 run
-#: past its 1024-key window
-SSM_RUNS = (("mamba2_780m", ("takum", "takum8"), None, 4096),
-            ("hymba_1_5b", ("takum", "takum8"), None, 2048))
+#: past its 1024-key window; half depth keeps the script inside its time
+#: limit
+SSM_RUNS = (("mamba2_780m", ("takum", "takum8"), 24, 4096),
+            ("hymba_1_5b", ("takum", "takum8"), 16, 2048))
 #: phase (k2): (arch, policies, prompt) of the 2-layer kernel-vs-plain parity:
 #: mamba2 two chunks of 256, hymba past its window (1056: six chunks of 176)
 SSM_PARITY = (("mamba2_780m", ("takum", "takum8"), 512), ("hymba_1_5b", ("takum", "takum8"), 1056))
@@ -3302,9 +3378,10 @@ VLM_ATTENTION = (4, 64, 8, 290, 128, 288, 0, 0.0)
 #: K3 at the vlm's media shapes, bf16 x: (leaf, M = B x 4096, K, N)
 VLM_K3 = (("media_proj", 16384, 1408, 8192), ("cross wk", 16384, 8192, 1024))
 #: (l1) serving runs (policy, layers of 100): whole groups of 5 (a cross
-#: layer each), as deep as the packed tree fits beside the run (takum8 at 40
-#: layers 37.5 GB, takum at 20 39.6 GB)
-VLM_RUNS = (("takum8", 40), ("takum", 20))
+#: layer each).  The packed tree fits at twice these (takum8 at 40 layers
+#: 37.5 GB, takum at 20 39.6 GB); half of that keeps the script, with phase
+#: (n), inside its time limit (as (k1) and musicgen in (i2))
+VLM_RUNS = (("takum8", 20), ("takum", 10))
 #: (l2): the kernel-vs-plain parity at 5 layers, one cross layer
 VLM_PARITY_LAYERS = 5
 #: (l3): the f32 KV cache's prefill-then-decode consistency at full width,
@@ -3826,6 +3903,808 @@ def phase_observability(torch, dev, card):
     return dict(serving=serving, census=census, guarded=guarded, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# (n) dist: ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DIST_P = 4
+#: llama3-8b's wi gradient: each ring rank's payload
+RING_SHAPE = (4096, 14336)
+RING_FMTS = ("f32", "t16", "t8", "bf16", "e4m3", "e5m2", "mxe4m3", "mxt8")
+#: max |ring - float64 sum| / rms of the payloads (``tests/test_dist.py``'s,
+#: set there at 8192 elements).  f32 is held instead to the rounding bound
+#: of a 4-term f32 sum in any order, |err| <= (P - 1) eps sum_j |x_j| per
+#: element: at 58.7 M elements the f32 sum itself rounds past 1e-6 x rms
+#: (1.14e-6 read on an H100, gloo's all-reduce), which its err / rms beside
+#: 1e-6 shows
+RING_LIMITS = {"f32": 1e-6, "t16": 2e-2, "bf16": 4e-2, "t8": 1.0, "e4m3": 1.0, "e5m2": 1.5,
+               "mxe4m3": 1.0, "mxt8": 1.0}
+EF_STEPS = 4
+#: the pipeline: 4 stages of K3 over a packed t16 [d, d] weight then tanh, 8
+#: microbatches of [256, d]
+PIPE_D, PIPE_MB, PIPE_M = 4096, 256, 8
+PIPE_WIRES = (None, "t16", "t8", "mxt8")
+#: the guarded run: t8's relative rms error is about 0.04 on the stages'
+#: outputs at scale 1 and about 0.19 at 1e-3 (a CPU simulation at d = 512,
+#: ``ops``' plain path), so a bound of 0.1 passes the first 4 ticks and
+#: trips the rest, at ticks 4-6 on some stages only
+PIPE_GUARD_SCALE, PIPE_GUARD_REL_ERR = 1e-3, 0.1
+#: the pod train step: llama3-8b at published width, cut to DIST_LAYERS
+#: layers, mesh 2x1x1 (two processes on the card), B = 4, S = 256.  One
+#: layer: at two, each rank's step peaked past 37 GB (the functional AdamW
+#: holds old and new params and moments, 5 copies of the 5.9 GB of params,
+#: beside its temporaries) and the two ranks ran out of the card's 79 GB
+DIST_LAYERS, DIST_B, DIST_S, DIST_STEPS = 1, 4, 256, 3
+#: the layers of the mesh serve steps (serving holds no optimizer state)
+SERVE_LAYERS = 2
+#: the runs of (n3): name, policy, grad_comm override, its quant overrides.
+#: mxfp8 keeps f32 moments, 7 copies of the params in a step, which two
+#: ranks cannot hold: its run stores t16 moments (the ring, mxe5m2, is the
+#: subject).  The f32-ring run stores bf16 moments (an order ulp in a
+#: gradient moves a moment by at most one bf16 step, where a t16 moment's
+#: pow2 scale leaves tiny ones a few fraction bits) and f32 activations
+DIST_RUNS = (("takum", "takum", None, {}),
+             ("mxfp8", "mxfp8", None, {"opt_state": "t16"}),
+             ("f32", "takum", "f32", {"opt_state": "bf16", "activations": "f32"}))
+#: the f32-ring step (bf16 moments, f32 activations) against the
+#: single-device step on the whole batch: the gradients AdamW receives, on
+#: every 97th element of each leaf, max |difference| / the leaf's max |g|
+#: (the two sum the same terms in another order).  The params are printed
+#: beside it, not held: AdamW's first step moves a param by about lr x
+#: sign(g), so a gradient within rounding of zero moves its param by up to
+#: lr (3e-4) in one order and not in the other (3.02e-4 read on an H100)
+DIST_F32_LIMIT = 1e-5
+DIST_GRAD_STRIDE = 97
+#: the mesh serve steps: llama3-8b 2 layers, takum at f32 activations, B =
+#: 4 over 2 data ranks, prompt 64, 8 decode steps; max |rank rows - single
+#: rows| / max |logit| (phase (e)'s limit at f32 activations)
+SERVE_S0, SERVE_STEPS, SERVE_LIMIT = 64, 8, 1e-3
+
+
+def digest(torch, t):
+    """Three int64 sums over the 32-bit words of ``t`` (all, every third,
+    every seventh from the second): equal digests, the same bits, but for a
+    collision no test here can meet by chance."""
+    b = t.contiguous().reshape(-1).view(torch.int32)
+    return [int(b.sum(dtype=torch.int64)), int(b[::3].sum(dtype=torch.int64)),
+            int(b[1::7].sum(dtype=torch.int64))]
+
+
+def k_counts(counts):
+    """(K2 launches, K1 launches) of a launch-count dict (any codec)."""
+    return (sum(v for k, v in counts.items() if k.startswith("takum_encode_2d[")),
+            sum(v for k, v in counts.items() if k.startswith("takum_decode_2d[")))
+
+
+def packed_bytes(torch, fmt, shape) -> int:
+    """Bytes of ``fmt``'s packed payload of an f32 tensor of ``shape``."""
+    from repro_torch.core.formats import wire_format
+    from repro_torch.quant import blockscale
+
+    wf = wire_format(fmt)
+    if wf.is_block_scaled:
+        return math.prod(shape[:-1]) * blockscale.payload_len(shape[-1])
+    return math.prod(shape) * torch.empty((), dtype=wf.storage).element_size()
+
+
+def ring_payload(torch, rank, dev, salt=2700):
+    g = torch.Generator(device=dev)
+    g.manual_seed(salt + rank)
+    return torch.randn(RING_SHAPE, generator=g, device=dev)
+
+
+def _rank_setup():
+    """A rank's card (shared by all ranks under gloo) and the kernel build,
+    reused from the parent's build directory."""
+    import torch
+
+    from repro_torch.dist.spawn import rank_device
+    from repro_torch.kernels import _build
+
+    dev = rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library("takum_codec")
+    return torch, dev, _build.last_build_seconds
+
+
+def rank_ring():
+    """(n1) on one rank: the compressed ring over every format, the guarded
+    ladder, error feedback and hop faults.  Returns host values only."""
+    torch, dev, rebuilt_s = _rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.core import telemetry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import comm
+    from repro_torch.dist import error_feedback as EF
+    from repro_torch.dist import faults
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.quant.policy import GuardPolicy
+
+    mesh = make_mesh((DIST_P,), ("pod",))
+    g, r = mesh.group("pod"), mesh.index("pod")
+    x = ring_payload(torch, r, dev)
+    out = dict(rank=r, rebuild_s=rebuilt_s, rings={})
+    exact = rms = absum = None
+    if r == 0:  # the float64 sum of every rank's payload, drawn again here
+        exact = torch.zeros(RING_SHAPE, dtype=torch.float64, device=dev)
+        absum = torch.zeros(RING_SHAPE, dtype=torch.float64, device=dev)
+        sq = 0.0
+        for j in range(DIST_P):
+            xj = ring_payload(torch, j, dev)
+            exact += xj
+            absum += xj.abs()
+            sq += float(torch.sum(xj.double() ** 2))
+        rms = math.sqrt(sq / (DIST_P * x.numel()))
+
+    def timed(fn):
+        dist.barrier(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, (time.perf_counter() - t0) * 1e3
+
+    for fmt in RING_FMTS:
+        for el in (True, False):
+            ops.reset_launch_counts()
+            y, ms = timed(lambda: C.compressed_psum(x, g, fmt, exact_local=el))
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            with ops.plain_path():
+                yp = C.compressed_psum(x, g, fmt, exact_local=el)
+            row = dict(ms=ms, counts=counts, digest=digest(torch, y),
+                       plain_same=bool(torch.equal(y.view(torch.int32), yp.view(torch.int32))))
+            if r == 0:
+                diff = (y.double() - exact).abs()
+                row["err_over_rms"] = float(diff.max()) / rms
+                if fmt == "f32":
+                    eps = torch.finfo(torch.float32).eps
+                    row["err_over_order_bound"] = float(
+                        (diff / ((DIST_P - 1) * eps * absum).clamp(min=1e-300)).max())
+                del diff
+            out["rings"][f"{fmt}/{int(el)}"] = row
+            del y, yp
+        if fmt != "f32":
+            with telemetry.capture():
+                C.compressed_psum(x, g, fmt)
+                out["rings"][f"{fmt}/1"]["counters"] = {
+                    k: v for k, v in telemetry.counters().items() if k.startswith("wire.")}
+            out["rings"][f"{fmt}/1"]["packed_bytes"] = packed_bytes(torch, fmt, x.shape)
+
+    def degraded(xb, fmt, guard):
+        """``degraded_psum`` of ``xb``: its counters, the rung taken, this
+        rank's own check at each rung it tried (before the all-reduce), and
+        whether the output is that rung's ``compressed_psum`` of the
+        contained input."""
+        local = []
+        real = C.trips
+
+        def record(spec, rel, guard_, group):
+            local.append(bool((spec > guard_.max_special_frac) | (rel > guard_.max_rel_err)))
+            return real(spec, rel, guard_, group)
+
+        C.trips = record
+        try:
+            with telemetry.capture():
+                y = C.degraded_psum(xb, g, fmt, guard)
+                ctr = {k: v for k, v in telemetry.counters().items() if k.startswith("wire.")}
+        finally:
+            C.trips = real
+        clean = torch.where(torch.isfinite(xb), xb, torch.zeros((), device=dev))
+        rung = guard.ladder_from(fmt)[int(ctr["wire.rung"])]
+        want = C.compressed_psum(clean, g, rung)
+        return dict(counters=ctr, rung=rung, local=local,
+                    equals_rung=bool(torch.equal(y.view(torch.int32), want.view(torch.int32))))
+
+    # the guarded ladder: NaN / Inf planted in rank 1's payload, a relative
+    # error bound that t8 (about 3e-2 on a normal payload) exceeds
+    xb = x.clone()
+    if r == 1:
+        xb[0, :5] = float("nan")
+        xb[7, 3] = float("inf")
+    out["degraded"] = degraded(xb, "t8", GuardPolicy(max_rel_err=0.01))
+    # rank 2's payload alone trips e4m3 (x 1000 overflows): every rank
+    # must escalate to t16 all the same
+    out["one_trips"] = degraded(x * 1000.0 if r == 2 else x, "e4m3", GuardPolicy())
+    del xb
+
+    # error feedback over t8: the outputs telescope to the exact total less
+    # the final residuals
+    err = EF.ef_init(x)
+    acc = torch.zeros(RING_SHAPE, dtype=torch.float32, device=dev)
+    total = torch.zeros(RING_SHAPE, dtype=torch.float64, device=dev) if r == 0 else None
+    mag = torch.zeros(RING_SHAPE, dtype=torch.float64, device=dev) if r == 0 else None
+    t0 = time.perf_counter()
+    for t in range(EF_STEPS):
+        gt = ring_payload(torch, r, dev, salt=3000 + 10 * t)
+        red, err = EF.ef_compressed_psum(gt, err, g, "t8")
+        acc += red
+        if r == 0:
+            for j in range(DIST_P):
+                gj = ring_payload(torch, j, dev, salt=3000 + 10 * t)
+                total += gj
+                mag += gj.abs()
+    torch.cuda.synchronize()
+    ef_ms = (time.perf_counter() - t0) * 1e3 / EF_STEPS
+    res = comm.all_reduce(err.double(), g)
+    if r == 0:
+        diff = (acc.double() - (total - res)).abs()
+        eps = torch.finfo(torch.float32).eps
+        bound = 2 * (EF_STEPS + DIST_P) * eps * (mag + res.abs())
+        out["ef"] = dict(steps=EF_STEPS, ms_per_step=ef_ms,
+                         max_err_over_bound=float((diff / bound.clamp(min=1e-30)).max()),
+                         max_abs_err=float(diff.max()), max_residual=float(res.abs().max()))
+    del acc, err, res, total, mag
+
+    # hop faults under containment: what the ring contained against what
+    # its arrivals decode to off the rail
+    seen = []
+    real = faults.corrupt_hop
+
+    def record(msg, group=None):
+        got = real(msg, group)
+        seen.append(got.to(dev, copy=True))
+        return got
+
+    C.faults.corrupt_hop = record
+    try:
+        with faults.inject(faults.FaultConfig(seed=9, hop_drop_rate=0.25, hop_garble_rate=0.5)), \
+                telemetry.capture():
+            y = C.degraded_psum(x, g, "t8", GuardPolicy(contain_abs=16.0))
+            ctr = {k: v for k, v in telemetry.counters().items() if k.startswith("wire.")}
+    finally:
+        C.faults.corrupt_hop = real
+    bad = 0
+    for msg in seen:
+        d = ops.decode(msg, "t8")
+        bad += int((~torch.isfinite(d) | (d.abs() > 16.0)).sum())
+    dropped = sum(int(not bool(m.any())) for m in seen)
+    out["hops"] = dict(counters=ctr, recounted=bad, arrivals=len(seen), dropped=dropped,
+                       finite=bool(torch.isfinite(y).all()))
+    return out
+
+
+def _stage_weight(torch, ops, p, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(2800 + p)
+    return ops.encode(torch.randn((PIPE_D, PIPE_D), generator=g, device=dev) * PIPE_D ** -0.5,
+                      "t16")
+
+
+def rank_pipeline():
+    """(n2) on one rank (one stage): K3 over its own packed t16 weight, then
+    tanh; f32, t16, t8 and mxt8 hops and a guarded t8 run, each against
+    the composition on rank 0 with the same kernels.  The guarded run's
+    last PIPE_M / 2 microbatches are scaled by PIPE_GUARD_SCALE, so its
+    first ticks pass t8's check and the later ones trip it on some stages
+    only."""
+    torch, dev, rebuilt_s = _rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.core import telemetry
+    from repro_torch.dist import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.quant import blockscale
+    from repro_torch.quant.policy import GuardPolicy
+
+    mesh = make_mesh((DIST_P,), ("pipe",))
+    g, p = mesh.group("pipe"), mesh.index("pipe")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2900)
+    x = torch.randn((PIPE_M, PIPE_MB, PIPE_D), generator=gen, device=dev)
+    ws = [_stage_weight(torch, ops, q, dev) for q in range(DIST_P)]
+
+    def stage(w, h):
+        return torch.tanh(ops.matmul(h, w, "t16"))
+
+    def hop(h, name):
+        if name is None:
+            return h
+        v = blockscale.pad_block(h) if name.startswith("mx") else h
+        return ops.decode(ops.encode(v, name), name)[..., :h.shape[-1]]
+
+    def composition(names, x=x):
+        """Microbatch by microbatch through every stage, the hop after stage
+        q at tick m + q coded as ``names[tick]``."""
+        out = torch.empty_like(x)
+        for m in range(PIPE_M):
+            h = x[m]
+            for q in range(DIST_P):
+                h = stage(ws[q], h)
+                if q < DIST_P - 1:
+                    h = hop(h, names[m + q])
+            out[m] = h
+        return out
+
+    ticks = PIPE_M + DIST_P - 1
+    res = {"rebuild_s": rebuilt_s}
+    for wire in PIPE_WIRES:
+        dist.barrier(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.capture():
+            y = PL.pipeline_apply(stage, ws[p], x, mesh=mesh, wire_fmt=wire)
+            ctr = {k: v for k, v in telemetry.counters().items() if k.startswith("pipe.")}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = dict(ms=ms, counters=ctr, digest=digest(torch, y))
+        if p == 0:
+            row["equals_composition"] = bool(torch.equal(
+                y.view(torch.int32), composition([wire] * ticks).view(torch.int32)))
+        res[str(wire)] = row
+    trips, local = [], []
+    real = PL.trips
+
+    def record(spec, rel, guard_, group):
+        local.append(bool((spec > guard_.max_special_frac) | (rel > guard_.max_rel_err)))
+        trips.append(real(spec, rel, guard_, group))
+        return trips[-1]
+
+    PL.trips = record
+    guard = GuardPolicy(max_rel_err=PIPE_GUARD_REL_ERR)
+    scale = torch.ones((PIPE_M, 1, 1), device=dev)
+    scale[PIPE_M // 2:] = PIPE_GUARD_SCALE
+    xg = x * scale
+    try:
+        dist.barrier(g)
+        t0 = time.perf_counter()
+        y = PL.pipeline_apply(stage, ws[p], xg, mesh=mesh, wire_fmt="t8", guard=guard)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        PL.trips = real
+    esc = guard.ladder_from("t8")[1]
+    row = dict(ms=ms, trips=trips, local=local, digest=digest(torch, y))
+    if p == 0:
+        row["equals_composition"] = bool(torch.equal(y.view(torch.int32), composition(
+            [esc if t else "t8" for t in trips], xg).view(torch.int32)))
+    res["guarded"] = row
+    return res
+
+
+def dist_train_cfg(policy, grad_comm=None, layers=None, **quant):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.quant.policy import POLICIES
+
+    q = POLICIES[policy]
+    q = dataclasses.replace(q, **({"grad_comm": grad_comm} if grad_comm else {}), **quant)
+    return configs.get("llama3_8b").with_(num_layers=layers or DIST_LAYERS, quant=q)
+
+
+def dist_batch(torch, cfg):
+    from repro_torch.data import SyntheticLM
+
+    return SyntheticLM(cfg.vocab_size, DIST_S, DIST_B, seed=17).batch(0)
+
+
+def rank_pod_train(policy, grad_comm=None, steps=DIST_STEPS, compare_single=False, **quant):
+    """(n3) on one rank of the 2x1x1 mesh: ``steps`` pod steps on one batch
+    from the seeded init; per step the CE, the ms, a digest of every param
+    leaf and (step 2) the kernel launches; the peak memory.  With
+    ``compare_single`` rank 0 then runs the single-device step on the whole
+    batch from the same init and returns the largest param difference."""
+    torch, dev, rebuilt_s = _rank_setup()
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist import step as dstep
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.step import init_state, make_train_step
+
+    from repro_torch.train import step as single_step
+
+    cfg = dist_train_cfg(policy, grad_comm, **quant)
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"))
+    seen = []  # with compare_single: every 97th gradient element AdamW receives, a step
+    real_update = single_step.adamw_update
+
+    def sampled(grads, *a, **k):
+        if compare_single:
+            seen.append([g.reshape(-1)[::DIST_GRAD_STRIDE].clone()
+                         for g in tree.flatten(grads)[0]])
+        return real_update(grads, *a, **k)
+
+    single_step.adamw_update = sampled
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = init_state(cfg, 0, device=dev)
+    batch = dist_batch(torch, cfg)
+    step = dstep.make_train_step(cfg, mesh)
+    ce, ms, digests, counts = [], [], [], None
+    for i in range(steps):
+        if i == 1:
+            ops.reset_launch_counts()
+        dist.barrier(mesh.group("pod"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        ce.append(float(m["ce"]))
+        digests.append([digest(torch, p) for p in tree.flatten(st.params)[0]])
+    out = dict(rebuild_s=rebuilt_s, policy=policy, grad_comm=cfg.quant.grad_comm,
+               layers=DIST_LAYERS, ce=ce,
+               step_ms=ms, digests=digests, step_launches=counts,
+               grad_ok=float(m["grad_ok"]), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               free_total_gb=[v / 1e9 for v in torch.cuda.mem_get_info()],
+               params=sum(p.numel() for p in tree.flatten(st.params)[0]))
+    if compare_single:
+        pod = tree.flatten(st.params)[0]
+        del st, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dist.get_rank() == 0:  # seen: the pod step's sample, then the single step's
+            s1, _ = make_train_step(cfg)(init_state(cfg, 0, device=dev), batch)
+            out["single_max_abs_diff"] = max(float((a - b).abs().max())
+                                             for a, b in zip(pod, tree.flatten(s1.params)[0]))
+            out["grad_max_rel_diff"] = max(
+                float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(seen[0], seen[1]))
+            del s1
+        dist.barrier(mesh.group("pod"))
+    single_step.adamw_update = real_update
+    return out
+
+
+def serve_cfg():
+    return dist_train_cfg("takum", layers=SERVE_LAYERS, activations="f32")
+
+
+def rank_serve():
+    """(n4) on one data rank: the mesh prefill and decode steps over its two
+    rows (teacher-forced tokens), the packed tree built from the seed."""
+    torch, dev, rebuilt_s = _rank_setup()
+    from repro_torch.dist import step as dstep
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = serve_cfg()
+    mesh = make_mesh((2, 1), ("data", "model"))
+    qp = serve_tree(torch, cfg, dev)
+    prompt, toks = serve_tokens(torch, cfg, dev)
+    t0 = time.perf_counter()
+    logits, cache = dstep.make_prefill_step(cfg, mesh, SERVE_S0 + SERVE_STEPS)(
+        qp, {"tokens": prompt})
+    out = [logits]
+    decode = dstep.make_serve_step(cfg, mesh)
+    for s in range(SERVE_STEPS):
+        logits, cache = decode(qp, {"token": toks[s]}, cache)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return dict(logits=torch.stack(out), rows=dstep.local_rows(mesh, DIST_B),
+                ms=(time.perf_counter() - t0) * 1e3, rebuild_s=rebuilt_s)
+
+
+def serve_tree(torch, cfg, dev):
+    from repro_torch import serve
+    from repro_torch.models import transformer as T
+
+    return serve.load_params(serve.quantize_params(cfg, T.init_params(cfg, 0, device=dev)))
+
+
+def serve_tokens(torch, cfg, dev):
+    """The prompt and the teacher-forced decode tokens, on ``dev``."""
+    g = torch.Generator()
+    g.manual_seed(31)
+    prompt = torch.randint(0, cfg.vocab_size, (DIST_B, SERVE_S0), generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_STEPS, DIST_B), generator=g)
+    return prompt.to(dev), toks.to(dev)
+
+
+def dist_codec_rows(torch, dev, rows):
+    """K2 and K1 as the ring launches them, at its payload (one row of the
+    flat [4096 x 14336] wi gradient) for every compressed format with its
+    default codec, and at the train step's flat chunk (2^26 elements: K1
+    t16, K2-mx / K1-mx mxe5m2): bit for bit against the plain versions,
+    timed beside the byte bound and the library call."""
+    from repro_torch.dist.collectives import RING_CHUNK
+    from repro_torch.kernels.lut import resolve_impl
+    from repro_torch.kernels.takum_codec import (decode_2d_plain, encode_2d_plain,
+                                                 takum_decode_2d, takum_encode_2d)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2600)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    cases = [(fmt, math.prod(RING_SHAPE), ("encode", "decode")) for fmt in RING_FMTS[1:]]
+    cases += [("t16", RING_CHUNK, ("decode",)), ("mxe5m2", RING_CHUNK, ("encode", "decode"))]
+    for fmt, n, ops_ in cases:
+        xf = torch.randn((1, n), generator=gen, device=dev)
+        bits = encode_2d_plain(xf, fmt)
+        pb = bits.numel() * bits.element_size()
+        for op in ops_:
+            impl = resolve_impl(None, fmt, op) if op == "encode" else resolve_impl(None, fmt)
+            if op == "encode":
+                got = takum_encode_2d(xf, fmt, impl)
+                check(torch.equal(got.view(torch.uint8), bits.view(torch.uint8)),
+                      f"(n) K2 {fmt} [1, {n}]: differs from its plain version")
+                lib = library_encode(torch, fmt, xf, bits)
+                rows.append(codec_row(torch, "takum_encode_2d", fmt, impl, [1, n], 0.0,
+                                      n * 4 + pb, lambda: takum_encode_2d(xf, fmt, impl),
+                                      lambda: encode_2d_plain(xf, fmt, impl), lib, flush))
+            else:
+                got = takum_decode_2d(bits, fmt, impl)
+                check(same_bits_f32(torch, got, decode_2d_plain(bits, fmt, impl)),
+                      f"(n) K1 {fmt} [1, {n}]: differs from its plain version")
+                lib = library_decode(torch, fmt, bits, got)
+                rows.append(codec_row(torch, "takum_decode_2d", fmt, impl, list(bits.shape), 0.0,
+                                      n * 4 + pb, lambda: takum_decode_2d(bits, fmt, impl),
+                                      lambda: decode_2d_plain(bits, fmt, impl), lib, flush))
+            del got
+        del xf, bits
+    del flush
+    torch.cuda.empty_cache()
+
+
+def phase_dist(torch, dev, card, rows):
+    """(n) dist on the card: ranks are processes sharing it, gloo moving
+    host-staged payloads.  (n0) K1 / K2 at the ring's and the train step's
+    payloads; (n1) the ring, the ladder, EF and hop faults on 4 ranks; (n2)
+    the pipeline on 4 stage ranks; (n3) the pod train step on 2 ranks at
+    full width; (n4) the mesh serve steps on 2 data ranks."""
+    import gc
+
+    from repro_torch.dist.spawn import RankPool
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    dist_codec_rows(torch, dev, rows)
+    log(f"(n0) K1 / K2 at the ring's payload [1, {math.prod(RING_SHAPE)}] and the train "
+        f"step's chunk bit for bit, timed ({time.perf_counter() - t0:.1f} s)")
+
+    # (n4)'s single-rank reference, before any rank holds the card
+    cfg = serve_cfg()
+    qp = serve_tree(torch, cfg, dev)
+    prompt, toks = serve_tokens(torch, cfg, dev)
+    from repro_torch import serve
+
+    logits, cache = serve.make_prefill_step(cfg, SERVE_S0 + SERVE_STEPS)(qp, {"tokens": prompt})
+    single = [logits]
+    for s in range(SERVE_STEPS):
+        logits, cache = serve.make_serve_step(cfg)(qp, {"token": toks[s]}, cache)
+        single.append(logits)
+    single = torch.stack(single).float().cpu()
+    del qp, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with RankPool(DIST_P, timeout_s=300, threads=2) as pool:
+        ring = pool.run(rank_ring, timeout_s=600)
+        out["spawn_and_ring_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pipe = pool.run(rank_pipeline, timeout_s=300)
+        out["pipeline_s"] = time.perf_counter() - t1
+    raw = ROOT / "chiprun_out" / "chip_smoke_dist_raw.json"
+    raw.parent.mkdir(exist_ok=True)
+    raw.write_text(json.dumps(dict(ring=ring, pipeline=pipe), indent=1, default=str))
+    n1 = check_ring(ring, card)
+    n2 = check_pipeline(pipe, card)
+    out.update(ring=n1, pipeline=n2)
+    log(f"(n1, n2) done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with RankPool(2, timeout_s=600, threads=2,
+                  env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}) as pool:
+        train = {}
+        for name, policy, grad_comm, kw in DIST_RUNS:
+            t1 = time.perf_counter()
+            got = pool.run(rank_pod_train, policy, grad_comm, 1 if name == "f32" else DIST_STEPS,
+                           name == "f32", timeout_s=900, **kw)
+            train[name] = check_pod_train(name, got, card)
+            train[name]["seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        served = pool.run(rank_serve, timeout_s=300)
+        n4 = check_serve(served, single, card)
+        n4["seconds"] = time.perf_counter() - t1
+    out.update(train=train, serve=n4)
+    log(f"(n3, n4) done in {time.perf_counter() - t0:.1f} s")
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"(n) dist on the card done in {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+def dist_summary(dist):
+    """(kernel, format, codec, shape, path, launches) of phase (n)'s K2 / K1
+    summary rows: each compressed ring format at the ring's payload, and the
+    pod train step's chunk under takum (K1 t16) and mxfp8 (K2-mx / K1-mx
+    mxe5m2)."""
+    from repro_torch.dist.collectives import RING_CHUNK
+    from repro_torch.quant import blockscale
+
+    n = math.prod(RING_SHAPE)
+    out = []
+    for fmt, counts in dist["ring"]["launch_keys"].items():
+        enc, dec = dist["ring"]["impl"][fmt]
+        bits_shape = [1, n // 32 * 33] if fmt.startswith("mx") else [1, n]
+        out.append(("takum_encode_2d", fmt, enc, [1, n], f"dist/ring/{fmt}",
+                    counts.get(f"takum_encode_2d[{enc}]", 0)))
+        out.append(("takum_decode_2d", fmt, dec, bits_shape, f"dist/ring/{fmt}",
+                    counts.get(f"takum_decode_2d[{dec}]", 0)))
+    takum = dist["train"]["takum"]["step_launches"]
+    out.append(("takum_decode_2d", "t16", "bits", [1, RING_CHUNK], "dist/train/takum",
+                takum.get("takum_decode_2d[bits]", 0)))
+    mx = dist["train"]["mxfp8"]["step_launches"]
+    enc, dec = dist["ring"]["impl"].get("mxe5m2") or _impls("mxe5m2")
+    out.append(("takum_encode_2d", "mxe5m2", enc, [1, RING_CHUNK], "dist/train/mxfp8",
+                mx.get(f"takum_encode_2d[{enc}]", 0)))
+    out.append(("takum_decode_2d", "mxe5m2", dec, [1, blockscale.payload_len(RING_CHUNK)],
+                "dist/train/mxfp8", mx.get(f"takum_decode_2d[{dec}]", 0)))
+    return out
+
+
+def _impls(fmt):
+    from repro_torch.kernels.lut import resolve_impl
+
+    return resolve_impl(None, fmt, "encode"), resolve_impl(None, fmt)
+
+
+def check_ring(ring, card):
+    """(n1)'s checks over the ranks' results; returns the summary."""
+    from repro_torch.kernels.lut import resolve_impl
+
+    P = DIST_P
+    check(all(r["rebuild_s"] == 0.0 for r in ring), "(n1) a rank rebuilt the kernels")
+    rows = {}
+    for key in ring[0]["rings"]:
+        fmt, el = key.split("/")
+        el = el == "1"
+        got = [r["rings"][key] for r in ring]
+        check(all(g["plain_same"] for g in got),
+              f"(n1) {key}: the kernel ring differs from the ring under ops.plain_path()")
+        if fmt == "f32" or not el:
+            check(all(g["digest"] == got[0]["digest"] for g in got),
+                  f"(n1) {key}: the ranks' sums differ")
+        err = got[0]["err_over_rms"]
+        k2, k1 = zip(*(k_counts(g["counts"]) for g in got))
+        want = (0, 0) if fmt == "f32" else (1, P - 1 + (0 if el else 1))
+        log(f"(n1) ring {fmt} exact_local={el}: max err / rms {err:.3g} (limit "
+            f"{RING_LIMITS[fmt]}" + (f"; / the order bound {got[0]['err_over_order_bound']:.3g}, "
+                                      f"limit 1" if fmt == "f32" else "")
+            + f"), K2 / K1 a rank {list(zip(k2, k1))}, host-staged ms a ring (rank 0..{P - 1}) "
+            f"{[round(g['ms'], 2) for g in got]}; card: {card}")
+        if fmt == "f32":
+            check(got[0]["err_over_order_bound"] <= 1.0,
+                  f"(n1) {key}: err {got[0]['err_over_order_bound']:.3g} of the order bound")
+        else:
+            check(err < RING_LIMITS[fmt],
+                  f"(n1) {key}: max err / rms {err:.3g} >= {RING_LIMITS[fmt]}")
+        check(all((a, b) == want for a, b in zip(k2, k1)),
+              f"(n1) {key}: K2 / K1 launches a rank {list(zip(k2, k1))}, want {want}")
+        row = dict(err_over_rms=err, ms=[g["ms"] for g in got], k2_k1=want,
+                   counts=got[0]["counts"],
+                   err_over_order_bound=got[0].get("err_over_order_bound"))
+        if "counters" in got[0]:
+            c = got[0]["counters"]
+            hop = c.get("wire.hop_bytes")
+            check(hop == got[0]["packed_bytes"] * (P - 1),
+                  f"(n1) {key}: wire.hop_bytes {hop}, want {got[0]['packed_bytes']} x {P - 1}")
+            row.update(hop_bytes=hop, packed_bytes=got[0]["packed_bytes"])
+        rows[key] = row
+    deg = [r["degraded"] for r in ring]
+    check(len({d["rung"] for d in deg}) == 1 and all(d["equals_rung"] for d in deg),
+          f"(n1) degraded_psum: rungs {[d['rung'] for d in deg]}, equal to the rung's ring "
+          f"{[d['equals_rung'] for d in deg]}")
+    check(deg[0]["rung"] == "t16", f"(n1) degraded_psum took {deg[0]['rung']}, want t16")
+    check([d["counters"]["wire.specials_in"] for d in deg] == [0.0, 6.0, 0.0, 0.0],
+          f"(n1) wire.specials_in {[d['counters']['wire.specials_in'] for d in deg]}")
+    one = [r["one_trips"] for r in ring]
+    check([d["local"][0] for d in one] == [q == 2 for q in range(P)],
+          f"(n1) one rank trips e4m3: the ranks' own checks {[d['local'] for d in one]}")
+    check(all(d["rung"] == "t16" and d["equals_rung"] for d in one),
+          f"(n1) one rank trips e4m3: rungs {[d['rung'] for d in one]}, equal to the rung's "
+          f"ring {[d['equals_rung'] for d in one]}")
+    ef = ring[0]["ef"]
+    check(ef["max_err_over_bound"] <= 1.0,
+          f"(n1) EF: sum of outputs vs total - residuals {ef['max_err_over_bound']:.3g} of bound")
+    hops = [r["hops"] for r in ring]
+    for h in hops:
+        check(h["counters"]["wire.contained"] == h["recounted"] and h["finite"],
+              f"(n1) hop faults: wire.contained {h['counters']['wire.contained']}, recounted "
+              f"{h['recounted']}, finite {h['finite']}")
+    contained = [h["recounted"] for h in hops]
+    check(sum(contained) > 0, "(n1) hop faults: nothing was contained")
+    log(f"(n1) degraded_psum: t8 tripped, every rank took t16 and equals its ring; e4m3 "
+        f"tripped on rank 2 alone (own checks {[d['local'] for d in one]}), every rank took t16 "
+        f"and equals its ring; EF {EF_STEPS} "
+        f"t8 steps telescope (max err {ef['max_abs_err']:.3g}, {ef['max_err_over_bound']:.3g} "
+        f"of the f32 bound, {ef['ms_per_step']:.1f} ms a step host-staged); hop faults: "
+        f"contained {contained} = recounted, dropped {[h['dropped'] for h in hops]} of "
+        f"{hops[0]['arrivals']} arrivals; card: {card}")
+    return dict(rings=rows, degraded=deg[0], one_trips=[d["local"] for d in one], ef=ef, hops=hops,
+                launch_keys={fmt: rows[f"{fmt}/0"]["counts"] for fmt in RING_FMTS[1:]},
+                impl={fmt: (resolve_impl(None, fmt, "encode"), resolve_impl(None, fmt))
+                      for fmt in RING_FMTS[1:]})
+
+
+def check_pipeline(pipe, card):
+    ticks = PIPE_M + DIST_P - 1
+    check(all(p["rebuild_s"] == 0.0 for p in pipe), "(n2) a rank rebuilt the kernels")
+    out = {}
+    for key in [str(w) for w in PIPE_WIRES] + ["guarded"]:
+        got = [p[key] for p in pipe]
+        check(all(g["digest"] == got[0]["digest"] for g in got),
+              f"(n2) {key}: the stages' outputs differ")
+        check(got[0]["equals_composition"], f"(n2) {key}: differs from the composition")
+        if key == "guarded":
+            trips = got[0]["trips"]
+            check(all(g["trips"] == trips for g in got) and len(trips) == ticks,
+                  f"(n2) guarded: the ticks' decisions differ {[g['trips'] for g in got]}")
+            own = list(zip(*(g["local"] for g in got)))  # per tick, each stage's own check
+            check(all(t == any(o) for t, o in zip(trips, own)),
+                  f"(n2) guarded: a tick's decision is not its stages' checks OR'd {own}")
+            check(0 < sum(trips) < ticks and any(any(o) and not all(o) for o in own),
+                  f"(n2) guarded: want some ticks tripped, some not, and a tick whose stages "
+                  f"disagree: {own}")
+        else:
+            check(all(g["counters"].get("pipe.ticks") == ticks for g in got),
+                  f"(n2) {key}: pipe.ticks {[g['counters'] for g in got]}")
+        out[key] = dict(ms=[g["ms"] for g in got], trips=got[0].get("trips"),
+                        counters=got[0].get("counters"))
+        log(f"(n2) pipeline hops {key}: bit for bit the composition, stages agree"
+            + (f", escalations {sum(got[0]['trips'])} of {ticks} ticks, uniform; the stages' own "
+               f"checks a tick {[''.join('x' if v else '.' for v in o) for o in own]}"
+               if key == "guarded" else "")
+            + f"; host-staged ms {[round(g['ms'], 1) for g in got]}; card: {card}")
+    return out
+
+
+def check_pod_train(name, got, card):
+    a, b = got
+    check(a["rebuild_s"] == b["rebuild_s"] == 0.0, f"(n3) {name}: a rank rebuilt the kernels")
+    check(all(d == e for d, e in zip(a["digests"], b["digests"])),
+          f"(n3) {name}: the ranks' params differ")
+    if name != "f32":
+        check(a["ce"][-1] < a["ce"][0], f"(n3) {name}: CE did not fall: {a['ce']}")
+    check(a["grad_ok"] == 1.0, f"(n3) {name}: non-finite gradients")
+    out = dict(ce=a["ce"], step_ms=[a["step_ms"], b["step_ms"]],
+               peak_gb=[a["peak_gb"], b["peak_gb"]],
+               free_total_gb=a["free_total_gb"], step_launches=a["step_launches"],
+               grad_comm=a["grad_comm"], layers=a["layers"], params=a["params"])
+    if name == "f32":
+        d = a["grad_max_rel_diff"]
+        check(d <= DIST_F32_LIMIT, f"(n3) f32 ring vs the single-device step: gradients {d:.3g}")
+        out.update(grad_max_rel_diff=d, single_max_abs_diff=a["single_max_abs_diff"])
+    log(f"(n3) pod step {name} (grad_comm {a['grad_comm']}), llama3-8b {a['layers']} layers "
+        f"({a['params'] / 1e9:.3f}B params), mesh 2x1x1, B={DIST_B} S={DIST_S}: CE "
+        f"{[round(c, 4) for c in a['ce']]}, ranks bit-identical after every step, step ms "
+        f"{[round(m, 1) for m in a['step_ms']]} (host-staged ring), peak "
+        f"{a['peak_gb']:.2f} / {b['peak_gb']:.2f} GB, mem_get_info (free, total) "
+        f"{[round(v, 2) for v in a['free_total_gb']]} GB, launches a step {a['step_launches']}"
+        + (f", against the single-device step on the whole batch: gradients max |diff| / "
+           f"max |g| {out['grad_max_rel_diff']:.3g} (limit {DIST_F32_LIMIT}), params max |diff| "
+           f"{out['single_max_abs_diff']:.3g} (AdamW's first step: up to lr x sign(g))"
+           if name == "f32" else "") + f"; card: {card}")
+    return out
+
+
+def check_serve(served, single, card):
+    check(all(r["rebuild_s"] == 0.0 for r in served), "(n4) a rank rebuilt the kernels")
+    worst = 0.0
+    for r in served:
+        rows = r["rows"]
+        want = single[:, rows].numpy()
+        err = float(abs(r["logits"] - want).max() / abs(want).max())
+        worst = max(worst, err)
+    check(worst <= SERVE_LIMIT, f"(n4) the ranks' rows differ from the single run's: {worst:.3g}")
+    check([r["rows"] for r in served] == [slice(0, 2), slice(2, 4)], "(n4) rows")
+    log(f"(n4) llama3-8b {SERVE_LAYERS} layers takum (f32 activations), 2 data ranks x 2 rows, "
+        f"prefill {SERVE_S0} + {SERVE_STEPS} decode steps: max |rows - single| / max |logit| "
+        f"{worst:.3g} (limit {SERVE_LIMIT}); ms {[round(r['ms'], 1) for r in served]}; "
+        f"card: {card}")
+    return dict(max_err=worst, ms=[r["ms"] for r in served])
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -4139,6 +5018,8 @@ def main() -> int:
 
     observability = phase_observability(torch, dev, card)
 
+    dist = phase_dist(torch, dev, card, rows)
+
     launches = {p: serving[p]["launches"] for p in serving}
     launches.update({f"{p}/pack": serving[p]["pack_launches"] for p in serving})
     for path in ("mxt8", "bf16"):
@@ -4212,6 +5093,20 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], bound_rate=row["bound_rate"],
             bound_f32_ms=row["bound_f32_ms"], library_ms=row["library_ms"],
             copy_yardstick_ms=row["copy_yardstick_ms"]))
+    # phase (n): K2 / K1 as the ring launches them, launches from rank 0's
+    # ring of each format (exact_local=False) and from one pod train step
+    for kname, fmt, impl, shape, path, n in dist_summary(dist):
+        row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
+                   == (kname, fmt, impl, shape))
+        tag, source, replaces = KERNEL_INFO[kname]
+        name = tag + ("-mx" if fmt.startswith("mx") else "") + ("-lut" if impl == "lut" else "")
+        check(n > 0, f"{name} was never launched on the {path} path")
+        summary.append(dict(
+            name=f"{name} {kname} {fmt} {'x'.join(map(str, shape))}", route="cuda",
+            source=source, entry=source, replaces=replaces, path=path, launches=n, loop=None,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            device_ms=row["device_ms"], library_device_ms=row["library_device_ms"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -4225,7 +5120,8 @@ def main() -> int:
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
              other_archs=other, moe_kernels=moe_kernels, moe=moe, ssm=ssm, vlm=vlm,
-             observability=observability, total_s=time.perf_counter() - t_start), indent=1))
+             observability=observability, dist=dist, total_s=time.perf_counter() - t_start),
+        indent=1, default=str))
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

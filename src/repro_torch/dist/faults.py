@@ -1,6 +1,6 @@
-"""Deterministic, seedable numeric-fault injection (counterpart of the
-single-device half of ``repro.dist.faults``): a context manager under which
-the port's fault surfaces run corrupted, with no change at the call sites.
+"""Deterministic, seedable numeric-fault injection (counterpart of
+``repro.dist.faults``): a context manager under which the port's fault
+surfaces run corrupted, with no change at the call sites.
 
 Fault classes (rates are probabilities):
 
@@ -11,27 +11,33 @@ Fault classes (rates are probabilities):
   with ``scale_flip_rate`` (one bit flipped) and with ``scale_nan_rate``
   forced to 255, the NaN scale (the whole block decodes NaN).  Element
   flips never touch the scale byte.
+* **dropped / garbled hops**: :func:`corrupt_hop` drops a just-received
+  ring or pipeline message (zeroes it) with ``hop_drop_rate``, or garbles
+  it (each word hit at 8x ``bit_flip_rate``, 0.05 when that is 0) with
+  ``hop_garble_rate``.
 * **NaN / Inf poisoning**: :func:`poison_grads` hits a step's gradients with
   probability ``grad_poison_rate`` (a ``poison_frac`` share of each leaf's
   elements becomes ``poison_value``); :func:`poison` poisons any tensor.
 
 The surfaces: the KV append (``models/transformer.py``: the slots just
-written, after the K2 launch) and the train step (``train/step.py``: the
-gradients after the backward).  Each hook reads :func:`active` first, so
+written, after the K2 launch), the train step (``train/step.py``: the
+gradients after the backward), every encoded wire payload
+(``dist/collectives.py``'s ``wire_codec``) and every hop of the rings and the
+pipeline (``dist/collectives.py``, ``dist/pipeline.py``).  Each hook reads :func:`active` first, so
 outside :func:`inject` it returns its input untouched and adds no op.
 
 Determinism: draws come from explicit ``torch.Generator`` objects on the
 payload's device, seeded from (``FaultConfig.seed``, the call site's
 number within the :func:`inject` scope, a hash of the payload's content);
-:func:`poison_grads` seeds from the seed and the step's key instead.  The
+:func:`poison_grads` seeds from the seed and the step's key instead, and
+:func:`corrupt_hop` also from the receiving rank's index in its group, so
+the ranks of a ring draw apart.  The
 same seed and data give the same faults on one device; the draws differ
 from ``repro``'s (jax's PRNG) and from another device type's.  The content
 hash is read back to the host, a sync that happens inside :func:`inject`
 only.  Where a test holds this mechanism against ``repro``'s, it feeds
-``repro``'s hit pattern through :func:`xor_bits`.
-
-Not here yet: ``corrupt_hop`` (dropped and garbled ring hops) waits for
-the port's collectives (dist, M7).
+``repro``'s hit pattern through :func:`xor_bits` (a hop's through
+:func:`apply_hop`).
 """
 
 from __future__ import annotations
@@ -52,8 +58,8 @@ class FaultConfig:
     bit_flip_rate: float = 0.0  # per payload byte/word: XOR one random bit
     scale_flip_rate: float = 0.0  # per mx scale byte: XOR one random bit
     scale_nan_rate: float = 0.0  # per mx scale byte: force 255 (NaN scale)
-    hop_drop_rate: float = 0.0  # per ring/pipe hop: message zeroed (dist)
-    hop_garble_rate: float = 0.0  # per hop: payload bytes garbled (dist)
+    hop_drop_rate: float = 0.0  # per ring/pipe hop: message zeroed
+    hop_garble_rate: float = 0.0  # per hop: payload bytes garbled
     grad_poison_rate: float = 0.0  # per step: gradient payload poisoned
     poison_frac: float = 1e-3  # fraction of elements hit when poisoned
     poison_value: float = float("nan")  # NaN or +-Inf
@@ -196,6 +202,35 @@ def corrupt_payload(payload: torch.Tensor, fmt) -> torch.Tensor:
         elems = flip_bits(grp[..., 1:].contiguous(), mix(seed, 1), cfg.bit_flip_rate)
         out = torch.cat([grp[..., :1], elems], dim=-1).reshape(payload.shape)
     return _corrupt_scale_bytes(out, mix(seed, 2), cfg)
+
+
+def apply_hop(msg: torch.Tensor, drop: bool, pattern: torch.Tensor | None = None) -> torch.Tensor:
+    """A hop's fault applied: ``msg`` XOR ``pattern`` (a garble, as
+    :func:`xor_bits`), then zeroed when ``drop``."""
+    out = msg if pattern is None else xor_bits(msg, pattern)
+    return torch.zeros_like(out) if drop else out
+
+
+def corrupt_hop(msg: torch.Tensor, group=None) -> torch.Tensor:
+    """The active config's hop faults applied to a just-received message:
+    with ``hop_garble_rate`` its words are bit-flipped (:func:`flip_bits`
+    at 8x ``bit_flip_rate``, capped at 0.5, or 0.05 when that rate is 0),
+    with ``hop_drop_rate`` it is zeroed.  The two whole-message draws come
+    from a host generator and the flips from one on the message's device,
+    keyed by the call site, the receiver's index in ``group`` and the
+    message's content.  Returns ``msg`` itself outside :func:`inject`."""
+    cfg = _ACTIVE
+    if cfg is None or not cfg.corrupts_hops:
+        return msg
+    from .comm import axis_index
+
+    seed = mix(_site_seed(cfg), axis_index(group), content_hash(msg))
+    drop_u, garble_u = torch.rand(2, generator=_generator(seed, "cpu")).tolist()
+    pattern = None
+    if cfg.hop_garble_rate > 0 and garble_u < cfg.hop_garble_rate:
+        garbled = flip_bits(msg, mix(seed, 1), min(8 * cfg.bit_flip_rate, 0.5) or 0.05)
+        pattern = _codes(garbled) ^ _codes(msg)
+    return apply_hop(msg, cfg.hop_drop_rate > 0 and drop_u < cfg.hop_drop_rate, pattern)
 
 
 def poison(x: torch.Tensor, key: int, rate: float, value=float("nan")) -> torch.Tensor:

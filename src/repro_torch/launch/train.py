@@ -15,23 +15,40 @@ granite_34b, musicgen_large, dbrx_132b, kimi_k2_1t_a32b, mamba2_780m,
 hymba_1_5b, llama3_2_vision_90b, or their aliases such as ``gemma2-2b``)
 and ``lm_100m``, the launcher's own tied-embedding config (``repro``'s).
 A vlm's batches carry ``media`` from ``SyntheticLM.media_stub``, as
-``repro``'s launcher adds it.  A
-``--mesh`` other than ``1x1`` is not ported yet and raises.
+``repro``'s launcher adds it.
+
+``--mesh`` takes ``repro``'s specs: "DxM" (data x model) or "PxDxM" (pod x
+data x model; a pod axis above 1 reduces the gradients through the
+compressed ring in the policy's ``grad_comm``), run as one process a rank
+under ``torchrun``, whose world must be the mesh's size::
+
+    torchrun --nproc-per-node=2 -m repro_torch.launch.train --arch llama3_8b \
+        --smoke --steps 20 --batch 8 --seq 64 --mesh 2x1x1 --device cpu
+
+Every rank builds the same batches and initial state and runs
+``dist.step.make_train_step``; its checkpoints go to ``<ckpt-dir>/rank<r>``
+and rank 0 alone prints and writes ``--metrics-out``.  ``--backend`` is
+gloo (CPU ranks, or ranks that share one card) unless ``nccl`` is asked
+for (a card per rank).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 from repro_torch import configs
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.dist import step as dstep
+from repro_torch.dist.spawn import rank_device
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.policy import POLICIES
 from repro_torch.train import TrainLoop, TrainLoopConfig
-from repro_torch.train.step import init_state, make_train_step
+from repro_torch.train.step import init_state
 
 
 def lm_100m() -> ModelConfig:
@@ -77,7 +94,11 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default="repro_torch_train")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--mesh", default="1x1", help="device mesh; only 1x1 is ported")
+    ap.add_argument("--mesh", default="1x1",
+                    help="rank mesh, e.g. 2x4 (data x model) or 2x2x2 (pod x data x model); "
+                         "pod meshes use the compressed gradient ring")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="process-group backend of a multi-rank mesh")
     ap.add_argument("--device", default=None, help="'cpu' for the host (default: the card)")
     return ap.parse_args(argv)
 
@@ -86,31 +107,38 @@ def main(argv=None, failure_hook=None):
     """Run the launcher; returns the loop's final state and its metrics
     history.  ``failure_hook(step)`` is the loop's (a drill may raise)."""
     args = parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(f"--mesh {args.mesh}: only single-device training is "
-                                  "ported")
     cfg, pipe = build(args.arch, smoke=args.smoke, policy=args.policy, seq=args.seq,
                       batch=args.batch)
-    dev = resolve_device(args.device)
-    print(f"arch={cfg.name} policy={args.policy} device={dev}")
+    mesh = parse_mesh(args.mesh, backend=args.backend)
+    ckpt_dir, rank0 = args.ckpt_dir, True
+    if mesh.size > 1:
+        import torch.distributed as dist
+
+        dev = rank_device(args.device, args.backend)
+        ckpt_dir = os.path.join(args.ckpt_dir, f"rank{dist.get_rank()}")
+        rank0 = dist.get_rank() == 0
+    else:
+        dev = resolve_device(args.device)
+    say = print if rank0 else (lambda *a, **k: None)
+    say(f"arch={cfg.name} policy={args.policy} device={dev} mesh={mesh.shape}")
     loop = TrainLoop(
         TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
-                        ckpt_dir=args.ckpt_dir, ckpt_fmt=cfg.quant.checkpoint,
+                        ckpt_dir=ckpt_dir, ckpt_fmt=cfg.quant.checkpoint,
                         log_every=10),
-        make_train_step(cfg, lr=args.lr), batch_fn(cfg, pipe),
+        dstep.make_train_step(cfg, mesh, lr=args.lr), batch_fn(cfg, pipe),
         lambda: init_state(cfg, 0, device=dev),
         failure_hook)
     t0 = time.time()
     state = loop.run()
     hist = loop.metrics_history
-    print(f"done {args.steps} steps in {time.time() - t0:.1f}s")
+    say(f"done {args.steps} steps in {time.time() - t0:.1f}s")
     for m in hist[:3] + hist[-3:]:
-        print("  ", {k: round(v, 4) for k, v in m.items()})
+        say("  ", {k: round(v, 4) for k, v in m.items()})
     if hist:
         first, last = hist[0]["ce"], hist[-1]["ce"]
-        print(f"CE {first:.3f} -> {last:.3f} "
+        say(f"CE {first:.3f} -> {last:.3f} "
               f"({'improved' if last < first else 'NO IMPROVEMENT'})")
-    if args.metrics_out:
+    if args.metrics_out and rank0:
         with open(args.metrics_out, "w") as f:
             json.dump(hist, f, indent=1)
     return state, hist

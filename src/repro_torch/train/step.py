@@ -20,7 +20,10 @@ step (``torch.amp.GradScaler``'s idiom), which also spares the update's work
 on a skipped step; an unguarded step takes no sync.  Under a telemetry
 capture the step is a ``step.train`` span (category ``step``) and counts
 ``step.calls`` and ``step.tokens`` and the ``step.grad_norm`` histogram.
-The pod branch (the compressed gradient ring) comes with dist (M7).
+The multi-rank steps, the pod branch with its compressed gradient ring
+among them, are :func:`repro_torch.dist.step.make_train_step`: they run
+this step with the two hooks of :func:`make_train_step` (each rank's rows
+of the batch, and the gradients' reduction over the ranks).
 """
 
 from __future__ import annotations
@@ -77,13 +80,20 @@ def init_state(cfg, seed: int = 0, *, device=None) -> TrainState:
     return TrainState(params, adamw_init(params, fmt=cfg.quant.opt_state), rng_key(seed + 1))
 
 
-def make_train_step(cfg, *, lr=3e-4, aux_weight: float = 0.01):
+def make_train_step(cfg, *, lr=3e-4, aux_weight: float = 0.01, local_batch=None, sync=None):
     """``step(state, batch, rnd=None) -> (state, metrics)``; ``batch``
     holds ``tokens`` (and a vlm's ``media``), moved to the params' device;
     metrics ``loss`` (ce + aux), ``ce``, ``aux`` and ``grad_ok`` (1.0 when
     every gradient is finite), 0-d tensors on the params' device.  ``rnd``
     replaces the SR draws (``optim.adamw``'s supplier), as the tests do
-    with ``repro``'s."""
+    with ``repro``'s.
+
+    The hooks of a multi-rank step: ``local_batch(batch)`` gives the rows
+    this rank computes the loss on (default: all of them), and ``sync(grads,
+    metrics, key)`` reduces the gradient list and the metrics dict (``loss``,
+    ``ce``, ``aux``) over the ranks after the fault hook, ``key`` being the
+    step's rng as an integer; it returns ``(grads, metrics, grad_ok)`` and
+    may empty the list it was given, to free the gradients early."""
     fmt = cfg.quant.opt_state
     use_sr = cfg.quant.stochastic_rounding and is_takum(fmt)
     guard = cfg.quant.guard
@@ -97,19 +107,28 @@ def make_train_step(cfg, *, lr=3e-4, aux_weight: float = 0.01):
         with span:
             live = [p.detach().requires_grad_(True) for p in leaves]
             tokens = batch["tokens"]
+            local = batch if local_batch is None else local_batch(batch)
             with torch.enable_grad():
                 loss, metrics = T.loss_fn(cfg, tree.unflatten(spec, live),
-                                          {k: batch[k].to(dev) for k in ("tokens", "media")
-                                           if k in batch}, aux_weight=aux_weight)
+                                          {k: local[k].to(dev) for k in ("tokens", "media")
+                                           if k in local}, aux_weight=aux_weight)
                 loss.backward()
             grads = [p.grad for p in live]
+            for p in live:
+                p.grad = None  # the list holds them: a sync may free them early
             with torch.no_grad():
                 key, sr_seed = _advance(state.rng)
                 if faults.active() is not None:
                     grads = faults.poison_grads(grads, _rng_int(state.rng))
-                ok = torch.ones((), dtype=torch.float32, device=dev)
-                for g in grads:
-                    ok = ok * torch.isfinite(g).all().to(torch.float32)
+                if sync is None:
+                    ok = torch.ones((), dtype=torch.float32, device=dev)
+                    for g in grads:
+                        ok = ok * torch.isfinite(g).all().to(torch.float32)
+                else:
+                    metrics = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+                               "aux": metrics["aux"].detach()}
+                    grads, metrics, ok = sync(grads, metrics, _rng_int(state.rng))
+                    loss = metrics["loss"]
                 if telemetry.enabled():
                     telemetry.emit("step.calls", 1.0)
                     telemetry.emit("step.tokens", float(tokens.shape[0] * tokens.shape[1]))

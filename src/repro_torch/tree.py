@@ -102,6 +102,33 @@ def map_leaves(fn: Callable, tree, *rest) -> Any:
     return unflatten(spec, [fn(x, *(o[i] for o in others)) for i, x in enumerate(leaves)])
 
 
+def _paths(t, path: tuple, out: list) -> None:
+    from repro_torch.quant.qtensor import QTensor
+
+    if t is None:
+        return
+    if isinstance(t, QTensor):
+        n = 2 if t.block_scaled or t.scale is not None else 1
+        out.extend([path] * n)
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _paths(t[k], path + (k,), out)
+    elif isinstance(t, (tuple, list)):
+        for x in t:
+            _paths(x, path, out)
+    else:
+        out.append(path)
+
+
+def paths(tree) -> list[tuple]:
+    """Each leaf's dict keys from the root, in :func:`flatten`'s order: what
+    ``jax.tree_util``'s key paths hold as ``DictKey`` entries (a NamedTuple
+    field or a QTensor's bits and scale add no key)."""
+    out: list = []
+    _paths(tree, (), out)
+    return out
+
+
 def _nodes(t, out: list) -> None:
     from repro_torch.quant.qtensor import QTensor
 

@@ -19,7 +19,8 @@
   an f32 checkpoint (the SR draws seeded from the restored rng).
 * ``launch.train``'s ``main`` (``python -m repro_torch.launch.train``) at
   ``--smoke --steps 20 --device cpu`` (batch 4, sequence 32): the CE falls;
-  a mesh other than 1x1 raises; ``lm_100m`` (tied embeddings) builds.
+  a mesh larger than the world (8 ranks in one process) raises; ``lm_100m``
+  (tied embeddings) builds.
 """
 
 import json
@@ -334,7 +335,7 @@ def test_launcher_refuses_what_is_not_ported():
     # lm_100m ties its embeddings, which the port now serves and trains
     cfg, _ = launch.build("lm_100m", smoke=False, policy="takum", seq=8, batch=1)
     assert cfg.name == "lm-100m" and cfg.tie_embeddings
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh .* needs 8 ranks, the world has 1"):
         launch.main(["--smoke", "--mesh", "2x4", "--device", "cpu"])
 
 
