@@ -272,6 +272,33 @@ Phases, each of which must pass:
       activations, B = 4 over 2 data ranks: each rank's logits rows over
       the prefill and 8 decode steps equal the single-process run's rows
       within ``SERVE_LIMIT``.
+  (o) the executable takum ISA (``core/isa.py``) and the figure registry.
+      (o1) every ``REGISTRY`` family on the card (K1 / K2 decode and encode
+      t8 / t16; t32 takes the plain codec on the card too), bit for bit
+      against the same call under ``ops.plain_path()`` on the card and on
+      the host: t8 over every (a, b) pair and code, t16 over every code and
+      2^20 seeded pairs, t32 over 2^20 seeded codes and pairs, each with
+      every pair of {0, NaR, +-minpos, +-maxpos, +-1}; ``vcvtt2t`` for
+      every (m, n) of {8, 16, 32}; log mode's decode within 4 f32 ulps of
+      the host and its encode within one code (t32: the log-value limit of
+      ``tests/test_torch_isa.py``).  (o2) the elementwise families at
+      llama3-8b's wi shape [4096, 14336], t16 and t8, and ``vdppt`` 8 -> 16
+      and 16 -> 32 over two such operands row by row, driven once with the
+      launch counts reset just before and read just after each format
+      (paths "isa/t16", "isa/t8") and each tiled shape of (o3) (paths
+      "isa/t{n}/M{M}"), then each timed beside its byte floor with its
+      K1 / K2 launches.
+      (o3) the tiled VDPPT on K4 (VDPPT8PT16: K4's fused t16 epilogue;
+      VDPPT16PT32: K4 with f32 output, then the plain t32 encode) at
+      M = 4 and 1024, K = N = 4096: K4's f32 output within K3's limit of
+      |decode(a)| @ |decode(b)| against the float64 plain path, its codes
+      the encode of that output bit for bit, against ``vdppt``'s matrix form
+      the same codes where the two f32 sums agree and the sums within the
+      limit where not, each code between the encodes of the sum -+ the
+      limit (the codes' distance read), timed (events and device time)
+      beside its bound, its plain version and ``torch.matmul`` on the
+      decoded operands in f32 and bf16.  (o4) the
+      figure registry's dynamic ranges, without ``ml_dtypes``.
 
 Stdout ends with the card line, one JSON line of kernel measurements and
 the result line {"ok": true, "device": {...}}.  The script exits nonzero,
@@ -1293,9 +1320,10 @@ def bytes_differing(torch, a, b):
 
 def dual_rate(fmt):
     """The card's peak for K4's products and its name: bf16 tensor cores
-    where both decoded operands are exact in bf16 (every format but t16),
-    else f32 FMA."""
-    return (F32_FLOPS, "f32") if fmt == "t16" else (BF16_FLOPS, "bf16x1")
+    over as many MMAs per product as the operands' exact bf16 parts need
+    (``matmul_rate``'s rule): one where both decoded operands are exact in
+    bf16 (every format but t16), four for t16 x t16 (two parts each)."""
+    return (BF16_FLOPS / 4, "bf16x4") if fmt == "t16" else (BF16_FLOPS, "bf16x1")
 
 
 def phase_producers_exact(torch, dev):
@@ -4705,6 +4733,419 @@ def check_serve(served, single, card):
     return dict(max_err=worst, ms=[r["ms"] for r in served])
 
 
+# ---------------------------------------------------------------------------
+# (o) the executable takum ISA, the tiled VDPPT and the figure registry
+# ---------------------------------------------------------------------------
+
+ISA_BINARY = ("VADDT", "VSUBT", "VMULT", "VDIVT", "VMINT", "VMAXT")
+ISA_UNARY = ("VSQRTT", "VNEGT", "VABST", "VCVTPT2PS")
+ISA_WIDTHS = (8, 16, 32)
+#: seeded t16 / t32 operands held on the card against the plain codec
+ISA_SEEDED = 1 << 20
+#: the families timed at llama3-8b's wi shape, t16 and t8
+ISA_TIMED = ISA_BINARY + ("VFMADDT", "VCMPT") + ISA_UNARY + ("VCVTT2T", "VCVTPS2PT")
+#: the tiled VDPPT (K4): the matvec and the tensor-core tile, (M, K, N)
+ISA_TILED = ((4, 4096, 4096), (1024, 4096, 4096))
+#: rows of ``vdppt``'s broadcast matrix form a call (a [16, 4096, 4096] f32
+#: product, 1 GiB)
+ISA_MAT_ROWS = 16
+#: log mode, card against host: the decode's f32 ulps
+ISA_LOG_ULPS = 4
+
+
+def isa_specials(torch, n, dev):
+    """0, NaR, +-minpos, +-maxpos, +-1 as n-bit codes (int64)."""
+    full, half, one = 1 << n, 1 << (n - 1), 1 << (n - 2)
+    return torch.tensor([0, half, 1, full - 1, half - 1, half + 1, one, full - one],
+                        dtype=torch.int64, device=dev)
+
+
+def isa_sets(torch, n, dev, gen):
+    """(a, b, c, u): packed takum-n operands on ``dev``.  Binary operands a,
+    b: every t8 pair, else ``ISA_SEEDED`` seeded pairs, then every pair of
+    the specials; c = b rolled by one; unary u: every t8 / t16 code, else
+    ``ISA_SEEDED`` seeded codes, then the specials."""
+    from repro_torch.core.takum import pack
+
+    sp = isa_specials(torch, n, dev)
+    pa, pb = sp.repeat_interleave(sp.numel()), sp.repeat(sp.numel())
+    if n == 8:
+        c = torch.arange(1 << 16, dtype=torch.int64, device=dev)
+        a, b, u = c >> 8, c & 0xFF, torch.arange(256, dtype=torch.int64, device=dev)
+    else:
+        draw = lambda: torch.randint(0, 1 << n, (ISA_SEEDED,), generator=gen, device=dev,
+                                     dtype=torch.int64)
+        a, b = draw(), draw()
+        u = torch.arange(1 << 16, dtype=torch.int64, device=dev) if n == 16 else draw()
+    a, b, u = torch.cat([a, pa]), torch.cat([b, pb]), torch.cat([u, sp])
+    return tuple(pack(t, n) for t in (a, b, torch.roll(b, 1), u))
+
+
+def isa_same(torch, got, want):
+    """Equal outputs: f32 bits with NaN matching NaN, bools, packed codes."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype == torch.float32:
+        return same_bits_f32(torch, got, want)
+    if got.dtype == torch.bool:
+        return torch.equal(got, want)
+    return torch.equal(as_i64(torch, got), as_i64(torch, want))
+
+
+def isa_hold(torch, tag, call, args):
+    """``call(*args)`` on the card (K1 / K2 where the family decodes or
+    encodes t8 / t16), under ``ops.plain_path()`` on the card, and on the
+    host: the same bits."""
+    from repro_torch.kernels import ops
+
+    card = call(*args)
+    with ops.plain_path():
+        plain = call(*args)
+    host = call(*(a.cpu() for a in args))
+    check(isa_same(torch, card, plain), f"(o1) {tag}: card differs from its plain path")
+    check(isa_same(torch, card.cpu(), host), f"(o1) {tag}: card differs from the host")
+
+
+def isa_log_hold(torch, n, u, x):
+    """Log mode, card against host: decode within ``ISA_LOG_ULPS`` f32 ulps
+    (NaN and zero on the same codes); encode within one code at t8 / t16,
+    at t32 the codes' log-values within four f32 ulps of l, the fraction's
+    2^-23 and one code (``tests/test_torch_isa.py``'s limits).  Returns the
+    worst decode ulps and the codes that differ."""
+    from repro_torch.core import isa, takum
+
+    dg, dh = isa.vcvtpt2ps(u, n, mode="log").cpu(), isa.vcvtpt2ps(u.cpu(), n, mode="log")
+    check(torch.equal(torch.isnan(dg), torch.isnan(dh)), f"(o1) log t{n}: NaN codes differ")
+    ok = ~torch.isnan(dh)
+    ulps = int((dg[ok].view(torch.int32).long() - dh[ok].view(torch.int32).long()).abs().max())
+    check(ulps <= ISA_LOG_ULPS, f"(o1) log t{n} decode: {ulps} ulps from the host")
+    check(torch.equal(dg[ok] == 0, dh[ok] == 0), f"(o1) log t{n} decode: flushes differ")
+    eg = takum.codes_of(isa.vcvtps2pt(x, n, mode="log").cpu())
+    eh = takum.codes_of(isa.vcvtps2pt(x.cpu(), n, mode="log"))
+    diff = eg != eh
+    if n < 32:
+        kg, kh = takum.sortable_int(eg, n).long(), takum.sortable_int(eh, n).long()
+        check(int((kg - kh).abs().max()) <= 1, f"(o1) log t{n} encode: codes more than 1 apart")
+    elif bool(diff.any()):
+        def ell(c):
+            neg, ch, M, p = takum._decode_fields(c, n)
+            v = ch.double() + M.double() / torch.pow(2.0, p.double())
+            return torch.where(neg, -v, v), p
+        lg, _ = ell(eg[diff])
+        lh, p = ell(eh[diff])
+        ulp = torch.pow(2.0, torch.frexp(lh.abs().float())[1].double() - 24)  # f32 ulp of l
+        check(bool(((lg - lh).abs() <= 4 * ulp + 2.0 ** -23 + torch.pow(2.0, -p.double())).all()),
+              f"(o1) log t32 encode: log-values beyond the limit")
+    return ulps, int(diff.sum())
+
+
+def isa_codes(torch, dev):
+    """(o1): every ``REGISTRY`` family on the card, bit for bit its plain
+    path on the card and the host; ``vcvtt2t`` for every (m, n); log mode
+    to its limits.  Returns the families held per width."""
+    from repro_torch.core import isa
+    from repro_torch.core.takum import pack
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2800)
+    sets = {n: isa_sets(torch, n, dev, gen) for n in ISA_WIDTHS}
+    held, log_rows = {}, {}
+    for n, (a, b, c, u) in sets.items():
+        names = []
+        for name in ISA_BINARY:
+            isa_hold(torch, f"{name} t{n}", lambda p, q, n=n, f=isa.REGISTRY[name]: f(p, q, n),
+                     (a, b))
+            names.append(name)
+        for op in ("lt", "le", "eq", "gt", "ge", "ne"):
+            isa_hold(torch, f"VCMPT.{op} t{n}", lambda p, q, n=n, op=op: isa.vcmpt(p, q, n, op),
+                     (a, b))
+        isa_hold(torch, f"VFMADDT t{n}", lambda p, q, r, n=n: isa.vfmaddt(p, q, r, n), (a, b, c))
+        names += ["VCMPT", "VFMADDT"]
+        for name in ISA_UNARY:
+            isa_hold(torch, f"{name} t{n}", lambda p, n=n, f=isa.REGISTRY[name]: f(p, n), (u,))
+            names.append(name)
+        words = torch.randint(-(1 << 31), 1 << 31, (1 << 16,), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.int32).view(torch.float32)
+        with torch.no_grad():
+            x = torch.cat([isa.vcvtpt2ps(u, n), words])
+        isa_hold(torch, f"VCVTPS2PT t{n}", lambda v, n=n: isa.vcvtps2pt(v, n), (x,))
+        for m in ISA_WIDTHS:
+            isa_hold(torch, f"VCVTT2T t{n}->t{m}", lambda p, n=n, m=m: isa.vcvtt2t(p, n, m), (u,))
+        names += ["VCVTPS2PT", "VCVTT2T"]
+        if n < 32:
+            k = 256
+            rows_ = a[: a.numel() // k * k].reshape(-1, k), b[: b.numel() // k * k].reshape(-1, k)
+            isa_hold(torch, f"VDPPT t{n}->t{2 * n}", lambda p, q, n=n: isa.vdppt(p, q, n), rows_)
+            names.append("VDPPT")
+        held[n] = names
+        log_rows[n] = isa_log_hold(torch, n, u, x)
+        log(f"(o1) t{n}: {len(names)} families bit for bit on the card against its plain path "
+            f"and the host over {a.numel()} pairs / {u.numel()} codes; log mode: decode "
+            f"{log_rows[n][0]} ulps at most, encode {log_rows[n][1]} codes of {x.numel()} differ")
+    missing = set(isa.REGISTRY) - set().union(*held.values())
+    check(not missing, f"(o1) families never held: {sorted(missing)}")
+    del sets
+    return dict(families=held, log=log_rows)
+
+
+def isa_bytes(name, n):
+    """Bytes a family must move per element at takum-n: inputs read once,
+    the output written once (VCVTT2T: t16 -> t8 / t8 -> t16)."""
+    nb = n // 8
+    return {"VFMADDT": 4 * nb, "VCMPT": 2 * nb + 1, "VCVTPT2PS": nb + 4, "VCVTPS2PT": 4 + nb,
+            "VCVTT2T": 3, "VSQRTT": 2 * nb, "VNEGT": 2 * nb, "VABST": 2 * nb}.get(name, 3 * nb)
+
+
+def isa_full(torch, dev, gen):
+    """(o2)'s operands and calls: the elementwise families at llama3-8b's wi
+    shape, t16 and t8 (``call(name, n)``; VCVTT2T narrows t16 to t8 and
+    widens t8 to t16), and ``vdppt`` 8 -> 16 and 16 -> 32 over two such
+    operands row by row (``dot(n)``)."""
+    from repro_torch.core import isa
+    from repro_torch.kernels import ops
+
+    ops_ = {}
+    for n in (16, 8):
+        src = [torch.randn(WI_SHAPE, generator=gen, device=dev) * s for s in (1.0, 0.5, 2.0)]
+        ops_[n] = tuple(ops.encode(s, f"t{n}") for s in src) + (src[0],)
+
+    def call(name, n):
+        a, b, c, x = ops_[n]
+        f = isa.REGISTRY[name]
+        if name in ISA_BINARY:
+            return f(a, b, n)
+        if name == "VCMPT":
+            return f(a, b, n, "lt")
+        if name == "VFMADDT":
+            return f(a, b, c, n)
+        if name == "VCVTT2T":
+            return f(a, n, 24 - n)
+        if name == "VCVTPS2PT":
+            return f(x, n)
+        return f(a, n)
+
+    def dot(n):
+        a, b, _, _ = ops_[n]
+        return isa.vdppt(a, b, n)
+
+    return ops_, call, dot
+
+
+def isa_tiled_operands(torch, dev, gen):
+    """The tiled VDPPT's packed operands: a [M, K] and b^T [K, N] for t8 and
+    t16 at each of ``ISA_TILED``."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for M, K, N in ISA_TILED:
+        for n in (8, 16):
+            a = ops.encode(torch.randn((M, K), generator=gen, device=dev), f"t{n}")
+            bT = ops.encode(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5, f"t{n}")
+            out[(n, M)] = (a, bT)
+    return out
+
+
+def isa_tiled(torch, n, a, bT):
+    """VDPPT{n}PT{2n} tiled on K4: t8 the fused t16 epilogue, t16 K4 with f32
+    output and the plain t32 encode."""
+    from repro_torch.kernels import ops
+
+    return ops.dual_matmul(a, bT, f"t{n}", out_fmt=f"t{2 * n}")
+
+
+def isa_tiled_hold(torch, n, a, bT, card):
+    """(o3) one tiled VDPPT: K4's unfused f32 output within ``K3_LIMIT`` of
+    |decode(a)| @ |decode(b)| against the float64 plain path; its t16 / t32
+    codes the port's encode of it bit for bit; against ``isa.vdppt``'s
+    matrix form (``ISA_MAT_ROWS`` rows a call), whose codes are the encode
+    of its own f32 sum: the same codes where the two sums agree, and the
+    sums within the same limit where they do not, and each of K4's codes
+    between the encodes of ``vdppt``'s sum -+ that limit x |a|@|b|.  Two
+    sums in another order that straddle a code boundary give neighbouring
+    codes; where a sum cancels to far below |a|@|b| the limit spans many
+    codes, so the codes' distance is read and held only to that bracket.
+    Returns the readings."""
+    from repro_torch.core import isa
+    from repro_torch.core.takum import sortable_int
+    from repro_torch.kernels import ops
+
+    M, K = a.shape
+    N = bT.shape[1]
+    tiled = isa_tiled(torch, n, a, bT)
+    unfused = ops.dual_matmul(a, bT, f"t{n}")
+    with ops.plain_path(torch.float64):
+        exact = ops.dual_matmul(a, bT, f"t{n}")
+    x, y = ops.decode(a, f"t{n}"), ops.decode(bT, f"t{n}")
+    absprod = torch.matmul(x.abs(), y.abs())
+    err = float(((unfused - exact).abs() / absprod.clamp(min=1e-30)).max())
+    check(err <= K3_LIMIT, f"(o3) K4 t{n} M={M}: err {err:.3g} of |a|@|b| > {K3_LIMIT}")
+    out_fmt = f"t{2 * n}"
+    check(isa_same(torch, tiled, ops.encode(unfused, out_fmt)),
+          f"(o3) K4 t{n} M={M}: codes differ from the encode of its own output")
+    b = bT.t().contiguous()
+    yt = y.t().contiguous()
+    mat = torch.empty_like(tiled)
+    mat_sum = torch.empty_like(unfused)
+    for i in range(0, M, ISA_MAT_ROWS):
+        j = min(i + ISA_MAT_ROWS, M)
+        mat[i:j] = isa.vdppt(a[i:j, None, :], b[None, :, :], n)
+        prod = x[i:j, None, :] * yt[None, :, :]
+        mat_sum[i:j] = torch.sum(torch.where(prod.abs() < 2.0 ** -126, 0.0, prod), dim=-1)
+        del prod
+    check(isa_same(torch, mat, ops.encode(mat_sum, out_fmt)),
+          f"(o3) vdppt t{n} M={M}: codes differ from the encode of its own sum")
+    kt, km = sortable_int(tiled, 2 * n).long(), sortable_int(mat, 2 * n).long()
+    agree = unfused.view(torch.int32) == mat_sum.view(torch.int32)
+    check(torch.equal(kt[agree], km[agree]), f"(o3) t{n} M={M}: codes differ on equal sums")
+    dist = (kt - km).abs()
+    sum_err = float(((unfused - mat_sum).abs() / absprod.clamp(min=1e-30)).max())
+    check(sum_err <= K3_LIMIT, f"(o3) t{n} M={M}: the sums {sum_err:.3g} of |a|@|b| apart")
+    lo, hi = (sortable_int(ops.encode(mat_sum + s * K3_LIMIT * absprod, out_fmt), 2 * n).long()
+              for s in (-1, 1))
+    outside = int(((kt < lo) | (kt > hi)).sum())
+    check(outside == 0, f"(o3) t{n} M={M}: {outside} codes outside the encodes of the sum -+ "
+          f"{K3_LIMIT} |a|@|b|")
+    res = dict(M=M, K=K, N=N, err_over_absprod=err, sums_differ=int((~agree).sum()),
+               max_code_steps=int(dist.max()), beyond_one_code=int((dist > 1).sum()),
+               sums_apart_over_absprod=sum_err)
+    log(f"(o3) VDPPT{n}PT{2 * n} on K4 M={M} K={K} N={N}: K4 within {err:.3g} of |a|@|b| "
+        f"(limit {K3_LIMIT}), codes = its encode bit for bit; against vdppt: sums differ on "
+        f"{res['sums_differ']} of {M * N} (at most {sum_err:.3g} of |a|@|b|), codes more than "
+        f"one apart on {res['beyond_one_code']} (at most {res['max_code_steps']}), each within "
+        f"the encodes of the sum -+ the limit; card: {card}")
+    del tiled, unfused, exact, x, y, yt, absprod, mat, mat_sum, kt, km, agree, b, dist, lo, hi
+    return res
+
+
+def phase_isa(torch, dev, card, rows):
+    """(o) the executable takum ISA on the card: (o1) every family held bit
+    for bit against its plain path on the card and the host; (o2) the main
+    path, counted: the elementwise families at llama3-8b's wi shape and
+    ``vdppt`` over it, then the tiled VDPPT on K4, then each timed; (o3) the
+    tiled VDPPT held; (o4) the figure registry.  Appends K4's rows to
+    ``rows``; returns the phase's readings with the path's launches."""
+    import gc
+
+    from repro_torch.core import formats, isa
+    from repro_torch.kernels import lut, ops
+
+    t_all = time.perf_counter()
+    out = dict(codes=isa_codes(torch, dev))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2801)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    ops_, call, dot = isa_full(torch, dev, gen)
+    tiled_in = isa_tiled_operands(torch, dev, gen)
+    # each format's families and each tiled shape a sub-path of its own
+    # (t8 and t16 encodes share K2-lut's key, both tiled shapes K4's)
+    def families(n):
+        for name in ISA_TIMED:
+            call(name, n)
+        dot(n)
+
+    runs = {f"isa/t{n}": (lambda n=n: families(n)) for n in (16, 8)}
+    runs.update({f"isa/t{n}/M{M}": (lambda n=n, a=a, bT=bT: isa_tiled(torch, n, a, bT))
+                 for (n, M), (a, bT) in tiled_in.items()})
+    out["launches"] = {}
+    for path, run in runs.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        out["launches"][path] = {k: v for k, v in ops.launch_counts().items() if v}
+    del runs
+    log(f"(o2) ISA path launches: {out['launches']}")
+
+    E = math.prod(WI_SHAPE)
+    timed = []
+    for n in (16, 8):
+        for name in ISA_TIMED + ("VDPPT",):
+            fn = (lambda n=n: dot(n)) if name == "VDPPT" else (lambda name=name, n=n: call(name, n))
+            ops.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            k = {key: v for key, v in ops.launch_counts().items() if v}
+            nbytes = (2 * E * n // 8 + WI_SHAPE[0] * n // 4) if name == "VDPPT" \
+                else E * isa_bytes(name, n)
+            ms = time_ms(torch, fn, flush=flush)
+            floor = nbytes / HBM_BYTES_PER_S * 1e3
+            timed.append(dict(family=name, n=n, shape=list(WI_SHAPE), ms=ms, bound_ms=floor,
+                              bound_by="bytes", launches=k))
+            log(f"(o2) {name} t{n} {'x'.join(map(str, WI_SHAPE))}: {ms:.4f} ms, byte floor "
+                f"{floor:.4f} ms ({ms / floor:.1f}x), launches {k}; card: {card}")
+    out["timed"] = timed
+    del ops_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels import takum_matmul as tm
+
+    tiled = []
+    for (n, M), (a, bT) in tiled_in.items():
+        res = isa_tiled_hold(torch, n, a, bT, card)
+        K, N = a.shape[1], bT.shape[1]
+        fused = n == 8
+        impl = lut.resolve_impl(None, f"t{n}")
+        out_name, out_impl = ("t16", lut.resolve_impl(None, "t16", "encode")) if fused else \
+            (None, None)
+        key = f"takum_dual_matmul[{impl}" + (f">{out_name}:{out_impl}]" if fused else "]")
+
+        def kernel(a=a, bT=bT, n=n, out_fmt=out_name):
+            return ops.dual_matmul(a, bT, f"t{n}", out_fmt=out_fmt)
+
+        def plain(kernel=kernel):
+            with ops.plain_path():
+                return kernel()
+
+        got, want = kernel(), plain()
+        loop = tm.takum_dual_matmul.last_loop
+        if fused:
+            got, want = ops.decode(got, out_name), ops.decode(want, out_name)
+        xd, wd = ops.decode(a, f"t{n}"), ops.decode(bT, f"t{n}")
+        # as a yardstick of speed only: the bf16 product, which rounds its
+        # output to bf16 (and t16's operands too)
+        xb, wb = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
+        rate, rate_name = dual_rate(f"t{n}")
+        b_ms, b_by = bound(a.numel() * a.element_size() + bT.numel() * bT.element_size()
+                           + M * N * (2 if fused else 4), 2.0 * M * N * K, rate)
+        row = dict(kernel="takum_dual_matmul", producer="K4", fmt=f"t{n}", impl=impl, loop=loop,
+                   out_fmt=out_name, encode_impl=out_impl, shape=[M, K, N], launch_key=key,
+                   path=f"isa/t{n}/M{M}", max_abs_err=float((got - want).abs().max()),
+                   ms=time_ms(torch, kernel, flush=flush),
+                   device_ms=device_ms(torch, kernel, flush=flush),
+                   plain_ms=time_ms(torch, plain, flush=flush), bound_ms=b_ms, bound_by=b_by,
+                   bound_rate=rate_name,
+                   library_ms=time_ms(torch, lambda: torch.matmul(xd, wd), flush=flush),
+                   library_bf16_out_ms=time_ms(torch, lambda: torch.matmul(xb, wb), flush=flush),
+                   **res)
+        if not fused:  # VDPPT16PT32: K4, then the plain t32 encode
+            row["with_t32_encode_ms"] = time_ms(torch, lambda a=a, bT=bT: isa_tiled(torch, 16, a, bT),
+                                                flush=flush)
+        tiled.append(row)
+        rows.append(row)
+        log(f"(o3) K4 {key} M={M} K={K} N={N} loop {loop}: {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} (bound "
+            f"{b_ms:.4f}, {b_by}; plain {row['plain_ms']:.3f}; torch.matmul "
+            f"{row['library_ms']:.4f}, bf16 out {row['library_bf16_out_ms']:.4f}"
+            + ("" if fused else f"; with the t32 encode "
+                                           f"{row['with_t32_encode_ms']:.4f}")
+            + f"); max |kernel - plain| {row['max_abs_err']:.3g}; card: {card}")
+        del xd, wd, xb, wb, got, want
+    out["tiled"] = tiled
+    del tiled_in, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    decades = {name: round(formats.dynamic_range_decades(f), 3)
+               for name, f in formats.FORMATS.items()}
+    out["figure_registry"] = decades
+    log(f"(o4) figure registry ({len(decades)} formats, no ml_dtypes): {json.dumps(decades)}")
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"(o) the takum ISA on the card done in {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
 KERNEL_INFO = {
     "takum_decode_2d": ("K1", "src/repro_torch/kernels/csrc/takum_codec.cu",
                         "src/repro/kernels/takum_codec.py:51"),
@@ -4853,6 +5294,13 @@ SUMMARY = [
     ("takum_decode_attention", "f32", "bits", [4, 32, 8, 288, 128], "f32cache/llama3_8b"),
     ("takum_decode_attention", "f32", "bits", [4, 64, 8, 288, 128],
      "f32cache/llama3_2_vision_90b"),
+    # phase (o): the ISA's decode and encode at llama3-8b's wi shape (t16 and
+    # t8 operands of the elementwise families and of vdppt); the rows are
+    # phase (c)'s
+    ("takum_decode_2d", "t16", "bits", [4096, 14336], "isa/t16"),
+    ("takum_decode_2d", "t8", "lut", [4096, 14336], "isa/t8"),
+    ("takum_encode_2d", "t16", "lut", [4096, 14336], "isa/t16"),
+    ("takum_encode_2d", "t8", "lut", [4096, 14336], "isa/t8"),
 ]
 
 
@@ -4956,6 +5404,8 @@ def main() -> int:
     log("(c) K3 per decode step (launches x ms over the five linears): " + json.dumps(k3_step))
     bank_probe = phase_bank_probe(torch, dev)
 
+    isa_out = phase_isa(torch, dev, card, rows)
+
     serving = {}
     for policy in ("takum", "takum8", "mxfp8"):
         t0 = time.perf_counter()
@@ -5042,6 +5492,7 @@ def main() -> int:
     launches.update({path: r["launches"] for path, r in ssm["serving"].items()})
     launches.update({path: r["launches"] for path, r in vlm["serving"].items()})
     launches.update({f"f32cache/{arch}": r["launches"] for arch, r in vlm["f32_cache"].items()})
+    launches.update(isa_out["launches"])
     summary = []
     for kname, fmt, impl, shape, path, *x in SUMMARY:
         row = next(r for r in rows if (r["kernel"], r["fmt"], r["impl"], r["shape"])
@@ -5093,6 +5544,22 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], bound_rate=row["bound_rate"],
             bound_f32_ms=row["bound_f32_ms"], library_ms=row["library_ms"],
             copy_yardstick_ms=row["copy_yardstick_ms"]))
+    # phase (o): K4 as the tiled VDPPT, launches from the ISA path
+    for row in isa_out["tiled"]:
+        tag, source, replaces = KERNEL_INFO[row["kernel"]]
+        name = (tag + ("-lut" if row["impl"] == "lut" else "")
+                + (f"+{row['out_fmt']}:{row['encode_impl']}" if row["out_fmt"] else ""))
+        n = isa_out["launches"][row["path"]].get(row["launch_key"], 0)
+        check(n > 0, f"{name} was never launched on the {row['path']} path")
+        summary.append(dict(
+            name=f"{name} {row['kernel']} VDPPT {row['fmt']} {'x'.join(map(str, row['shape']))} "
+                 f"{row['loop']}",
+            route="cuda", source=LOOP_SOURCE.get(row["loop"], source), entry=source,
+            replaces=replaces, path=row["path"], launches=n, loop=row["loop"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], bound_rate=row["bound_rate"],
+            library_ms=row["library_ms"], library_bf16_out_ms=row["library_bf16_out_ms"],
+            device_ms=row["device_ms"]))
     # phase (n): K2 / K1 as the ring launches them, launches from rank 0's
     # ring of each format (exact_local=False) and from one pod train step
     for kname, fmt, impl, shape, path, n in dist_summary(dist):
@@ -5120,7 +5587,8 @@ def main() -> int:
              train=dict(token_id_cases=ids_cases, exact=train_exact, full=train_full,
                         restart=train_restart),
              other_archs=other, moe_kernels=moe_kernels, moe=moe, ssm=ssm, vlm=vlm,
-             observability=observability, dist=dist, total_s=time.perf_counter() - t_start),
+             observability=observability, dist=dist, isa=isa_out,
+             total_s=time.perf_counter() - t_start),
         indent=1, default=str))
     print(card)
     print(json.dumps({"kernels": summary}))

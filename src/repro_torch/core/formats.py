@@ -1,7 +1,10 @@
-"""Wire-format registry of the port (counterpart of
-``repro.core.formats.WIRE_FORMATS`` and ``wire_format``): the flat formats
-t8, t16, e4m3, e5m2, bf16 and f32, and the OCP-MX block-scaled containers
-mxe4m3, mxe5m2 and mxt8 (:class:`BlockScaledFormat`).
+"""Format registries of the port (counterpart of ``repro.core.formats``).
+
+The wire registry (``WIRE_FORMATS``, ``wire_format``): the flat formats
+t8, t16, t32, e4m3, e5m2, bf16 and f32, and the OCP-MX block-scaled
+containers mxe4m3, mxe5m2 and mxt8 (:class:`BlockScaledFormat`).  t32 has
+no kernel code (``code`` None): no kernel moves it, as no Pallas codec of
+``repro`` does, and ``kernels.ops`` routes it to the plain codec.
 
 ``encode``/``decode`` are the plain PyTorch codecs with kernel clamp
 semantics, mapping float32 <-> bit patterns.  A flat ``encode`` returns int64
@@ -15,6 +18,11 @@ raw bits, subnormals, signed zeros and NaN payloads kept, and its decode a
 bitcast), never as K3 / K4 weights.  ``encode_np``/``decode_np`` are the
 float64 numpy oracles (:mod:`.codecs_np`) the checkpoint manager packs
 float leaves with.
+
+The figure registry (``FORMATS``, :class:`Format`,
+:func:`dynamic_range_decades`): the paper's Figure 1/2 formats as float64
+round trips with their dynamic-range endpoints, built on numpy and the
+port's own oracles (no ``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import codecs_np, ofp8, takum
+from . import codecs_np, ofp8, posit_np, takum, takum_np
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -157,7 +165,7 @@ def _mx_wire(elem_name: str, elem_emax: int, code: int) -> BlockScaledFormat:
     )
 
 
-def _takum_wire(n: int, code: int) -> WireFormat:
+def _takum_wire(n: int, code: Optional[int]) -> WireFormat:
     return WireFormat(
         name=f"t{n}", nbits=n, family="takum", special="nar", code=code,
         encode=lambda x: takum.takum_encode(x, n),
@@ -208,6 +216,7 @@ WIRE_FORMATS: dict[str, WireFormat] = {
         ),
         _takum_wire(8, 0),
         _takum_wire(16, 1),
+        _takum_wire(32, None),
         _ofp8_wire("e4m3", 2),
         _ofp8_wire("e5m2", 3),
         _mx_wire("e4m3", 8, 5),
@@ -220,8 +229,10 @@ WIRE_FORMATS: dict[str, WireFormat] = {
 WIRE_ALIASES = {
     8: "t8",
     16: "t16",
+    32: "t32",
     "takum8": "t8",
     "takum16": "t16",
+    "takum32": "t32",
     "float32": "f32",
     "bfloat16": "bf16",
     "ofp8_e4m3": "e4m3",
@@ -250,7 +261,8 @@ def kernel_wire_names() -> tuple[str, ...]:
     """The packed wire formats every kernel moves (``repro``'s
     ``kernel_wire_names``: every registered format of at most 16 bits, the
     mx containers included).  f32, the compute dtype, is left out, though
-    K1, K2 and K6 take it (an f32 KV cache)."""
+    K1, K2 and K6 take it (an f32 KV cache), and t32, which no kernel
+    moves."""
     return tuple(name for name, wf in WIRE_FORMATS.items()
                  if wf.code is not None and wf.nbits <= 16)
 
@@ -348,3 +360,99 @@ def special_fraction(payload: torch.Tensor, fmt) -> torch.Tensor:
     if wire_format(fmt).is_block_scaled:
         n = n // 33 * 32
     return count_specials(payload, fmt).to(torch.float32) / max(n, 1)
+
+
+# ---------------------------------------------------------------------------
+# the figure registry (float64 round trips, Figures 1-2)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Format:
+    """A format of the paper's figures: ``roundtrip`` takes float64 values
+    through the format and back; ``minpos`` / ``maxpos`` are its smallest
+    positive (subnormal, where it has them) and largest finite values."""
+
+    name: str
+    nbits: int
+    family: str  # ieee | ofp8 | posit | takum | takum_log
+    roundtrip: Callable[[np.ndarray], np.ndarray]
+    minpos: float
+    maxpos: float
+
+
+def _ieee_roundtrip(dtype):
+    def rt(x):
+        with np.errstate(over="ignore"):
+            return np.asarray(x, dtype=np.float64).astype(dtype).astype(np.float64)
+
+    return rt
+
+
+def _bf16_roundtrip(x):
+    return codecs_np.bf16_decode(codecs_np.bf16_encode(x))
+
+
+def _ofp8_roundtrip(fmt: str):
+    """Through f32 first, then to the format: ``ml_dtypes``' float64 -> OFP8
+    cast (``repro``'s oracle) rounds twice so, and a value just past a tie
+    by less than an f32 ulp lands on the tie's even side."""
+
+    def rt(x):
+        with np.errstate(over="ignore"):
+            x32 = np.asarray(x, dtype=np.float64).astype(np.float32).astype(np.float64)
+        return codecs_np.ofp8_decode(codecs_np.ofp8_encode(x32, fmt), fmt)
+
+    return rt
+
+
+def _posit_roundtrip(n: int):
+    def rt(x):
+        return posit_np.decode(posit_np.encode(x, n), n)
+
+    return rt
+
+
+def _takum_roundtrip(n: int, mode: str):
+    def rt(x):
+        return takum_np.decode(takum_np.encode(x, n, mode), n, mode)
+
+    return rt
+
+
+def _finfo_range(dt: torch.dtype) -> tuple[float, float]:
+    """(smallest subnormal, max finite) of an IEEE-derived dtype: torch's
+    finfo has no ``smallest_subnormal``, so it is the smallest normal times
+    eps (a product of powers of two, exact)."""
+    fi = torch.finfo(dt)
+    return float(fi.tiny * fi.eps), float(fi.max)
+
+
+def _figure_registry() -> dict[str, Format]:
+    fmts = []
+    for name, dt, roundtrip in [
+        ("float16", torch.float16, _ieee_roundtrip(np.float16)),
+        ("bfloat16", torch.bfloat16, _bf16_roundtrip),
+        ("float32", torch.float32, _ieee_roundtrip(np.float32)),
+        ("float64", torch.float64, _ieee_roundtrip(np.float64)),
+    ]:
+        fmts.append(Format(name, torch.finfo(dt).bits, "ieee", roundtrip, *_finfo_range(dt)))
+    for fmt, dt in (("e4m3", torch.float8_e4m3fn), ("e5m2", torch.float8_e5m2)):
+        fmts.append(Format(f"ofp8_{fmt}", 8, "ofp8", _ofp8_roundtrip(fmt), *_finfo_range(dt)))
+    for n in (8, 16, 32):
+        fmts.append(Format(f"posit{n}", n, "posit", _posit_roundtrip(n), posit_np.minpos(n),
+                           posit_np.maxpos(n)))
+    for n in (8, 16, 32):
+        for mode, name, family in (("linear", f"takum{n}", "takum"),
+                                   ("log", f"takum_log{n}", "takum_log")):
+            fmts.append(Format(name, n, family, _takum_roundtrip(n, mode),
+                               takum_np.minpos(n, mode), takum_np.maxpos(n, mode)))
+    return {f.name: f for f in fmts}
+
+
+FORMATS = _figure_registry()
+
+
+def dynamic_range_decades(fmt: Format) -> float:
+    """log10(maxpos / minpos): the Figure 1 quantity."""
+    return float(np.log10(fmt.maxpos) - np.log10(fmt.minpos))

@@ -23,6 +23,25 @@ flush to zero, NaR becomes NaN.  On XLA's CPU backend ``repro``'s value
 decoder flushes the same subnormal results, so both agree on every t8/t16
 code (checked exhaustively in ``tests/test_torch_codecs.py``).
 
+Widths run to 32 bits.  Above 28 the fraction field of a code has more
+bits (up to 27) than f32's 23, and the decoder rounds it as ``repro``'s
+value decoder does on XLA's CPU backend: twice, to nearest even, first to
+24 significant bits (``M.astype(float32)``), then to 23 fraction bits
+(``1.0 + f``), a carry walking into the exponent.  It does so in integer
+arithmetic, so that the CPU and the card (which keeps f32 subnormals) give
+the same bits.
+
+``mode="log"`` selects the logarithmic takum, value ``(-1)**S *
+sqrt(e)**l``: the encoder and decoder take ``repro``'s f32 steps (``log2``
+scaled by ``1/log2(sqrt(e))``, floored, a 23-bit fraction with carry; the
+decoder ``exp2`` of the fraction scaled by a power of two), so they agree
+with it to an ulp of ``log2`` / ``exp2``, not bit for bit.  Results below
+2**-126 flush to zero there, as XLA's CPU backend flushes them.
+
+:func:`storage_dtype`, :func:`pack` and :func:`sortable_int` give the packed
+containers and the two's-complement keys the ISA layer (``core/isa.py``)
+compares with.
+
 torch has no shifts on uint16/uint32, so everything computes in int64 and the
 unsigned dtypes are used for storage only.
 """
@@ -31,15 +50,47 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NAR", "codes_of", "f32_bits", "f32_from_bits", "pow2_f32", "takum_encode",
-           "takum_encode_sr", "takum_decode"]
+__all__ = ["NAR", "codes_of", "f32_bits", "f32_from_bits", "pack", "pow2_f32", "sortable_int",
+           "storage_dtype", "takum_encode", "takum_encode_sr", "takum_decode",
+           "takum_decode_f32bits"]
 
 _I64 = torch.int64
+#: log2(sqrt(e)) and its inverse: the linear <-> logarithmic conversion
+#: constants (``repro``'s, taken to f32 where used)
+_LOG2_SQRT_E = 0.7213475204444817
+_INV_LOG2_SQRT_E = 1.0 / _LOG2_SQRT_E
+_MODES = ("linear", "log")
 
 
 def NAR(n: int) -> int:
     """The Not-a-Real bit pattern for width n (1 followed by zeros)."""
     return 1 << (n - 1)
+
+
+def storage_dtype(n: int) -> torch.dtype:
+    """Narrowest unsigned container for an n-bit takum."""
+    return torch.uint8 if n <= 8 else torch.uint16 if n <= 16 else torch.uint32
+
+
+def pack(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """Integer codes (their low n bits) -> a :func:`storage_dtype` tensor,
+    built through the signed view of the same width (CUDA builds of torch
+    convert few unsigned 16/32-bit tensors)."""
+    dt = storage_dtype(n)
+    if dt == torch.uint8:
+        return (codes.to(_I64) & 0xFF).to(torch.uint8)
+    w = 16 if dt == torch.uint16 else 32
+    c = codes.to(_I64) & ((1 << w) - 1)
+    c = torch.where(c >= 1 << (w - 1), c - (1 << w), c)
+    return c.to(torch.int16 if w == 16 else torch.int32).view(dt)
+
+
+def sortable_int(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """Takum patterns -> int32 keys that order like the real values: the
+    n-bit pattern sign-extended (takums compare as two's-complement
+    integers, the paper's section IV-A)."""
+    b = codes_of(bits) & ((1 << n) - 1)
+    return torch.where(b >= 1 << (n - 1), b - (1 << n), b).to(torch.int32)
 
 
 def codes_of(bits: torch.Tensor) -> torch.Tensor:
@@ -92,18 +143,41 @@ def _round_body(body, nbits, keep: int):
     return out.clamp(1, (1 << keep) - 1)
 
 
-def _encode_body(x: torch.Tensor):
+def _check_mode(mode: str) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"unknown takum mode: {mode!r} (one of {_MODES})")
+
+
+def _f32_const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A python float taken to f32 (as ``jnp.float32(v)``), on ``like``'s device."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _encode_body(x: torch.Tensor, mode: str = "linear"):
     """float32 -> (neg, is_zero, is_nar, body, nbits): the left-aligned
     header + 23-bit fraction of |x| and its bit count (int64), DAZ'd
-    subnormals and zeros flagged zero, NaN and Inf flagged NaR."""
+    subnormals and zeros flagged zero, NaN and Inf flagged NaR.  In log mode
+    the characteristic and fraction are those of l = log2|x| / log2(sqrt e)
+    in f32, as ``repro`` computes them (|l| < 178 for every normal f32, so
+    neither saturation rail of the characteristic is reached)."""
+    _check_mode(mode)
     u = f32_bits(x)
     a = u & 0x7FFFFFFF
     is_zero = a < 0x00800000  # |x| < 2**-126: zero and DAZ'd subnormals
     is_nar = a >= 0x7F800000  # Inf or NaN
     neg = (u >> 31) == 1
     a = torch.where(is_zero | is_nar, torch.full_like(a, 0x3F800000), a)
-    c = (a >> 23) - 127  # f32 characteristics never reach takum's saturation
-    mf = a & 0x7FFFFF
+    if mode == "linear":
+        c = (a >> 23) - 127  # f32 characteristics never reach takum's saturation
+        mf = a & 0x7FFFFF
+    else:
+        af = f32_from_bits(a)
+        lv = torch.log2(af) * _f32_const(_INV_LOG2_SQRT_E, af)
+        cf = torch.floor(lv)
+        mf = torch.floor((lv - cf) * 8388608.0).to(_I64)  # exact: a power of two
+        carry = mf >= 1 << 23
+        c = cf.to(_I64) + carry.to(_I64)
+        mf = torch.where(carry, torch.zeros_like(mf), mf)
 
     cneg = c < 0
     g = torch.where(cneg, -c, c + 1)
@@ -124,12 +198,13 @@ def _finish(neg, is_zero, is_nar, mag, n: int) -> torch.Tensor:
     return torch.where(is_nar, torch.full_like(enc, NAR(n)), enc)
 
 
-def takum_encode(x: torch.Tensor, n: int) -> torch.Tensor:
-    """float32 -> n-bit linear takum bit patterns (int64), RNE, DAZ,
-    saturating; NaN and Inf encode to NaR.  ``n`` in [2, 28]."""
-    if not 2 <= n <= 28:
-        raise ValueError(f"takum_encode supports 2 <= n <= 28, got {n}")
-    neg, is_zero, is_nar, body, nbits = _encode_body(x)
+def takum_encode(x: torch.Tensor, n: int, mode: str = "linear") -> torch.Tensor:
+    """float32 -> n-bit takum bit patterns (int64), RNE, DAZ, saturating;
+    NaN and Inf encode to NaR.  ``n`` in [2, 32]; ``mode`` "linear" or
+    "log" (see the module docstring)."""
+    if not 2 <= n <= 32:
+        raise ValueError(f"takum_encode supports 2 <= n <= 32, got {n}")
+    neg, is_zero, is_nar, body, nbits = _encode_body(x, mode)
     return _finish(neg, is_zero, is_nar, _round_body(body, nbits, n - 1), n)
 
 
@@ -141,16 +216,22 @@ def takum_encode_sr(x: torch.Tensor, n: int, rnd_bits: torch.Tensor) -> torch.Te
     magnitude clamped to [1, 2**(n-1) - 1]; zero, DAZ and NaR as
     :func:`takum_encode`.  ``rnd_bits``: x's shape, uint32 values in an
     integer tensor (int64, or their int32 view), given by the caller and
-    never drawn here.  ``n`` in [2, 27] (a body has at least 27 bits, so
-    t >= 1)."""
-    if not 2 <= n <= 27:
-        raise ValueError(f"takum_encode_sr supports 2 <= n <= 27, got {n}")
+    never drawn here.  ``n`` in [2, 32].  A body has 27 to 34 bits; where it
+    is shorter than the n - 1 kept bits (n > 28 only) nothing is discarded
+    and the body is left-aligned, the exact code :func:`takum_encode` gives
+    (``repro`` keeps it unshifted there: ROADMAP R10)."""
+    if not 2 <= n <= 32:
+        raise ValueError(f"takum_encode_sr supports 2 <= n <= 32, got {n}")
     if rnd_bits.shape != x.shape:
         raise ValueError(f"rnd_bits {tuple(rnd_bits.shape)} must match x {tuple(x.shape)}")
     neg, is_zero, is_nar, body, nbits = _encode_body(x)
-    t = (nbits - (n - 1)).clamp(0, 31)
-    add = rnd_bits.to(_I64) & ((torch.ones_like(t) << t) - 1)
-    mag = ((body + add) >> t).clamp(1, (1 << (n - 1)) - 1)
+    t = nbits - (n - 1)
+    tc = t.clamp(0, 31)
+    add = rnd_bits.to(_I64) & ((torch.ones_like(tc) << tc) - 1)
+    mag = (body + add) >> tc
+    if n > 28:
+        mag = torch.where(t < 0, body << (-t).clamp(min=0), mag)
+    mag = mag.clamp(1, (1 << (n - 1)) - 1)
     return _finish(neg, is_zero, is_nar, mag, n)
 
 
@@ -174,23 +255,92 @@ def _decode_fields(bits: torch.Tensor, n: int):
     return neg, c, M, p
 
 
-def takum_decode_f32bits(bits: torch.Tensor, n: int) -> torch.Tensor:
-    """n-bit takum patterns -> IEEE f32 bit patterns (int64), assembled
-    directly: c > 127 saturates to max-finite, c < -126 flushes to +0,
-    NaR -> canonical NaN, zero -> +0.  ``n`` in [5, 28] (p <= 23)."""
-    if not 5 <= n <= 28:
-        raise ValueError(f"takum decode supports 5 <= n <= 28, got {n}")
+def _rne_shr(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``v >> s`` rounded to nearest, ties to even (int64, s >= 0)."""
+    sc = s.clamp(min=1)
+    kept = v >> sc
+    guard = (v >> (sc - 1)) & 1
+    sticky = (v & ((torch.ones_like(sc) << (sc - 1)) - 1)) != 0
+    up = (guard == 1) & (sticky | ((kept & 1) == 1))
+    return torch.where(s > 0, kept + up.to(_I64), v)
+
+
+def _round_m24(M: torch.Tensor) -> torch.Tensor:
+    """An integer fraction field M < 2**27 rounded to 24 significant bits,
+    to nearest even (the value of ``M.astype(float32)``)."""
+    s = (M >= 1 << 24).to(_I64) + (M >= 1 << 25).to(_I64) + (M >= 1 << 26).to(_I64)
+    return _rne_shr(M, s) << s
+
+
+def _f32bits(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """The linear decode as IEEE f32 patterns (int64), any n in [5, 32]; see
+    :func:`takum_decode_f32bits`.  Above n = 28 the fraction is rounded
+    twice (the module docstring), which may carry into the exponent."""
     b = codes_of(bits) & ((1 << n) - 1)
     is_zero = b == 0
     is_nar = b == NAR(n)
     neg, c, M, p = _decode_fields(b, n)
-    out = ((c.clamp(-126, 127) + 127) << 23) | (M << (23 - p))
+    if n > 28:
+        q = _rne_shr(_round_m24(M), (p - 23).clamp(min=0))
+        q = torch.where(p > 23, q, M << (23 - p).clamp(min=0))
+        c = c + (q >> 23)  # 1 + f rounded up to 2
+        frac = q & 0x7FFFFF
+    else:
+        frac = M << (23 - p)
+    out = ((c.clamp(-126, 127) + 127) << 23) | frac
     out = torch.where(c > 127, torch.full_like(out, 0x7F7FFFFF), out)
     out = torch.where((c < -126) | is_zero, torch.zeros_like(out), out)
     out = torch.where(is_nar, torch.full_like(out, 0x7FC00000), out)
     return torch.where(is_zero | is_nar | ~neg, out, out | (1 << 31))
 
 
-def takum_decode(bits: torch.Tensor, n: int) -> torch.Tensor:
-    """n-bit takum patterns -> float32 (see :func:`takum_decode_f32bits`)."""
-    return f32_from_bits(takum_decode_f32bits(bits, n))
+def takum_decode_f32bits(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """n-bit takum patterns -> IEEE f32 bit patterns (int64), assembled
+    directly: c > 127 saturates to max-finite, c < -126 flushes to zero
+    (signed: a negative code gives -0), NaR -> canonical NaN, zero -> +0.
+    ``n`` in [5, 28] (p <= 23), as ``repro``'s."""
+    if not 5 <= n <= 28:
+        raise ValueError(f"takum decode supports 5 <= n <= 28, got {n}")
+    return _f32bits(bits, n)
+
+
+def _scale_pow2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """x * 2**k in float32 as two exact power-of-two factors, k in
+    [-253, 254] (``repro``'s ``_scale_pow2``); overflow gives inf."""
+    a = k.clamp(-126, 127)
+    return x * pow2_f32(a) * pow2_f32((k - a).clamp(-126, 127))
+
+
+def _log_decode(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """The logarithmic decode (``repro``'s f32 steps): l = (c + f) *
+    log2(sqrt e), value 2**floor(l) * exp2(frac(l)); magnitudes below
+    2**-126 flush to zero (XLA's FTZ), above f32's range saturate."""
+    b = codes_of(bits) & ((1 << n) - 1)
+    neg, c, M, p = _decode_fields(b, n)
+    if n > 28:
+        M = _round_m24(M)
+    f = M.to(torch.float32) * pow2_f32(-p)  # exact: M holds at most 24 significant bits
+    lv = (c.to(torch.float32) + f) * _f32_const(_LOG2_SQRT_E, f)
+    lf = torch.floor(lv)
+    x = torch.exp2(lv - lf)
+    k = lf.to(_I64)
+    val = _scale_pow2(x, k.clamp(-253, 254))
+    tiny = (k < -127) | ((k == -127) & (x < 2.0))  # x * 2**k < 2**-126 exactly
+    val = torch.where(tiny, torch.zeros_like(val), val)
+    val = torch.clamp_max(val, 3.4028234663852886e38)
+    val = torch.where(neg, -val, val)
+    val = torch.where(b == 0, torch.zeros_like(val), val)
+    return torch.where(b == NAR(n), torch.full_like(val, float("nan")), val)
+
+
+def takum_decode(bits: torch.Tensor, n: int, mode: str = "linear") -> torch.Tensor:
+    """n-bit takum patterns -> float32.  Linear: see
+    :func:`takum_decode_f32bits`, for ``n`` in [5, 32] (above 28 the
+    fraction rounds twice, as ``repro``'s decoder rounds it).  Log: see the
+    module docstring."""
+    _check_mode(mode)
+    if not 5 <= n <= 32:
+        raise ValueError(f"takum decode supports 5 <= n <= 32, got {n}")
+    if mode == "log":
+        return _log_decode(bits, n)
+    return f32_from_bits(_f32bits(bits, n))

@@ -52,8 +52,8 @@ DEFAULT_ENCODE_IMPL = {
 #: supported values for the decode_impl/encode_impl knobs
 DECODE_IMPLS = ("bits", "lut")
 
-#: takums wider than 16 bits: the kernel codecs cannot move them (the port
-#: registers none; repro sends t32 down its jnp reference path)
+#: takums wider than 16 bits: the kernel codecs cannot move them (``ops``
+#: takes t32's plain codec, as repro sends it down its jnp reference path)
 _WIDE_TAKUMS = ("t32", "takum32", 32)
 
 #: |x| bits of 1.0, read from the tables in place of Inf/NaN, whose codes
@@ -91,9 +91,10 @@ def resolve_out_fmt(out_fmt, encode_impl) -> tuple[str | None, str | None]:
     """Normalise a producer's fused-encode knobs (``out_fmt=``,
     ``encode_impl=`` of ``matmul``, ``dual_matmul`` and
     ``decode_attention``): ``(canonical name, encode impl)``, or ``(None,
-    None)`` for a plain f32 output.  An unknown format (t32 among them: the
-    port registers none) raises the registry's KeyError; "lut" where the
-    format has no encode tables (bf16) raises ValueError."""
+    None)`` for a plain f32 output.  An unknown format raises the
+    registry's KeyError; t32 (no kernel encodes it: ``ops`` encodes the f32
+    output after the kernel) and "lut" where the format has no encode
+    tables (bf16) raise ValueError."""
     if out_fmt is None:
         return None, None
     name = wire_format(out_fmt).name

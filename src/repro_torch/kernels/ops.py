@@ -45,6 +45,15 @@ calls of the ops; the kernels actually launched stay :func:`launch_counts`
 (K5's autograd Function calls its wrappers directly, unobserved).
 Outside a capture an op adds nothing.
 
+t32 (a takum wider than 16 bits) has no kernel, as no Pallas codec of
+``repro`` covers it (``repro``'s ``_kernel_fmt_ok``): ``encode`` / ``decode``
+of t32 and every op over t32 operands take the plain PyTorch versions on any
+device, as ``repro`` takes its jnp reference; ``out_fmt="t32"`` runs the
+producer's kernel with f32 output and then the plain t32 encode, which is
+``encode(<the unfused output>, "t32")`` by construction.  Each route is
+chosen by format, never by a failure, and the launch counts show it.  The
+codec knobs are not read for t32 (as in ``repro``).
+
 On CUDA tensors the ops launch the kernels; on CPU tensors the kernel
 wrappers take their plain versions.  Inside ``with plain_path():`` every op
 takes its plain version on any device: it is the explicit reference mode
@@ -102,6 +111,31 @@ def plain_acc():
     """The accumulation dtype of the plain versions inside
     :func:`plain_path`, or None outside it (the kernels run)."""
     return _PLAIN_ACC
+
+
+def plain_only(fmt) -> bool:
+    """True for a takum wider than 16 bits (t32): no kernel codec moves it,
+    so the ops take its plain version on any device."""
+    wf = wire_format(fmt)
+    return wf.family == "takum" and wf.nbits > 16
+
+
+def _split_out(out_fmt):
+    """A producer's ``out_fmt`` -> (the format its kernel encodes, the
+    format encoded after it by the plain codec): (out_fmt, None), or (None,
+    t32) for a plain-only out format."""
+    if out_fmt is None or not plain_only(out_fmt):
+        return out_fmt, None
+    return None, wire_format(out_fmt)
+
+
+def _plain_encode(x: torch.Tensor, wf) -> torch.Tensor:
+    """The plain encode of a plain-only format, packed."""
+    return wf.pack(wf.encode(x.to(torch.float32)))
+
+
+def _finish_out(out: torch.Tensor, after) -> torch.Tensor:
+    return out if after is None else _plain_encode(out, after)
 
 
 def supported_wire_formats() -> tuple[str, ...]:
@@ -211,6 +245,9 @@ def encode(x: torch.Tensor, fmt, encode_impl=None) -> torch.Tensor:
     """float32 [...] -> packed wire bits of the same shape (K2); an mx format
     gives the payload, last dim n -> n/32*33."""
     wf = wire_format(fmt)
+    if plain_only(wf):
+        return _observed("encode", wf.name, x.device, lambda: _plain_encode(x, wf),
+                         out_is_wire=True)
     _check_mx_encode_input(x, wf)
     impl = resolve_impl(encode_impl, wf, "encode")
 
@@ -227,6 +264,8 @@ def decode(bits: torch.Tensor, fmt, decode_impl=None) -> torch.Tensor:
     """Packed wire bits [...] -> float32 of the same shape (K1); an mx
     payload's last dim L becomes L/33*32."""
     wf = wire_format(fmt)
+    if plain_only(wf):
+        return _observed("decode", wf.name, bits.device, lambda: wf.decode(bits), bits)
     _check_mx_payload(bits, wf, "decode payload")
     impl = resolve_impl(decode_impl, wf)
 
@@ -279,13 +318,17 @@ def matmul(x: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_impl=None,
     mx ``w_bits`` is the payload [K, ceil(N/32)*33]; ``n`` is its logical N."""
     wf = wire_format(fmt)
     _check_mx_payload(w_bits, wf, "matmul w_bits")
-    impl = resolve_impl(decode_impl, wf)
+    impl = "bits" if plain_only(wf) else resolve_impl(decode_impl, wf)
+    kernel_out, after = _split_out(out_fmt)
 
     def call():
-        if _PLAIN_ACC is None:
-            return takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl, out_fmt,
-                                encode_impl)
-        return takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt, encode_impl)
+        if _PLAIN_ACC is None and not plain_only(wf):
+            out = takum_matmul(x.contiguous(), w_bits.contiguous(), wf, n, impl, kernel_out,
+                               encode_impl)
+        else:
+            out = takum_matmul_plain(x, w_bits, wf, n, _PLAIN_ACC or torch.float32, impl,
+                                     kernel_out, encode_impl)
+        return _finish_out(out, after)
 
     return _observed("matmul", wf.name, x.device, call, w_bits,
                      out_is_wire=out_fmt is not None)
@@ -296,12 +339,12 @@ def matmul_t(x: torch.Tensor, w_bits: torch.Tensor, fmt, decode_impl=None) -> to
     transposed K3 (K5's backward launch), reading the stored bits in place;
     flat formats only.  Counts on ``takum_matmul`` under ``"impl^T"``."""
     wf = wire_format(fmt)
-    impl = resolve_impl(decode_impl, wf)
+    impl = "bits" if plain_only(wf) else resolve_impl(decode_impl, wf)
 
     def call():
-        if _PLAIN_ACC is None:
+        if _PLAIN_ACC is None and not plain_only(wf):
             return takum_matmul_t(x.contiguous(), w_bits.contiguous(), fmt, impl)
-        return takum_matmul_t_plain(x, w_bits, fmt, _PLAIN_ACC, impl)
+        return takum_matmul_t_plain(x, w_bits, wf, _PLAIN_ACC or torch.float32, impl)
 
     return _observed("matmul_t", wf.name, x.device, call, w_bits)
 
@@ -315,14 +358,17 @@ def dual_matmul(x_bits: torch.Tensor, w_bits: torch.Tensor, fmt, n=None, decode_
     wf = wire_format(fmt)
     _check_mx_payload(x_bits, wf, "dual_matmul x_bits")
     _check_mx_payload(w_bits, wf, "dual_matmul w_bits")
-    impl = resolve_impl(decode_impl, wf)
+    impl = "bits" if plain_only(wf) else resolve_impl(decode_impl, wf)
+    kernel_out, after = _split_out(out_fmt)
 
     def call():
-        if _PLAIN_ACC is None:
-            return takum_dual_matmul(x_bits.contiguous(), w_bits.contiguous(), wf, n, impl,
-                                     out_fmt, encode_impl)
-        return takum_dual_matmul_plain(x_bits, w_bits, wf, n, _PLAIN_ACC, impl, out_fmt,
-                                       encode_impl)
+        if _PLAIN_ACC is None and not plain_only(wf):
+            out = takum_dual_matmul(x_bits.contiguous(), w_bits.contiguous(), wf, n, impl,
+                                    kernel_out, encode_impl)
+        else:
+            out = takum_dual_matmul_plain(x_bits, w_bits, wf, n, _PLAIN_ACC or torch.float32,
+                                          impl, kernel_out, encode_impl)
+        return _finish_out(out, after)
 
     return _observed("dual_matmul", wf.name, x_bits.device, call, x_bits, w_bits,
                      out_is_wire=out_fmt is not None)
@@ -337,12 +383,15 @@ def decode_attention(q, k_bits, v_bits, fmt, *, length=None, window=0, softcap=0
     wf = wire_format(fmt)
     _check_mx_payload(k_bits, wf, "decode_attention k_bits")
     _check_mx_payload(v_bits, wf, "decode_attention v_bits")
-    impl = resolve_impl(decode_impl, wf)
+    impl = "bits" if plain_only(wf) else resolve_impl(decode_impl, wf)
+    kernel_out, after = _split_out(out_fmt)
 
     def call():
-        fn = takum_decode_attention if _PLAIN_ACC is None else decode_attention_plain
-        return fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale, impl,
-                  out_fmt, encode_impl)
+        kernel = _PLAIN_ACC is None and not plain_only(wf)
+        fn = takum_decode_attention if kernel else decode_attention_plain
+        out = fn(q.contiguous(), k_bits, v_bits, wf, length, window, softcap, scale, impl,
+                 kernel_out, encode_impl)
+        return _finish_out(out, after)
 
     return _observed("decode_attention", wf.name, q.device, call, k_bits, v_bits,
                      out_is_wire=out_fmt is not None)

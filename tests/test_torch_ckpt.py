@@ -137,9 +137,8 @@ def test_train_state_checkpoint_crosses(tmp_path):
     assert back.rng.dtype == torch.uint32 and back.opt.m["embed"].fmt == "t16"
 
 
-#: every format the port registers; ``repro`` also registers t32, which the
-#: port does not (ROADMAP M1)
-CKPT_FORMATS = ("f32", "bf16", "t8", "t16", "e4m3", "e5m2", "mxe4m3", "mxe5m2", "mxt8")
+#: every format the port registers, as ``repro`` registers them
+CKPT_FORMATS = ("f32", "bf16", "t8", "t16", "t32", "e4m3", "e5m2", "mxe4m3", "mxe5m2", "mxt8")
 
 
 def test_every_registered_format_has_numpy_oracles():

@@ -141,6 +141,9 @@ def test_ofp8_overflow_rules():
 def test_wire_format_aliases():
     assert formats.wire_format(8) is formats.wire_format("t8")
     assert formats.wire_format("takum16").name == "t16"
+    assert formats.wire_format(32) is formats.wire_format("takum32") is formats.wire_format("t32")
+    assert formats.wire_format(32).storage == torch.uint32 and formats.wire_format(32).code is None
+    assert "t32" not in formats.kernel_wire_names()
     assert formats.wire_format("bfloat16").storage == torch.uint16
     assert set(formats.kernel_wire_names()) == set(FMTS) | {"mxe4m3", "mxe5m2", "mxt8"}
     assert formats.wire_format("mxfp8").name == "mxe4m3"

@@ -19,10 +19,15 @@ holds the CUDA kernels against these on the card.
     (tests/test_kernels.py:250-252); K6's decoded fused output within rtol
     0.1, atol 0.05 of ``decode_attention_ref`` (tests/test_kernels.py:340).
   * Loud errors, as in ``repro``: an mx out_fmt over N or d not a multiple
-    of 32, and encode_impl="lut" for bf16.  The port's own: out_fmt="t32"
-    raises the registry's KeyError (``repro`` takes its jnp reference there;
-    the port registers no t32).
+    of 32, and encode_impl="lut" for bf16.
+  * out_fmt="t32" (no kernel encodes it, as no Pallas codec of ``repro``
+    does): K3 / K4 / K6 run unfused and the plain t32 encode follows, equal
+    bit for bit to the port's t32 encode of their own unfused output,
+    specials included, on the kernel route and under ``ops.plain_path()``
+    (``tests/test_special_propagation.py``'s t32 case, for the port).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -232,18 +237,39 @@ def test_lut_encode_for_bf16_raises_like_repro():
 
 
 def test_t32_out_fmt_raises_the_registry_error():
-    x = _t(_rand((4, 32), 25))
+    """Kept under its old name: t32 is registered now and raises no more.
+    K3, K4 and K6 with ``out_fmt="t32"`` equal the port's t32 encode of
+    their own unfused output bit for bit, NaN rows (NaR) included, on the
+    kernel route and the plain path; the unfused launch is what counts."""
+    x = _rand((4, 32), 25)
+    x[0, 0] = np.nan
+    xt = _t(x)
     wb = _t(_enc(_rand((32, 32), 26), "t8"))
-    with pytest.raises(KeyError):
-        ops.matmul(x, wb, "t8", out_fmt="t32")
-    with pytest.raises(KeyError):
-        ops.dual_matmul(ops.encode(x, "t8"), wb, "t8", out_fmt="t32")
+    xb = ops.encode(xt, "t8")
     kv = wb.reshape(1, 1, 32, 32)
-    with pytest.raises(KeyError):
-        ops.decode_attention(_t(_rand((1, 2, 32), 27)), kv, kv, "t8", out_fmt="t32")
-    with ops.plain_path():
-        with pytest.raises(KeyError):
-            ops.matmul(x, wb, "t8", out_fmt="t32")
+    q = _rand((1, 2, 32), 27)
+    q[0, 1, 0] = np.inf
+    qt = _t(q)
+    for plain in (False, True):
+        with ops.plain_path() if plain else contextlib.nullcontext():
+            cases = [
+                (ops.matmul(xt, wb, "t8", out_fmt="t32"), ops.matmul(xt, wb, "t8")),
+                (ops.dual_matmul(xb, wb, "t8", out_fmt="takum32"), ops.dual_matmul(xb, wb, "t8")),
+                (ops.decode_attention(qt, kv, kv, "t8", out_fmt=32),
+                 ops.decode_attention(qt, kv, kv, "t8")),
+            ]
+            for fused, unfused in cases:
+                assert fused.dtype == torch.uint32 and fused.shape == unfused.shape
+                assert torch.equal(fused.view(torch.int32), ops.encode(unfused, "t32").view(torch.int32))
+                y = ops.decode(fused, "t32")
+                assert torch.equal(torch.isnan(y), torch.isnan(unfused))
+    y = ops.decode(ops.matmul(xt, wb, "t8", out_fmt="t32"), "t32")
+    assert torch.isnan(y[0]).all() and torch.isfinite(y[1:]).all()
+    # the t32 encode is repro's, so the route is repro's fallback's contract
+    unfused = ops.matmul(xt, wb, "t8").numpy()
+    want = np.asarray(jops.encode(jnp.asarray(unfused), "t32"))
+    got = ops.matmul(xt, wb, "t8", out_fmt="t32")
+    assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32), want)
 
 
 def test_fused_launches_take_no_unfused_count_on_cpu():

@@ -33,7 +33,10 @@ single ones, from bf16 sources equal to their f32 widening, and as the
 gathered, scaled and cast embedding rows, all bit for bit; the rows of
 int32 ids equal those of int64 ids, and ids off the table read what the
 plain version reads (wrapped, then clamped).  The training slice's SR
-encoders give the same codes on the card as on the host.
+encoders give the same codes on the card as on the host.  Every linear
+t8 / t16 family of the executable ISA (``core/isa.py``: decode and encode
+through K1 / K2) equals its plain path bit for bit, and the t32 decode (the
+plain codec on either device) gives the host's bits on the card.
 """
 
 import pytest
@@ -1551,3 +1554,117 @@ def test_capture_resolves_event_spans_and_adds_no_launch(cuda):
     assert snap["counters"]["t.specials"] == float(count_specials(w.cpu(), "t8"))
     assert ops.launch_counts() == base
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the executable takum ISA
+# ---------------------------------------------------------------------------
+
+def _roll1(t):
+    """``t`` rolled by one, through the signed view (CUDA builds of torch
+    have no roll on uint16)."""
+    dt = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    return torch.roll(t.view(dt), 1).view(t.dtype)
+
+
+ISA_CALLS = {
+    "VADDT": lambda f, a, b, n: f(a, b, n), "VSUBT": lambda f, a, b, n: f(a, b, n),
+    "VMULT": lambda f, a, b, n: f(a, b, n), "VDIVT": lambda f, a, b, n: f(a, b, n),
+    "VMINT": lambda f, a, b, n: f(a, b, n), "VMAXT": lambda f, a, b, n: f(a, b, n),
+    "VCMPT": lambda f, a, b, n: f(a, b, n, "le"),
+    "VFMADDT": lambda f, a, b, n: f(a, b, _roll1(b), n),
+    "VSQRTT": lambda f, a, b, n: f(a, n), "VNEGT": lambda f, a, b, n: f(a, n),
+    "VABST": lambda f, a, b, n: f(a, n), "VCVTPT2PS": lambda f, a, b, n: f(a, n),
+    "VCVTT2T": lambda f, a, b, n: f(a, n, 24 - n),
+    "VCVTPS2PT": lambda f, a, b, n: f(torch.cat([ops.decode(a, f"t{n}"), _rand(4096, 3).to(a.device)]), n),
+    "VDPPT": lambda f, a, b, n: f(a.reshape(-1, 64), b.reshape(-1, 64), n),
+}
+#: the families that decode or encode through K1 / K2
+ISA_CODEC = {"VADDT", "VSUBT", "VMULT", "VDIVT", "VFMADDT", "VSQRTT", "VCVTPT2PS", "VCVTPS2PT",
+             "VDPPT"}
+
+
+def _isa_pairs(n, dev):
+    """t8: every (a, b) pair; t16: 2^16 seeded pairs."""
+    from repro_torch.core.takum import pack
+
+    if n == 8:
+        c = torch.arange(1 << 16, dtype=torch.int64)
+        a, b = c >> 8, c & 0xFF
+    else:
+        g = torch.Generator().manual_seed(16)
+        a, b = (torch.randint(0, 1 << 16, (1 << 16,), generator=g) for _ in range(2))
+    return pack(a, n).to(dev), pack(b, n).to(dev)
+
+
+def _same_out(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
+    elif got.dtype == torch.bool:
+        assert torch.equal(got, want)
+    else:
+        w = got.element_size()
+        dt = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[w]
+        assert torch.equal(got.view(dt), want.view(dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (8, 16))
+@pytest.mark.parametrize("name", list(ISA_CALLS))
+def test_isa_family_on_card_equals_its_plain_path(cuda, name, n):
+    from repro_torch.core import isa
+
+    a, b = _isa_pairs(n, cuda)
+    run = lambda a, b: ISA_CALLS[name](isa.REGISTRY[name], a, b, n)
+    ops.reset_launch_counts()
+    got = run(a, b)
+    torch.cuda.synchronize()
+    launched = sum(ops.launch_counts().values())
+    assert (launched > 0) == (name in ISA_CODEC), (name, ops.launch_counts())
+    with ops.plain_path():
+        _same_out(got, run(a, b))
+    _same_out(got.cpu(), run(a.cpu(), b.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (5, 12, 24))
+def test_isa_integer_families_short_of_their_container_on_card(cuda, n):
+    """The decode-free families at widths that do not fill their storage
+    dtype (keys sign-extended by shifts in the signed container), and on
+    int64 codes, equal the host's."""
+    from repro_torch.core import isa
+    from repro_torch.core.takum import pack
+
+    g = torch.Generator().manual_seed(n)
+    a64, b64 = (torch.randint(0, 1 << n, (1 << 16,), generator=g) for _ in range(2))
+    for a, b in ((pack(a64, n), pack(b64, n)), (a64, b64)):
+        for name in ("VMINT", "VMAXT"):
+            f = isa.REGISTRY[name]
+            _same_out(f(a.to(cuda), b.to(cuda), n).cpu(), f(a, b, n))
+        for op in ("lt", "eq", "ge"):
+            _same_out(isa.vcmpt(a.to(cuda), b.to(cuda), n, op).cpu(), isa.vcmpt(a, b, n, op))
+        for f in (isa.vnegt, isa.vabst):
+            _same_out(f(a.to(cuda), n).cpu(), f(a, n))
+        for m in (n // 2, min(2 * n, 32)):
+            _same_out(isa.vcvtt2t(a.to(cuda), n, m).cpu(), isa.vcvtt2t(a, n, m))
+
+
+@pytest.mark.gpu
+def test_isa_t32_decode_on_card_equals_host(cuda):
+    from repro_torch.core import isa, takum
+
+    g = torch.Generator().manual_seed(32)
+    codes = takum.pack(torch.randint(0, 1 << 32, (1 << 20,), generator=g), 32)
+    got = isa.vcvtpt2ps(codes.to(cuda), 32)
+    _same_out(got.cpu(), isa.vcvtpt2ps(codes, 32))
+    _same_out(ops.decode(codes.to(cuda), "t32").cpu(), takum.takum_decode(codes, 32))
+    x = _rand(1 << 16, 4) * 1e3
+    _same_out(isa.vcvtps2pt(x.to(cuda), 32).cpu(), isa.vcvtps2pt(x, 32))
+    lg = isa.vcvtpt2ps(codes.to(cuda), 32, mode="log").cpu()
+    lh = isa.vcvtpt2ps(codes, 32, mode="log")
+    ok = ~torch.isnan(lh)
+    assert torch.equal(torch.isnan(lg), ~ok)
+    assert int((lg[ok].view(torch.int32).long() - lh[ok].view(torch.int32).long()).abs().max()) <= 4

@@ -28,6 +28,7 @@ Tolerances, on max |logit difference| / max |repro logit| per step:
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -338,16 +339,29 @@ def test_unported_families_raise():
 
 
 def test_port_imports_neither_jax_nor_repro():
+    """Every module of the port, ``chip_smoke.py`` and the ISA / figure
+    modules (``core/isa.py``, ``core/formats.py``, ``core/posit_np.py``)
+    load without jax, ``repro`` or ``ml_dtypes``, which the card machine
+    lacks; ``chip_smoke.py`` names none of them in an import either."""
+    root = Path(__file__).resolve().parents[1]
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "import chip_smoke\n"
+        "from repro_torch.core import formats, isa, posit_np\n"
+        "assert len(isa.REGISTRY) == 15 and len(formats.FORMATS) == 15\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
+                         env={**os.environ, "PYTHONPATH": f"{root / 'src'}{os.pathsep}{root}"},
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+    imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", (root / "chip_smoke.py").read_text(),
+                         re.M)
+    assert not [m for m in imports if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
